@@ -35,8 +35,10 @@ SIGNATURES = {
             _I, _I, _I, _I, _I, _I, _F, _I,  # B, L, Cin, C, K, groups, eps, epi
             _P, _I, _P, _P,  # epilogue input, Ce, its weight, its bias
             _P, _I, _I, _I,  # out, x_dtype, p_dtype, out_dtype
+            _I, _I, _I,  # cluster size, threads, shared-memory bytes
             _P,  # stream
         ],
+        "adm_empty_launch": [_I, _I, _I, _P],  # CTAs, threads, cluster size, stream
     },
 }
 

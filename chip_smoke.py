@@ -14,7 +14,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    classifier-free and classifier guidance configs. Launch counts show the
    kernels on the path; the first plan is held against the same planner on
    the CPU; plan latency p50 and peak memory are printed;
-5. kernel time by CUDA events beside the plain version's and the bound.
+5. kernel time by CUDA events beside the plain version's and the bound, with
+   each launch's cluster size and CTA count; the device time of an empty
+   kernel launched the same way (the floor one launch pays); and each
+   residual block's time at every cluster size the geometry can pick.
 
 The last two lines of standard output are the card (nvidia-smi) and the
 kernels as JSON, then ``{"ok": true, "device": ...}``. Per-shape numbers go
@@ -281,6 +284,15 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
+    def geometries(fn, args):
+        """The geometry of each launch of one call, as the wrapper launches it."""
+        B, L, cin = args[0].shape
+        if fn is kernels.fused_residual_block:
+            return kernels.residual_block_geometry(B, L, cin, args[2].shape[2], args[1].shape[1],
+                                                   args[12] is not None)
+        return (kernels.launch_geometry(B, L, cin, args[1].shape[2], args[1].shape[0], 8, 0,
+                                        kernels.EPI_NONE),)
+
     def bound_ms(fn, args):
         x = args[0]
         B, L, cin = x.shape
@@ -306,14 +318,18 @@ def main() -> int:
         for kname in ("fused_residual_block", "fused_conv1d_gn_mish"):
             mine = [c for c in cases if c[0].__name__ == kname]
             bounds = [bound_ms(c[0], c[2]) for c in mine]
+            geos = [g for c in mine for g in geometries(c[0], c[2])]
             summary[kname] = dict(
                 ms=graph_ms([kcall(c) for c in mine]),
                 plain_ms=graph_ms([pcall(c) for c in mine]),
                 bound_ms=sum(b for b, _ in bounds),
                 bound_by="bytes" if all(by == "bytes" for _, by in bounds) else "operations",
                 calls=len(mine),
+                cs=sorted({g.cs for g in geos}), ctas=sum(g.ctas for g in geos),
             )
-            log(f"time {kname}: one forward's {len(mine)} calls, device ms: kernel "
+            log(f"time {kname}: one forward's {len(mine)} calls ({len(geos)} launches, clusters of "
+                f"{'/'.join(map(str, summary[kname]['cs']))}, {summary[kname]['ctas']} CTAs in all), "
+                f"device ms: kernel "
                 f"{summary[kname]['ms']:.4f}, plain {summary[kname]['plain_ms']:.4f}, "
                 f"bound {summary[kname]['bound_ms']:.4f} on {smi}")
         k_eager = eager_cycle_ms([kcall(c) for c in cases])
@@ -321,20 +337,59 @@ def main() -> int:
         for (n, m, a), c, ke, pe in zip(calls, cases, k_eager, p_eager):
             fn, _, args = c
             b, by = bound_ms(fn, args)
+            geos = geometries(fn, args)
             # the same call 20 times in one graph: device time with the
             # block's weights warm in L2
             reps = 20
             row = dict(kernel=fn.__name__, block=n, shape=list(args[0].shape),
                        C=int(args[2 if fn is kernels.fused_residual_block else 1].shape[-1]),
+                       cs=[g.cs for g in geos], ctas=[g.ctas for g in geos],
                        kernel_us=graph_ms([kcall(c)] * reps) / reps * 1e3,
                        plain_us=graph_ms([pcall(c)] * reps) / reps * 1e3,
                        kernel_eager_us=ke * 1e3, plain_eager_us=pe * 1e3,
                        bound_us=b * 1e3, bound_by=by)
             report["shapes"].append(row)
-            log(f"time {fn.__name__:22s} {n:22s} L={row['shape'][1]:2d} {row['shape'][2]:4d}->{row['C']:4d}: "
+            log(f"time {fn.__name__:22s} {n:22s} L={row['shape'][1]:2d} {row['shape'][2]:4d}->{row['C']:4d} "
+                f"cs={'/'.join(map(str, row['cs']))} ctas={'/'.join(map(str, row['ctas']))}: "
                 f"kernel_us={row['kernel_us']:.2f} plain_us={row['plain_us']:.2f} "
                 f"(eager, host included: {row['kernel_eager_us']:.1f} / {row['plain_eager_us']:.1f}) "
                 f"bound_us={row['bound_us']:.3f} ({by}) on {smi}")
+
+        # the floor one launch pays: an empty kernel launched as the kernels
+        # are (cudaLaunchKernelEx with a cluster dimension), 20 in one graph
+        lib = build.library(kernels.SOURCE)
+
+        def empty(ctas, threads, cs):
+            def f():
+                err = lib.adm_empty_launch(ctas, threads, cs, torch.cuda.current_stream().cuda_stream)
+                if err != 0:
+                    raise RuntimeError(f"empty launch failed (CUDA error {err})")
+            return f
+
+        report["launch_floor_us"] = []
+        for ctas, threads, cs in ((8, 256, 1), (8, 1024, 1), (64, 1024, 8), (128, 1024, 8)):
+            us = graph_ms([empty(ctas, threads, cs)] * 20) / 20 * 1e3
+            report["launch_floor_us"].append(dict(ctas=ctas, threads=threads, cs=cs, us=us))
+            log(f"time empty launch: {ctas} CTAs of {threads} threads in clusters of {cs}: "
+                f"{us:.3f} us of device time per launch in a graph, on {smi}")
+
+        # each residual block at every cluster size the geometry can pick,
+        # both launches forced to it (the same call 20 times in one graph)
+        pick = kernels.launch_geometry
+        try:
+            for (n, m, a), c, row in zip(calls, cases, report["shapes"]):
+                if c[0] is not kernels.fused_residual_block:
+                    continue
+                row["sweep_us"] = {}
+                for cs in (1, 2, 4, 8):
+                    kernels.launch_geometry = lambda *p, cs=cs, **kw: pick(*p, cs=cs)
+                    row["sweep_us"][cs] = graph_ms([kcall(c)] * 20) / 20 * 1e3
+                kernels.launch_geometry = pick
+                log(f"sweep {n:22s} L={row['shape'][1]:2d} {row['shape'][2]:4d}->{row['C']:4d}: us at cs "
+                    f"1/2/4/8 = {'/'.join(f'{v:.2f}' for v in row['sweep_us'].values())} "
+                    f"(picked {'/'.join(map(str, row['cs']))}) on {smi}")
+        finally:
+            kernels.launch_geometry = pick
 
     kernels_line = []
     for kname in ("fused_residual_block", "fused_conv1d_gn_mish"):

@@ -140,6 +140,64 @@ def test_ctypes_signature_matches_the_c_declaration():
                 assert a is want, (name, p)
 
 
+# off-path shapes of the gpu tests: lengths that are not powers of two,
+# groups of a few channels, Cin that no cluster size divides
+OFF_RES = [(1, 5, 12, 24, 16), (2, 3, 40, 40, 8), (1, 1, 8, 16, 8), (1, 16, 7, 64, 128),
+           (1, 2, 1000, 512, 128), (2, 3, 1001, 64, 32)]
+OFF_CONV = [(1, 13, 9, 16), (2, 16, 1000, 64)]
+# the five 512-wide blocks of the U-Net (downs.3.x, mid, ups.0.0), (L, Cin, C)
+WIDE = [(2, 256, 512), (2, 512, 512), (2, 1024, 256)]
+
+
+def _geometry_cases():
+    """(id, B, L, Cin, C, launches) for every main-path and off-path shape;
+    launches: [(Cin of the conv, C, Ce, epi), ...] as the wrappers launch."""
+    cases = []
+    for B in (1, 2):
+        for L, cin, c in MAIN_RES:
+            cases.append((f"main-B{B}-L{L}-{cin}-{c}", B, L, cin, c, 128))
+        cases.append((f"head-B{B}", B, 16, 64, 64, None))
+    for B, L, cin, c, e in RES_CASES + OFF_RES:
+        cases.append((f"res-B{B}-L{L}-{cin}-{c}-E{e}", B, L, cin, c, e))
+    for B, L, cin, c in CONV_CASES + OFF_CONV:
+        cases.append((f"conv-B{B}-L{L}-{cin}-{c}", B, L, cin, c, None))
+    return cases
+
+
+@pytest.mark.parametrize("B,L,cin,c,e", [pytest.param(*a[1:], id=a[0]) for a in _geometry_cases()])
+def test_launch_geometry(B, L, cin, c, e):
+    """Every launch's geometry: the cluster's ranks cover each input row, each
+    epilogue row and each output exactly once; the cluster size, threads and
+    shared memory are what the card takes; the 512-wide blocks spread over at
+    least 64 CTAs at batch 1."""
+    K, groups, cg = 5, 8, c // 8
+    if e is None:
+        launches = [(cin, c, 0, kernels.EPI_NONE)]
+        geos = [kernels.launch_geometry(B, L, cin, c, K, groups, 0, kernels.EPI_NONE)]
+    else:
+        epi2 = kernels.EPI_RES_CONV if cin != c else kernels.EPI_RES_ID
+        launches = [(cin, c, e, kernels.EPI_TBIAS), (c, c, cin, epi2)]
+        geos = list(kernels.residual_block_geometry(B, L, cin, c, e, cin != c))
+    for (rows, cout, ce, epi), g in zip(launches, geos):
+        assert g == kernels.launch_geometry(B, L, rows, cout, K, groups, ce, epi)
+        assert g.cs in (1, 2, 4, 8) and g.cs <= kernels.MAX_CLUSTER
+        assert g.ctas == B * groups * g.cs
+        reduced = ce if epi in (kernels.EPI_TBIAS, kernels.EPI_RES_CONV) else 0
+        for n in (rows, reduced, L * cg):
+            covered = np.zeros(n, int)
+            for r in range(g.cs):
+                lo, hi = kernels.rank_slice(n, g.cs, r)
+                covered[lo:hi] += 1
+            assert (covered == 1).all()
+        if rows < 2 * kernels.MIN_RANK_CHANNELS:
+            assert g.cs == 1  # Cin = 7 and the like keep one CTA per group
+        assert g.threads <= 1024 and g.threads % 32 == 0 and g.threads >= g.S * cg
+        assert g.S * 2 > kernels.MAX_SPLIT or g.S * 2 * cg > kernels.MAX_THREADS
+        assert g.smem <= 232448
+    if B == 1 and e is not None and (L, cin, c) in WIDE:
+        assert all(g.cs > 1 and g.ctas >= 64 for g in geos)
+
+
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the CUDA kernels have no CPU mode)")
@@ -189,6 +247,56 @@ def test_cuda_kernels_match_plain_off_the_main_path():
             got = kernels.fused_conv1d_gn_mish(*args)
             torch.cuda.synchronize()
             torch.testing.assert_close(got, kernels.conv1d_gn_mish_plain(*args), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cs", [1, 2, 4, 8])
+def test_cuda_kernels_match_plain_at_each_cluster_size(monkeypatch, cs):
+    """Each cluster size the geometry can pick, forced on shapes whose Cin no
+    cluster size divides (ranks of unequal and of empty slices)."""
+    _need_card()
+    pick = kernels.launch_geometry
+    monkeypatch.setattr(kernels, "launch_geometry", lambda *a, **kw: pick(*a, cs=cs))
+    rng = np.random.default_rng(2)
+    with torch.no_grad():
+        for B, L, cin, c, e in OFF_RES:
+            args = _torch(_res_inputs(rng, B, L, cin, c, e), "cuda")
+            got = kernels.fused_residual_block(*args)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, kernels.residual_block_plain(*args), atol=1e-4, rtol=1e-4)
+        for B, L, cin, c in OFF_CONV:
+            args = _torch(_conv_inputs(rng, B, L, cin, c), "cuda")
+            got = kernels.fused_conv1d_gn_mish(*args)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, kernels.conv1d_gn_mish_plain(*args), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_repeat_bit_for_bit():
+    """No atomics and a fixed rank order: two launches of one call agree exactly."""
+    _need_card()
+    rng = np.random.default_rng(3)
+    with torch.no_grad():
+        for B in (1, 2):
+            for L, cin, c in MAIN_RES:
+                args = _torch(_res_inputs(rng, B, L, cin, c, 128), "cuda")
+                first = kernels.fused_residual_block(*args)
+                assert torch.equal(first, kernels.fused_residual_block(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("field,value", [("cs", 3), ("cs", 16), ("threads", 2048), ("smem", 4)])
+def test_cuda_refused_geometry_raises(field, value):
+    """A geometry the C side does not take raises; nothing falls back."""
+    _need_card()
+    rng = np.random.default_rng(0)
+    x, w, b, gamma, beta = _torch(_conv_inputs(rng, 1, 16, 64, 64), "cuda")
+    out = torch.empty_like(x)
+    geo = kernels.launch_geometry(1, 16, 64, 64, 5, 8, 0, kernels.EPI_NONE)._replace(**{field: value})
+    before = kernels.fused_conv1d_gn_mish.launches
+    with torch.no_grad(), pytest.raises(ValueError, match="conv_gn_mish takes"):
+        kernels._launch(geo, x, w, b, gamma, beta, out, 8, 1e-5, kernels.EPI_NONE)
+    assert kernels.fused_conv1d_gn_mish.launches == before
 
 
 @pytest.mark.gpu
