@@ -3,9 +3,9 @@
 Each source under ``ops/csrc/`` compiles, on its own ``nvcc`` process (all
 started together), for ``sm_90a`` into a shared library with a plain C
 interface. Libraries go to ``build/kernels/`` at the root of the checkout,
-named by a hash of the source and flags, so an edited source is rebuilt and
-an unchanged one is loaded as it is. Nothing is built at import: the first
-call to :func:`library` builds.
+named by a hash of the source, the shared headers and the flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is. Nothing is built at
+import: the first call to :func:`library` builds.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-SOURCES = ("conv_gn_mish.cu",)
+SOURCES = ("conv_gn_mish.cu", "conv1d_gn_mish.cu")
 
 _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 # argtypes of every C entry point, by library
@@ -36,9 +36,19 @@ SIGNATURES = {
             _P, _I, _P, _P,  # epilogue input, Ce, its weight, its bias
             _P, _I, _I, _I,  # out, x_dtype, p_dtype, out_dtype
             _I, _I, _I,  # cluster size, threads, shared-memory bytes
-            _P,  # stream
+            _P, _P,  # phase stamps (or null), stream
         ],
-        "adm_empty_launch": [_I, _I, _I, _P],  # CTAs, threads, cluster size, stream
+        # CTAs, threads, cluster size (0: no cluster), shared-memory bytes, stream
+        "adm_empty_launch": [_I, _I, _I, _I, _P],
+    },
+    "conv1d_gn_mish.cu": {
+        "adm_conv1d_gn_mish": [
+            _P, _P, _P, _P, _P,  # x, w, bias, gamma, beta
+            _I, _I, _I, _I, _I, _I, _F,  # B, L, Cin, C, K, groups, eps
+            _P, _I, _I, _I,  # out, x_dtype, p_dtype, out_dtype
+            _I, _I, _I, _I, _I,  # S, copy width, stage channels, threads, shared-memory bytes
+            _P, _P,  # phase stamps (or null), stream
+        ],
     },
 }
 
@@ -54,7 +64,8 @@ def _nvcc() -> str:
 
 
 def _target(source: str) -> Path:
-    digest = hashlib.sha256((CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode())
+    text = b"".join(p.read_bytes() for p in [CSRC / source, *sorted(CSRC.glob("*.cuh"))])
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}_{digest.hexdigest()[:12]}.so"
 
 

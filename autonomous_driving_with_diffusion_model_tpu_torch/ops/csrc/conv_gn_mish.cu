@@ -1,14 +1,13 @@
 // conv_gn_mish: one k-wide 1-D convolution + GroupNorm + Mish over a
-// channels-last trajectory, with an optional fused epilogue. Both TPU kernels
-// of the JAX package are built from it (ops/kernels.py):
+// channels-last trajectory, with a fused epilogue. It serves the residual
+// block only (ops/kernels.py); the U-Net's head has its own kernel,
+// conv1d_gn_mish.cu:
 //
-//   fused_conv1d_gn_mish  = conv_gn_mish(x)                          1 launch
 //   fused_residual_block  = h   = conv_gn_mish(x) + mish(t) tw + tb  launch 1
 //                           out = conv_gn_mish(h) + residual(x)      launch 2
 //
-// Replaces: autonomous_driving_with_diffusion_model_tpu/ops/pallas_kernels.py
-// `fused_conv1d_gn_mish` (_kernel) and `fused_residual_block`
-// (_residual_kernel + _conv_gn_mish_inline).
+// Replaces: autonomous_driving_with_diffusion_model_tpu/ops/pallas_kernels.py:106
+// `fused_residual_block` (_residual_kernel + _conv_gn_mish_inline).
 //
 // What bounds it on an H100: at the planner's batch of 1-2 the arithmetic is
 // tiny (2 FLOPs per weight per batch row and position), so the least time is
@@ -56,43 +55,28 @@
 // dtype mix and -2 for a shape or geometry the kernel does not take.
 
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "common.cuh"
 
 namespace coop = cooperative_groups;
+using namespace adm;
 
 namespace {
 
+// out = mish(gn(conv(x))) + the epilogue:
 enum Epilogue : int {
-  EPI_NONE = 0,      // out = mish(gn(conv(x)))
   EPI_TBIAS = 1,     // out += mish(t[b]) . tw[:, c] + tb[c]
   EPI_RES_CONV = 2,  // out += xres[b, l, :] . wres[:, c] + bres[c]
   EPI_RES_ID = 3,    // out += xres[b, l, c]
 };
 
-enum DType : int { DT_F32 = 0, DT_BF16 = 1 };
-
-constexpr int MAX_THREADS = 1024;
 constexpr int MAX_SPLIT = 32;      // S: threads sharing one channel's reduction
-constexpr int MAX_L = 16;          // positions a thread holds in registers
-constexpr int MAX_SMEM = 232448;   // bytes of shared memory a CTA may use
 constexpr int MAX_CLUSTER = 8;     // the portable cluster size
 
 __device__ __forceinline__ float load(const float* p, int64_t i) { return __ldg(p + i); }
 __device__ __forceinline__ float load(const __nv_bfloat16* p, int64_t i) {
   return __bfloat162float(p[i]);
 }
-__device__ __forceinline__ void store(float* p, int64_t i, float v) { p[i] = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, int64_t i, float v) {
-  p[i] = __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float mish(float x) {
-  const float sp = fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));  // stable softplus
-  return x * tanhf(sp);
-}
-
 // Start of part r of n items cut into `parts` contiguous slices
 // (ops/kernels.py:rank_slice).
 __host__ __device__ __forceinline__ int slice_begin(int n, int parts, int r) {
@@ -184,15 +168,17 @@ __device__ __forceinline__ void split_dot(float (&acc)[LMAX], const float* rows,
 // TX: conv input; TP: weights, biases and the epilogue input; TO: output.
 // ein/ew/eb: the epilogue's input, weight and bias: t (B, Ce), tw, tb for
 // EPI_TBIAS; xres (B, L, Ce), wres, bres for EPI_RES_CONV; xres (B, L, C)
-// alone for EPI_RES_ID. Launched in clusters of cs along x.
-template <int LMAX, typename TX, typename TP, typename TO>
+// alone for EPI_RES_ID. Launched in clusters of cs along x. STAMP: record
+// the phase stamps; a normal launch compiles without them.
+template <int LMAX, bool STAMP, typename TX, typename TP, typename TO>
 __global__ void __launch_bounds__(MAX_THREADS)
     conv_gn_mish_kernel(const TX* __restrict__ x, const TP* __restrict__ w,
                         const TP* __restrict__ bias, const TP* __restrict__ gamma,
                         const TP* __restrict__ beta, int L, int Cin, int C, int K, int groups,
                         int S, float eps, int epi, const TP* __restrict__ ein, int Ce,
                         const TP* __restrict__ ew, const TP* __restrict__ eb,
-                        TO* __restrict__ out) {
+                        TO* __restrict__ out, unsigned long long* __restrict__ stamps) {
+  if constexpr (STAMP) stamp(stamps, 0);
   constexpr int U = LMAX <= 4 ? 8 : 4;  // weight loads in flight per thread
   extern __shared__ float smem[];
   coop::cluster_group cluster = coop::this_cluster();
@@ -252,6 +238,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
     for (int o = o0 + tid; o < o1; o += nt)
       sres[o - o0] = load(ein, ((int64_t)b * L + o / cg) * C + g * cg + o % cg);
   __syncthreads();
+  if constexpr (STAMP) stamp(stamps, 1);
 
   // partial sums of thread (s, cl) over its share of the rank's channels
   const int s = tid / cg, cl = tid % cg;
@@ -289,6 +276,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
     sye[o] = v;
   }
   if (cs > 1) cluster.sync(); else __syncthreads();
+  if constexpr (STAMP) stamp(stamps, 2);
 
   // 2. every output of the group: bias + every rank's share, in rank order.
   // Every rank computes all of them, in the same order, so all hold the same
@@ -309,6 +297,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
     lsq += d * d;
   }
   const float rstd = rsqrtf(block_sum(lsq, red) / n + eps);
+  if constexpr (STAMP) stamp(stamps, 3);
 
   // 4. this rank's chunk: normalise, Mish, epilogue
   for (int o = o0 + tid; o < o1; o += nt) {
@@ -325,6 +314,8 @@ __global__ void __launch_bounds__(MAX_THREADS)
     store(out, ((int64_t)b * L + l) * C + c, y);
   }
   if (cs > 1) cluster.sync();  // peers may still read this CTA's sy and sye
+  else if constexpr (STAMP) __syncthreads();
+  if constexpr (STAMP) stamp(stamps, 4);
 }
 
 __global__ void empty_kernel(int) {}
@@ -353,12 +344,12 @@ int launch_clusters(void (*kernel)(Params...), int ctas, int threads, size_t sme
   return (int)cudaGetLastError();
 }
 
-template <int LMAX, typename TX, typename TP, typename TO>
+template <int LMAX, bool STAMP, typename TX, typename TP, typename TO>
 int launch_l(const void* x, const void* w, const void* bias, const void* gamma, const void* beta,
              int B, int L, int Cin, int C, int K, int groups, int S, float eps, int epi,
              const void* ein, int Ce, const void* ew, const void* eb, void* out, int cs,
-             int threads, size_t smem, cudaStream_t stream) {
-  auto kernel = conv_gn_mish_kernel<LMAX, TX, TP, TO>;
+             int threads, size_t smem, unsigned long long* stamps, cudaStream_t stream) {
+  auto kernel = conv_gn_mish_kernel<LMAX, STAMP, TX, TP, TO>;
   if (smem > 48 * 1024) {
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -369,24 +360,29 @@ int launch_l(const void* x, const void* w, const void* bias, const void* gamma, 
       static_cast<const TP*>(w), static_cast<const TP*>(bias), static_cast<const TP*>(gamma),
       static_cast<const TP*>(beta), L, Cin, C, K, groups, S, eps, epi,
       static_cast<const TP*>(ein), Ce, static_cast<const TP*>(ew), static_cast<const TP*>(eb),
-      static_cast<TO*>(out));
+      static_cast<TO*>(out), stamps);
 }
 
 template <typename TX, typename TP, typename TO>
 int launch(const void* x, const void* w, const void* bias, const void* gamma, const void* beta,
            int B, int L, int Cin, int C, int K, int groups, float eps, int epi, const void* ein,
            int Ce, const void* ew, const void* eb, void* out, int cs, int threads, int smem,
-           cudaStream_t stream) {
+           unsigned long long* stamps, cudaStream_t stream) {
   if (groups <= 0 || C % groups != 0 || L < 1 || L > MAX_L || K < 1) return -2;
+  if (epi != EPI_TBIAS && epi != EPI_RES_CONV && epi != EPI_RES_ID) return -2;
   const int cg = C / groups;
   if (cs < 1 || cs > MAX_CLUSTER || (cs & (cs - 1)) != 0) return -2;
   if (threads < cg || threads > MAX_THREADS || threads % 32 != 0) return -2;
   const int S = threads / cg < MAX_SPLIT ? threads / cg : MAX_SPLIT;
   const Layout lay = layout(L, Cin, cg, K, S, cs, epi, Ce);
   if (smem != lay.total * (int)sizeof(float) || smem > MAX_SMEM) return -2;
-#define ADM_L(LM)                                                                               \
-  return launch_l<LM, TX, TP, TO>(x, w, bias, gamma, beta, B, L, Cin, C, K, groups, S, eps, epi, \
-                                  ein, Ce, ew, eb, out, cs, threads, (size_t)smem, stream)
+#define ADM_L(LM)                                                                              \
+  return stamps ? launch_l<LM, true, TX, TP, TO>(x, w, bias, gamma, beta, B, L, Cin, C, K, groups, \
+                                                 S, eps, epi, ein, Ce, ew, eb, out, cs, threads,   \
+                                                 (size_t)smem, stamps, stream)                     \
+                : launch_l<LM, false, TX, TP, TO>(x, w, bias, gamma, beta, B, L, Cin, C, K, groups, \
+                                                  S, eps, epi, ein, Ce, ew, eb, out, cs, threads,   \
+                                                  (size_t)smem, stamps, stream)
   if (L <= 2) ADM_L(2);
   if (L <= 4) ADM_L(4);
   if (L <= 8) ADM_L(8);
@@ -401,16 +397,17 @@ int launch(const void* x, const void* w, const void* bias, const void* gamma, co
 // out: (B, L, C) of out_dtype. Weights and the epilogue input are of p_dtype.
 // cs, threads, smem: the launch geometry (ops/kernels.py:launch_geometry):
 // the cluster size, the threads of a CTA and its shared-memory bytes.
+// stamps: null, or (CTAs, 5, 2) values (common.cuh:stamp).
 extern "C" int adm_conv_gn_mish(const void* x, const void* w, const void* bias,
                                 const void* gamma, const void* beta, int B, int L, int Cin, int C,
                                 int K, int groups, float eps, int epi, const void* ein, int Ce,
                                 const void* ew, const void* eb, void* out, int x_dtype,
                                 int p_dtype, int out_dtype, int cs, int threads, int smem,
-                                void* stream) {
+                                unsigned long long* stamps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ADM_LAUNCH(TX, TP, TO)                                                                   \
   return launch<TX, TP, TO>(x, w, bias, gamma, beta, B, L, Cin, C, K, groups, eps, epi, ein, Ce, \
-                            ew, eb, out, cs, threads, smem, s)
+                            ew, eb, out, cs, threads, smem, stamps, s)
   if (p_dtype == DT_F32 && x_dtype == DT_F32 && out_dtype == DT_F32) ADM_LAUNCH(float, float, float);
   if (p_dtype == DT_BF16) {
     if (x_dtype == DT_BF16 && out_dtype == DT_BF16)
@@ -422,9 +419,20 @@ extern "C" int adm_conv_gn_mish(const void* x, const void* w, const void* bias,
   return -1;
 }
 
-// An empty kernel launched as conv_gn_mish is (ctas CTAs of `threads`, in
-// clusters of cs): the least device time a launch of that shape costs.
-extern "C" int adm_empty_launch(int ctas, int threads, int cs, void* stream) {
-  if (cs < 1 || cs > MAX_CLUSTER || ctas % cs != 0) return -2;
-  return launch_clusters(empty_kernel, ctas, threads, 0, cs, static_cast<cudaStream_t>(stream), 0);
+// An empty kernel launched as a kernel of the port is: ctas CTAs of
+// `threads` with `smem` bytes of dynamic shared memory, in clusters of cs (as
+// conv_gn_mish is) or, for cs = 0, with no cluster (as conv1d_gn_mish is).
+// The least device time a launch of that shape costs.
+extern "C" int adm_empty_launch(int ctas, int threads, int cs, int smem, void* stream) {
+  if (cs < 0 || cs > MAX_CLUSTER || (cs > 0 && ctas % cs != 0) || smem < 0 || smem > MAX_SMEM)
+    return -2;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(empty_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cs > 0) return launch_clusters(empty_kernel, ctas, threads, (size_t)smem, cs, s, 0);
+  empty_kernel<<<ctas, threads, smem, s>>>(0);
+  return (int)cudaGetLastError();
 }

@@ -2,21 +2,31 @@
 plain PyTorch versions (counterpart of the JAX package's
 ``ops/pallas_kernels.py``).
 
-Both kernels come from one CUDA template, ``ops/csrc/conv_gn_mish.cu``:
+Each kernel has its own CUDA source:
 
 * ``fused_conv1d_gn_mish`` replaces ``pallas_kernels.py:fused_conv1d_gn_mish``
-  (one ``Conv1dBlock``: ``mish(GN8(conv1d_k5(x) + b))``), one launch;
+  (one ``Conv1dBlock``: ``mish(GN8(conv1d_k5(x) + b))``, the U-Net's head),
+  one launch of ``ops/csrc/conv1d_gn_mish.cu``, at the geometry of
+  :func:`head_geometry`;
 * ``fused_residual_block`` replaces ``pallas_kernels.py:fused_residual_block``
-  (a whole ``ResidualTemporalMapBlock``), two launches: conv 2 needs every
-  channel of h, a dependency across the whole grid.
+  (a whole ``ResidualTemporalMapBlock``), two launches of the template
+  ``ops/csrc/conv_gn_mish.cu``, which serves the residual block only: conv 2
+  needs every channel of h, a dependency across the whole grid. Each launch's
+  geometry comes from :func:`launch_geometry`.
 
-What bounds them on an H100 is the weight bytes (at batch 1-2 each weight
-does 2 FLOPs per batch row); the source's header says what the design does
-about that. Each launch's geometry (cluster size, threads, shared memory)
-comes from :func:`launch_geometry`, which the C side checks. Signatures and
-layouts are those of the JAX kernels: x (B, L, Cin), conv weights (K, Cin,
-C), the time projection (E, C), the residual projection (1, Cin, C). The modules pack their torch-layout parameters into
-these layouts once (``models/blocks.py``), not on every call.
+The C side checks each geometry. What bounds the residual block on an H100
+is the weight bytes (at batch 1-2 each weight does 2 FLOPs per batch row);
+the head moves too little for bytes or FLOPs to matter, and is bound by
+latency: its launch, its round trip to memory and the chain of instructions
+on its critical path. Each source's header says what its design does about
+that. Signatures and layouts are those of the JAX kernels:
+x (B, L, Cin), conv weights (K, Cin, C), the time projection (E, C), the
+residual projection (1, Cin, C). The modules pack their torch-layout
+parameters into these layouts once (``models/blocks.py``), not on every call.
+
+Both kernels can record phase stamps (``stamps=``, off by default): thread 0
+of each CTA writes the device's ns timer and its SM's cycle counter at the
+five :data:`PHASES`, into an int64 tensor from :func:`phase_stamps`.
 
 A wrapper given CPU tensors computes the plain version; given CUDA tensors it
 launches the kernel or raises. It adds one to its ``launches`` count for each
@@ -25,6 +35,7 @@ call that launches. Both are forward-only: they raise under autograd.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -36,6 +47,8 @@ __all__ = [
     "fused_residual_block",
     "launch_geometry",
     "residual_block_geometry",
+    "head_geometry",
+    "phase_stamps",
     "rank_slice",
     "conv1d_gn_mish_plain",
     "residual_block_plain",
@@ -43,15 +56,20 @@ __all__ = [
     "reset_launch_counts",
 ]
 
-SOURCE = "conv_gn_mish.cu"
-EPI_NONE, EPI_TBIAS, EPI_RES_CONV, EPI_RES_ID = 0, 1, 2, 3
+SOURCE = "conv_gn_mish.cu"  # the residual block's template
+HEAD_SOURCE = "conv1d_gn_mish.cu"
+EPI_TBIAS, EPI_RES_CONV, EPI_RES_ID = 1, 2, 3
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 ERR_SHAPE = -2  # the C function's code for a shape or geometry it does not take
 MAX_L = 16  # positions a kernel thread holds in registers
 MAX_THREADS = 1024
+MAX_SMEM = 232448  # bytes of shared memory a CTA may use
 MAX_SPLIT = 32  # threads sharing one channel's reduction inside a CTA
 MAX_CLUSTER = 8  # the portable cluster size
 MIN_RANK_CHANNELS = 8  # input channels a cluster's rank keeps at least
+HEAD_P = 4  # positions of one output channel a head thread holds (the C side's P)
+HEAD_MAX_LANES = 8  # lanes sharing one head output's sum
+PHASES = ("entry", "loads landed", "outputs in shared memory", "statistics done", "stored")
 
 
 def check_forward_only(*tensors: Optional[torch.Tensor]) -> None:
@@ -115,9 +133,10 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def launch_geometry(B, L, Cin, C, K, groups, Ce, epi, cs=None) -> Geometry:
-    """The geometry of one conv_gn_mish launch: ``Ce`` is the epilogue's
-    reduced length (E for ``EPI_TBIAS``, the residual's Cin for
-    ``EPI_RES_CONV``, ignored otherwise); ``cs`` forces a cluster size.
+    """The geometry of one launch of the residual block's template: ``Ce`` is
+    the epilogue's reduced length (E for ``EPI_TBIAS``, the residual's Cin
+    for ``EPI_RES_CONV``, ignored for ``EPI_RES_ID``); ``cs`` forces a cluster
+    size.
 
     A cluster of ``cs`` CTAs owns one (batch row, group); ``cs`` is the
     largest power of two up to 8 that leaves each rank ``MIN_RANK_CHANNELS``
@@ -151,6 +170,75 @@ def residual_block_geometry(B, L, Cin, C, E, has_res, K=5, groups=8) -> tuple:
     )
 
 
+class HeadGeometry(NamedTuple):
+    S: int  # adjacent lanes of a warp sharing one output's K x Cin sum
+    threads: int  # threads of a CTA
+    width: int  # bytes of each copy into shared memory: 16, 4 or 2
+    stage: int  # input channels a stage of shared memory holds
+    smem: int  # shared-memory bytes of a CTA
+    ctas: int  # CTAs of the launch: one per (batch row, group)
+
+
+def _round16(n: int) -> int:
+    return _cdiv(n, 16) * 16
+
+
+def _odd_row(nbytes: int, width: int) -> int:
+    """Bytes of a shared-memory row: an odd number of copy units of at least
+    4 bytes, so that neighbouring rows start in different banks."""
+    unit = max(width, 4)
+    n = _cdiv(nbytes, unit)
+    return (n + (n % 2 == 0)) * unit
+
+
+def _head_smem(L, Cin, cg, K, width, stage, x_bytes, p_bytes) -> int:
+    """The C side's total (``conv1d_gn_mish.cu:make_plan``, which checks this
+    number: change the two together): bias, gamma and beta, the group's conv
+    outputs in fp32, and one stage buffer (two when Cin takes more than one
+    stage) of padded input rows and weight rows."""
+    rows = _cdiv(L, HEAD_P) * HEAD_P + K - 1
+    buf = (_round16(rows * _odd_row(stage * x_bytes, width))
+           + _round16(K * stage * _odd_row(cg * p_bytes, width)))
+    return 3 * _round16(cg * p_bytes) + _round16(L * cg * 4) + (2 if stage < Cin else 1) * buf
+
+
+@functools.lru_cache(maxsize=None)  # a pure function of ints, called on every launch
+def head_geometry(B, L, Cin, C, K, groups, x_bytes=4, p_bytes=4, align=16,
+                  stage=None) -> HeadGeometry:
+    """The geometry of one head launch. ``x_bytes``/``p_bytes``: the element
+    sizes of x and of the parameters; ``align``: the least alignment, in
+    bytes, of the input pointers; ``stage`` forces the input channels of a
+    stage.
+
+    One CTA owns one (batch row, group). A tile of ``HEAD_P`` positions of one
+    channel has its sum split over S lanes: up to 8, at most one per input
+    channel. A group whose tiles do not fit 1024 threads (more than 256
+    channels at L = 16) gets a thread count the C side refuses. The copy
+    width is the widest of 16, 4 and 2 bytes that the rows and pointers
+    allow. Cin is one stage when it fits the shared memory, else the widest
+    stage of which two fit (a two-deep ring)."""
+    cg = C // groups
+    tiles = cg * _cdiv(L, HEAD_P)
+    S = 1
+    while S * 2 <= HEAD_MAX_LANES and S * 2 <= Cin and tiles * S * 2 <= MAX_THREADS:
+        S *= 2
+    width = next((w for w in (16, 4, 2)
+                  if (Cin * x_bytes) % w == 0 and (cg * p_bytes) % w == 0 and align % w == 0), 2)
+    smem = lambda ch: _head_smem(L, Cin, cg, K, width, ch, x_bytes, p_bytes)
+    if stage is None:
+        unit = max(1, width // x_bytes)  # channels of one copy unit
+        stage = Cin
+        while stage > unit and smem(stage) > MAX_SMEM:
+            stage = (stage - 1) // unit * unit
+    return HeadGeometry(S, _cdiv(tiles * S, 32) * 32, width, stage, smem(stage), B * groups)
+
+
+def phase_stamps(ctas: int, device) -> torch.Tensor:
+    """A buffer for one launch's phase stamps: (ctas, len(PHASES), 2) int64,
+    the device's ns timer and the SM's cycle counter of each phase."""
+    return torch.zeros((ctas, len(PHASES), 2), dtype=torch.int64, device=device)
+
+
 # ---------------------------------------------------------------- launches
 
 
@@ -172,32 +260,46 @@ def _check_cuda(x: torch.Tensor, named: dict, shapes: dict) -> None:
             raise ValueError(f"{name} has shape {tuple(a.shape)}, expected {shapes[name]}")
 
 
+def _check_stamps(stamps: Optional[torch.Tensor], ctas: int, device) -> None:
+    if stamps is None:
+        return
+    want = (ctas, len(PHASES), 2)
+    if (stamps.device != device or stamps.dtype != torch.int64 or not stamps.is_contiguous()
+            or tuple(stamps.shape) != want):
+        raise ValueError(f"stamps must be a contiguous int64 tensor of shape {want} on {device}")
+
+
+def _ptr(a: Optional[torch.Tensor]):
+    return None if a is None else a.data_ptr()
+
+
 def _launch(geo: Geometry, x, w, b, gamma, beta, out, n_groups, eps, epi, ein=None, ew=None,
-            eb=None) -> None:
-    """One kernel launch at geometry ``geo``. ``ein``/``ew``/``eb``: the
-    epilogue's input, weight and bias (t, tw, tb; or xres, wres, bres; or
-    xres alone)."""
+            eb=None, stamps=None) -> None:
+    """One launch of the residual block's template at geometry ``geo``.
+    ``ein``/``ew``/``eb``: the epilogue's input, weight and bias (t, tw, tb;
+    or xres, wres, bres; or xres alone)."""
     from .build import library
 
     B, L, Cin = x.shape
     K, _, C = w.shape
     Ce = ein.shape[-1] if ein is not None else 0
-    ptr = lambda a: None if a is None else a.data_ptr()
+    _check_stamps(stamps, geo.ctas, x.device)
     lib = library(SOURCE)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.adm_conv_gn_mish(
-            ptr(x), ptr(w), ptr(b), ptr(gamma), ptr(beta),
+            _ptr(x), _ptr(w), _ptr(b), _ptr(gamma), _ptr(beta),
             B, L, Cin, C, K, n_groups, float(eps), epi,
-            ptr(ein), Ce, ptr(ew), ptr(eb),
-            ptr(out), _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype], _DTYPE_CODE[out.dtype],
-            geo.cs, geo.threads, geo.smem, stream,
+            _ptr(ein), Ce, _ptr(ew), _ptr(eb),
+            _ptr(out), _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype], _DTYPE_CODE[out.dtype],
+            geo.cs, geo.threads, geo.smem, _ptr(stamps), stream,
         )
     if err == ERR_SHAPE:
         raise ValueError(
             f"conv_gn_mish takes L <= {MAX_L}, C a multiple of n_groups with C / n_groups <= 1024, "
-            f"rows that fit a CTA's shared memory and clusters of 1-{MAX_CLUSTER} (a power of two); "
-            f"got L={L}, Cin={Cin}, C={C}, n_groups={n_groups}, K={K}, {geo}"
+            f"rows that fit a CTA's shared memory, clusters of 1-{MAX_CLUSTER} (a power of two) "
+            f"and a residual-block epilogue; got L={L}, Cin={Cin}, C={C}, n_groups={n_groups}, "
+            f"K={K}, epi={epi}, {geo}"
         )
     if err != 0:
         # a refused cluster launch (cudaErrorClusterOutOfResources, ...) lands
@@ -205,10 +307,52 @@ def _launch(geo: Geometry, x, w, b, gamma, beta, out, n_groups, eps, epi, ein=No
         raise RuntimeError(f"conv_gn_mish launch failed (CUDA error {err}, {geo})")
 
 
-def fused_conv1d_gn_mish(x, w, b, gamma, beta, n_groups: int = 8, eps: float = 1e-5):
-    """x: (B, L, Cin); w: (K, Cin, C); b/gamma/beta: (C,) -> (B, L, C)."""
+def _alignment(*tensors: torch.Tensor) -> int:
+    """The least alignment of the tensors' pointers, in bytes, up to 16: the
+    lowest set bit of their OR."""
+    bits = 16
+    for t in tensors:
+        bits |= t.data_ptr()
+    return bits & -bits
+
+
+def _launch_head(geo: HeadGeometry, x, w, b, gamma, beta, out, n_groups, eps, stamps=None) -> None:
+    """One launch of the head's kernel at geometry ``geo``."""
+    from .build import library
+
+    B, L, Cin = x.shape
+    K, _, C = w.shape
+    _check_stamps(stamps, geo.ctas, x.device)
+    lib = library(HEAD_SOURCE)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.adm_conv1d_gn_mish(
+            _ptr(x), _ptr(w), _ptr(b), _ptr(gamma), _ptr(beta),
+            B, L, Cin, C, K, n_groups, float(eps),
+            _ptr(out), _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype], _DTYPE_CODE[out.dtype],
+            geo.S, geo.width, geo.stage, geo.threads, geo.smem, _ptr(stamps), stream,
+        )
+    if err == ERR_SHAPE:
+        raise ValueError(
+            f"conv1d_gn_mish takes L <= {MAX_L}, C a multiple of n_groups, a group's "
+            f"C / n_groups x ceil(L / {HEAD_P}) tiles of S lanes in one CTA of at most "
+            f"{MAX_THREADS} threads, S lanes in one warp, 16/4/2-byte copies that the rows and "
+            f"pointers allow and "
+            f"stages that fit a CTA's shared memory; got L={L}, Cin={Cin}, C={C}, "
+            f"n_groups={n_groups}, K={K}, {geo}"
+        )
+    if err != 0:
+        raise RuntimeError(f"conv1d_gn_mish launch failed (CUDA error {err}, {geo})")
+
+
+def fused_conv1d_gn_mish(x, w, b, gamma, beta, n_groups: int = 8, eps: float = 1e-5, *,
+                         stamps=None):
+    """x: (B, L, Cin); w: (K, Cin, C); b/gamma/beta: (C,) -> (B, L, C).
+    ``stamps``: None, or a :func:`phase_stamps` buffer of the launch's CTAs."""
     check_forward_only(x, w, b, gamma, beta)
     if x.device.type == "cpu":
+        if stamps is not None:
+            raise ValueError("phase stamps come from the CUDA kernel: give CUDA tensors")
         return conv1d_gn_mish_plain(x, w, b, gamma, beta, n_groups, eps)
     B, L, Cin = x.shape
     K, _, C = w.shape
@@ -218,20 +362,25 @@ def fused_conv1d_gn_mish(x, w, b, gamma, beta, n_groups: int = 8, eps: float = 1
         dict(x=(B, L, Cin), w=(K, Cin, C), b=(C,), gamma=(C,), beta=(C,)),
     )
     out = torch.empty((B, L, C), dtype=x.dtype, device=x.device)
-    geo = launch_geometry(B, L, Cin, C, K, n_groups, 0, EPI_NONE)
-    _launch(geo, x, w, b, gamma, beta, out, n_groups, eps, EPI_NONE)
+    geo = head_geometry(B, L, Cin, C, K, n_groups, x.element_size(), w.element_size(),
+                        _alignment(x, w, b, gamma, beta))
+    _launch_head(geo, x, w, b, gamma, beta, out, n_groups, eps, stamps)
     fused_conv1d_gn_mish.launches += 1
     return out
 
 
 def fused_residual_block(
     x, t, w1, b1, g1, be1, tw, tb, w2, b2, g2, be2, wres=None, bres=None,
-    n_groups: int = 8, eps: float = 1e-5,
+    n_groups: int = 8, eps: float = 1e-5, *, stamps=None,
 ):
     """Whole ResidualTemporalMapBlock. x: (B, L, Cin); t: (B, E); w1 (K, Cin,
-    C); w2 (K, C, C); tw (E, C); wres (1, Cin, C) or None (then Cin == C)."""
+    C); w2 (K, C, C); tw (E, C); wres (1, Cin, C) or None (then Cin == C).
+    ``stamps``: None, or a pair of :func:`phase_stamps` buffers, one for
+    each launch."""
     check_forward_only(x, t, w1, b1, g1, be1, tw, tb, w2, b2, g2, be2, wres, bres)
     if x.device.type == "cpu":
+        if stamps is not None:
+            raise ValueError("phase stamps come from the CUDA kernel: give CUDA tensors")
         return residual_block_plain(
             x, t, w1, b1, g1, be1, tw, tb, w2, b2, g2, be2, wres, bres, n_groups, eps
         )
@@ -247,14 +396,16 @@ def fused_residual_block(
         dict(x=(B, L, Cin), t=(B, E), w1=(K, Cin, C), b1=(C,), g1=(C,), be1=(C,), tw=(E, C),
              tb=(C,), w2=(K, C, C), b2=(C,), g2=(C,), be2=(C,), wres=(1, Cin, C), bres=(C,)),
     )
+    s1, s2 = (None, None) if stamps is None else stamps
     h = torch.empty((B, L, C), dtype=torch.float32, device=x.device)  # stays fp32
     out = torch.empty((B, L, C), dtype=x.dtype, device=x.device)
     geo1, geo2 = residual_block_geometry(B, L, Cin, C, E, wres is not None, K, n_groups)
-    _launch(geo1, x, w1, b1, g1, be1, h, n_groups, eps, EPI_TBIAS, t, tw, tb)
+    _launch(geo1, x, w1, b1, g1, be1, h, n_groups, eps, EPI_TBIAS, t, tw, tb, stamps=s1)
     if wres is not None:
-        _launch(geo2, h, w2, b2, g2, be2, out, n_groups, eps, EPI_RES_CONV, x, wres[0], bres)
+        _launch(geo2, h, w2, b2, g2, be2, out, n_groups, eps, EPI_RES_CONV, x, wres[0], bres,
+                stamps=s2)
     else:
-        _launch(geo2, h, w2, b2, g2, be2, out, n_groups, eps, EPI_RES_ID, x)
+        _launch(geo2, h, w2, b2, g2, be2, out, n_groups, eps, EPI_RES_ID, x, stamps=s2)
     fused_residual_block.launches += 1
     return out
 

@@ -14,10 +14,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
    classifier-free and classifier guidance configs. Launch counts show the
    kernels on the path; the first plan is held against the same planner on
    the CPU; plan latency p50 and peak memory are printed;
-5. kernel time by CUDA events beside the plain version's and the bound, with
-   each launch's cluster size and CTA count; the device time of an empty
-   kernel launched the same way (the floor one launch pays); and each
-   residual block's time at every cluster size the geometry can pick.
+5. kernel time by CUDA events beside the plain version's, the bound and the
+   launch floor (the device time of an empty kernel launched the same way),
+   with each launch's geometry; each residual block's time at every cluster
+   size the geometry can pick; and the phase stamps of the head, of downs.0.1 and of mid_block1, cold (L2
+   flushed) and warm: the median time of each phase over the CTAs, in ns and
+   in SM cycles, and the span from the first entry to the last store.
 
 The last two lines of standard output are the card (nvidia-smi) and the
 kernels as JSON, then ``{"ok": true, "device": ...}``. Per-shape numbers go
@@ -182,7 +184,7 @@ def main() -> int:
             if us <= 0 or getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
                 continue
             name = ev.key
-            kind = ("conv_gn_mish" if "conv_gn_mish" in name else
+            kind = ("conv_gn_mish" if "gn_mish" in name else  # both port kernels
                     "memcpy/memset" if "Memcpy" in name or "Memset" in name else
                     "cudnn/cublas" if any(s in name for s in ("cudnn", "xmma", "gemm", "conv", "sm90")) else
                     "other")
@@ -290,8 +292,14 @@ def main() -> int:
         if fn is kernels.fused_residual_block:
             return kernels.residual_block_geometry(B, L, cin, args[2].shape[2], args[1].shape[1],
                                                    args[12] is not None)
-        return (kernels.launch_geometry(B, L, cin, args[1].shape[2], args[1].shape[0], 8, 0,
-                                        kernels.EPI_NONE),)
+        return (kernels.head_geometry(B, L, cin, args[1].shape[2], args[1].shape[0], 8,
+                                      args[0].element_size(), args[1].element_size()),)
+
+    def describe(geo):
+        if isinstance(geo, kernels.HeadGeometry):
+            return (f"P={kernels.HEAD_P} S={geo.S} threads={geo.threads} copies={geo.width}B "
+                    f"stage={geo.stage} ctas={geo.ctas}")
+        return f"cs={geo.cs} ctas={geo.ctas}"
 
     def bound_ms(fn, args):
         x = args[0]
@@ -311,6 +319,20 @@ def main() -> int:
     cases = [case(m, a, 1, torch.float32, gen) for n, m, a in calls]
     kcall = lambda c: (lambda: c[0](*c[2]))
     pcall = lambda c: (lambda: c[1](*c[2]))
+    template_lib = build.library(kernels.SOURCE)
+
+    def empty(geo):
+        """An empty kernel launched as a launch of geometry ``geo`` is: in
+        clusters of ``geo.cs`` for the template, with no cluster for the head
+        (whose geometry has no ``cs``); with its shared memory."""
+        def f():
+            stream = torch.cuda.current_stream().cuda_stream
+            err = template_lib.adm_empty_launch(geo.ctas, geo.threads, getattr(geo, "cs", 0),
+                                                geo.smem, stream)
+            if err != 0:
+                raise RuntimeError(f"empty launch failed (CUDA error {err}, {geo})")
+        return f
+
     summary = {}
     with torch.no_grad():
         # one forward's calls of each kernel, in forward order: the weights of
@@ -324,14 +346,14 @@ def main() -> int:
                 plain_ms=graph_ms([pcall(c) for c in mine]),
                 bound_ms=sum(b for b, _ in bounds),
                 bound_by="bytes" if all(by == "bytes" for _, by in bounds) else "operations",
-                calls=len(mine),
-                cs=sorted({g.cs for g in geos}), ctas=sum(g.ctas for g in geos),
+                floor_ms=graph_ms([empty(g) for g in geos]),
+                calls=len(mine), ctas=sum(g.ctas for g in geos),
             )
-            log(f"time {kname}: one forward's {len(mine)} calls ({len(geos)} launches, clusters of "
-                f"{'/'.join(map(str, summary[kname]['cs']))}, {summary[kname]['ctas']} CTAs in all), "
-                f"device ms: kernel "
+            log(f"time {kname}: one forward's {len(mine)} calls ({len(geos)} launches, "
+                f"{summary[kname]['ctas']} CTAs in all), device ms: kernel "
                 f"{summary[kname]['ms']:.4f}, plain {summary[kname]['plain_ms']:.4f}, "
-                f"bound {summary[kname]['bound_ms']:.4f} on {smi}")
+                f"bound {summary[kname]['bound_ms']:.7f}, launch floor {summary[kname]['floor_ms']:.4f} "
+                f"on {smi}")
         k_eager = eager_cycle_ms([kcall(c) for c in cases])
         p_eager = eager_cycle_ms([pcall(c) for c in cases])
         for (n, m, a), c, ke, pe in zip(calls, cases, k_eager, p_eager):
@@ -343,34 +365,32 @@ def main() -> int:
             reps = 20
             row = dict(kernel=fn.__name__, block=n, shape=list(args[0].shape),
                        C=int(args[2 if fn is kernels.fused_residual_block else 1].shape[-1]),
-                       cs=[g.cs for g in geos], ctas=[g.ctas for g in geos],
+                       geometry=[describe(g) for g in geos],
                        kernel_us=graph_ms([kcall(c)] * reps) / reps * 1e3,
                        plain_us=graph_ms([pcall(c)] * reps) / reps * 1e3,
                        kernel_eager_us=ke * 1e3, plain_eager_us=pe * 1e3,
-                       bound_us=b * 1e3, bound_by=by)
+                       bound_us=b * 1e3, bound_by=by,
+                       floor_us=graph_ms([empty(g) for g in geos] * reps) / reps * 1e3)
             report["shapes"].append(row)
             log(f"time {fn.__name__:22s} {n:22s} L={row['shape'][1]:2d} {row['shape'][2]:4d}->{row['C']:4d} "
-                f"cs={'/'.join(map(str, row['cs']))} ctas={'/'.join(map(str, row['ctas']))}: "
+                f"{'; '.join(row['geometry'])}: "
                 f"kernel_us={row['kernel_us']:.2f} plain_us={row['plain_us']:.2f} "
                 f"(eager, host included: {row['kernel_eager_us']:.1f} / {row['plain_eager_us']:.1f}) "
-                f"bound_us={row['bound_us']:.3f} ({by}) on {smi}")
+                f"bound_us={row['bound_us']:.5f} ({by}) floor_us={row['floor_us']:.3f} on {smi}")
 
         # the floor one launch pays: an empty kernel launched as the kernels
-        # are (cudaLaunchKernelEx with a cluster dimension), 20 in one graph
-        lib = build.library(kernels.SOURCE)
-
-        def empty(ctas, threads, cs):
-            def f():
-                err = lib.adm_empty_launch(ctas, threads, cs, torch.cuda.current_stream().cuda_stream)
-                if err != 0:
-                    raise RuntimeError(f"empty launch failed (CUDA error {err})")
-            return f
-
+        # are, 20 in one graph (the template in clusters, the head plainly)
         report["launch_floor_us"] = []
-        for ctas, threads, cs in ((8, 256, 1), (8, 1024, 1), (64, 1024, 8), (128, 1024, 8)):
-            us = graph_ms([empty(ctas, threads, cs)] * 20) / 20 * 1e3
-            report["launch_floor_us"].append(dict(ctas=ctas, threads=threads, cs=cs, us=us))
-            log(f"time empty launch: {ctas} CTAs of {threads} threads in clusters of {cs}: "
+        floors = [kernels.Geometry(cs, 1, threads, 0, ctas)
+                  for ctas, threads, cs in ((8, 256, 1), (8, 1024, 1), (64, 1024, 8), (128, 1024, 8))]
+        floors += [geometries(c[0], c[2])[0] for c in cases if c[0] is kernels.fused_conv1d_gn_mish][:1]
+        for geo in floors:
+            us = graph_ms([empty(geo)] * 20) / 20 * 1e3
+            report["launch_floor_us"].append(dict(geometry=describe(geo), threads=geo.threads,
+                                                  smem=geo.smem, us=us))
+            how = (f"no cluster, {geo.smem} bytes of shared memory (the head's)"
+                   if isinstance(geo, kernels.HeadGeometry) else f"in clusters of {geo.cs}")
+            log(f"time empty launch: {geo.ctas} CTAs of {geo.threads} threads {how}: "
                 f"{us:.3f} us of device time per launch in a graph, on {smi}")
 
         # each residual block at every cluster size the geometry can pick,
@@ -387,18 +407,61 @@ def main() -> int:
                 kernels.launch_geometry = pick
                 log(f"sweep {n:22s} L={row['shape'][1]:2d} {row['shape'][2]:4d}->{row['C']:4d}: us at cs "
                     f"1/2/4/8 = {'/'.join(f'{v:.2f}' for v in row['sweep_us'].values())} "
-                    f"(picked {'/'.join(map(str, row['cs']))}) on {smi}")
+                    f"(picked {'; '.join(row['geometry'])}) on {smi}")
         finally:
             kernels.launch_geometry = pick
+
+        # phase stamps, cold (a 64 MB write evicts the 50 MB L2 first) and warm
+        scratch = torch.empty(16 * 2**20, device=dev)
+        report["phases"] = []
+        names = [f"{a} -> {b}" for a, b in zip(kernels.PHASES, kernels.PHASES[1:])]
+        for (n, m, a), c in zip(calls, cases):
+            if c[0] is not kernels.fused_conv1d_gn_mish and n not in ("downs.0.1", "mid_block1"):
+                continue
+            fn, _, args = c
+            geos = geometries(fn, args)
+            for temp in ("cold", "warm"):
+                bufs = [kernels.phase_stamps(g.ctas, dev) for g in geos]
+                if temp == "cold":
+                    scratch.zero_()
+                else:
+                    fn(*args)
+                torch.cuda.synchronize()
+                fn(*args, stamps=bufs[0] if len(bufs) == 1 else tuple(bufs))
+                torch.cuda.synchronize()
+                for i, (g, buf) in enumerate(zip(geos, bufs)):
+                    t = buf.cpu().numpy()  # (ctas, phases, [ns, cycles])
+                    d = np.diff(t, axis=1)
+                    ph = dict(block=n, launch=i + 1, temp=temp, geometry=describe(g),
+                              phase_ns=[float(np.median(d[:, p, 0])) for p in range(d.shape[1])],
+                              phase_cycles=[float(np.median(d[:, p, 1])) for p in range(d.shape[1])],
+                              cta_ns=float(np.median(t[:, -1, 0] - t[:, 0, 0])),
+                              cta_cycles=float(np.median(t[:, -1, 1] - t[:, 0, 1])),
+                              span_ns=int(t[:, -1, 0].max() - t[:, 0, 0].min()))
+                    report["phases"].append(ph)
+                    log(f"phases {n:22s} launch {i + 1} {temp}: " + "; ".join(
+                        f"{nm} {ns:.0f} ns / {cy:.0f} cycles"
+                        for nm, ns, cy in zip(names, ph["phase_ns"], ph["phase_cycles"]))
+                        + f"; one CTA entry -> stored (median) {ph['cta_ns']:.0f} ns / "
+                        f"{ph['cta_cycles']:.0f} cycles; first entry -> last store {ph['span_ns']} ns "
+                        f"({describe(g)}) on {smi}")
+        del scratch
+        clocks = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True,
+        ).stdout.strip().splitlines()[0]
+        report["clocks_sm"] = clocks
+        log(f"phases: nvidia-smi clocks.sm, clocks.max.sm after the stamped launches: {clocks}")
 
     kernels_line = []
     for kname in ("fused_residual_block", "fused_conv1d_gn_mish"):
         s = summary[kname]
+        source = kernels.HEAD_SOURCE if kname == "fused_conv1d_gn_mish" else kernels.SOURCE
         kernels_line.append(dict(
-            name=kname, route="cuda", source=f"{PKG}/ops/csrc/conv_gn_mish.cu",
+            name=kname, route="cuda", source=f"{PKG}/ops/csrc/{source}",
             replaces=REPLACES[kname], launches=launches[kname], max_abs_err=max_err[kname],
             ms=s["ms"], plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
-            bound_by=s["bound_by"], library_ms=None,
+            bound_by=s["bound_by"], library_ms=None, floor_ms=s["floor_ms"],
             per=f"one U-Net forward at batch 1, float32, device time: its {s['calls']} calls",
             library_note="no single PyTorch call computes this function",
         ))

@@ -150,17 +150,14 @@ WIDE = [(2, 256, 512), (2, 512, 512), (2, 1024, 256)]
 
 
 def _geometry_cases():
-    """(id, B, L, Cin, C, launches) for every main-path and off-path shape;
-    launches: [(Cin of the conv, C, Ce, epi), ...] as the wrappers launch."""
+    """(id, B, L, Cin, C, E) of every residual-block launch pair, main-path
+    and off-path."""
     cases = []
     for B in (1, 2):
         for L, cin, c in MAIN_RES:
             cases.append((f"main-B{B}-L{L}-{cin}-{c}", B, L, cin, c, 128))
-        cases.append((f"head-B{B}", B, 16, 64, 64, None))
     for B, L, cin, c, e in RES_CASES + OFF_RES:
         cases.append((f"res-B{B}-L{L}-{cin}-{c}-E{e}", B, L, cin, c, e))
-    for B, L, cin, c in CONV_CASES + OFF_CONV:
-        cases.append((f"conv-B{B}-L{L}-{cin}-{c}", B, L, cin, c, None))
     return cases
 
 
@@ -171,13 +168,9 @@ def test_launch_geometry(B, L, cin, c, e):
     shared memory are what the card takes; the 512-wide blocks spread over at
     least 64 CTAs at batch 1."""
     K, groups, cg = 5, 8, c // 8
-    if e is None:
-        launches = [(cin, c, 0, kernels.EPI_NONE)]
-        geos = [kernels.launch_geometry(B, L, cin, c, K, groups, 0, kernels.EPI_NONE)]
-    else:
-        epi2 = kernels.EPI_RES_CONV if cin != c else kernels.EPI_RES_ID
-        launches = [(cin, c, e, kernels.EPI_TBIAS), (c, c, cin, epi2)]
-        geos = list(kernels.residual_block_geometry(B, L, cin, c, e, cin != c))
+    epi2 = kernels.EPI_RES_CONV if cin != c else kernels.EPI_RES_ID
+    launches = [(cin, c, e, kernels.EPI_TBIAS), (c, c, cin, epi2)]
+    geos = list(kernels.residual_block_geometry(B, L, cin, c, e, cin != c))
     for (rows, cout, ce, epi), g in zip(launches, geos):
         assert g == kernels.launch_geometry(B, L, rows, cout, K, groups, ce, epi)
         assert g.cs in (1, 2, 4, 8) and g.cs <= kernels.MAX_CLUSTER
@@ -194,8 +187,81 @@ def test_launch_geometry(B, L, cin, c, e):
         assert g.threads <= 1024 and g.threads % 32 == 0 and g.threads >= g.S * cg
         assert g.S * 2 > kernels.MAX_SPLIT or g.S * 2 * cg > kernels.MAX_THREADS
         assert g.smem <= 232448
-    if B == 1 and e is not None and (L, cin, c) in WIDE:
+    if B == 1 and (L, cin, c) in WIDE:
         assert all(g.cs > 1 and g.ctas >= 64 for g in geos)
+
+
+def _head_cases():
+    """(id, B, L, Cin, C) of the head on the main path and of the off-path
+    conv shapes."""
+    cases = [(f"head-B{B}", B, 16, 64, 64) for B in (1, 2)]
+    for B, L, cin, c in CONV_CASES + OFF_CONV:
+        cases.append((f"conv-B{B}-L{L}-{cin}-{c}", B, L, cin, c))
+    return cases
+
+
+@pytest.mark.parametrize("B,L,cin,c", [pytest.param(*a[1:], id=a[0]) for a in _head_cases()])
+def test_head_geometry(B, L, cin, c):
+    """The head's geometry, in float32 and bfloat16: whole warps of at most
+    1024 threads, every tile's S lanes in one warp, shared memory the card
+    takes, one CTA per (batch row, group), and stages that cover Cin exactly
+    once in whole copy units; Cin = 1000 in float32 streams through more than
+    one stage, and the main-path head is the one-stage, 16-byte design."""
+    K, groups, cg = 5, 8, c // 8
+    for nbytes in (4, 2):
+        g = kernels.head_geometry(B, L, cin, c, K, groups, nbytes, nbytes)
+        assert g.threads <= 1024 and g.threads % 32 == 0
+        assert g.S in (1, 2, 4, 8, 16, 32)  # so the S lanes of a tile sit in one warp
+        assert g.threads >= g.S * cg * -(-L // kernels.HEAD_P) > g.threads - 32
+        assert g.smem <= 232448
+        assert g.ctas == B * groups
+        covered = np.zeros(cin, int)
+        for c0 in range(0, cin, g.stage):
+            covered[c0:c0 + g.stage] += 1
+        assert (covered == 1).all()
+        assert (cin * nbytes) % g.width == 0 and (g.stage * nbytes) % g.width == 0
+        assert (cg * nbytes) % g.width == 0
+        if (L, cin, c) == (16, 1000, 64) and nbytes == 4:
+            assert g.stage < cin
+        if (L, cin, c) == (16, 64, 64):
+            assert (g.stage, g.width, g.ctas) == (64, 16, 8 * B)
+
+
+@pytest.mark.parametrize(
+    "cin,c,nbytes,align,want",
+    [
+        (64, 64, 4, 16, 16),  # the main-path head
+        (64, 64, 2, 16, 16),
+        (9, 16, 4, 16, 4),  # cg = 2: 8-byte weight rows
+        (7, 64, 4, 16, 4),  # 28-byte input rows
+        (7, 64, 2, 16, 2),  # 14-byte bf16 input rows: no cp.async
+        (64, 64, 4, 4, 4),  # a pointer aligned to 4 bytes only
+        (64, 8, 2, 16, 2),  # cg = 1 in bf16
+    ],
+)
+def test_head_copy_width(cin, c, nbytes, align, want):
+    assert kernels.head_geometry(1, 16, cin, c, 5, 8, nbytes, nbytes, align).width == want
+
+
+@pytest.mark.parametrize("L,cg,fits", [(16, 256, True), (16, 257, False), (1, 1024, True), (5, 513, False)])
+def test_head_geometry_fits_one_cta(L, cg, fits):
+    """A group's cg x ceil(L / 4) tiles fit one CTA of at most 1024 threads or
+    get a thread count the C side refuses; the wrapper then raises."""
+    g = kernels.head_geometry(1, L, 64, 8 * cg, 5, 8)
+    assert (g.threads <= kernels.MAX_THREADS) == fits
+
+
+@pytest.mark.parametrize("which", ["residual", "conv"])
+def test_wrapper_refuses_stamps_on_cpu(rng, which):
+    """Phase stamps come from the CUDA kernels; the CPU path has none to give."""
+    if which == "residual":
+        args = _torch(_res_inputs(rng, 1, 8, 16, 16, 24))
+        fn, stamps = kernels.fused_residual_block, (torch.zeros(8, 5, 2, dtype=torch.int64),) * 2
+    else:
+        args = _torch(_conv_inputs(rng, 1, 16, 7, 16))
+        fn, stamps = kernels.fused_conv1d_gn_mish, torch.zeros(8, 5, 2, dtype=torch.int64)
+    with torch.no_grad(), pytest.raises(ValueError, match="phase stamps"):
+        fn(*args, stamps=stamps)
 
 
 def _need_card():
@@ -225,7 +291,9 @@ def test_cuda_kernels_match_plain_on_card(dtype):
                 torch.cuda.synchronize()
                 torch.testing.assert_close(got, want, **tol)
             args = _torch(_conv_inputs(rng, B, 16, 64, 64), "cuda", dt)
+            before = kernels.fused_conv1d_gn_mish.launches
             got = kernels.fused_conv1d_gn_mish(*args).float()
+            assert kernels.fused_conv1d_gn_mish.launches == before + 1
             torch.cuda.synchronize()
             torch.testing.assert_close(got, kernels.conv1d_gn_mish_plain(*args).float(), **tol)
 
@@ -242,11 +310,65 @@ def test_cuda_kernels_match_plain_off_the_main_path():
             got = kernels.fused_residual_block(*args)
             torch.cuda.synchronize()
             torch.testing.assert_close(got, kernels.residual_block_plain(*args), atol=1e-4, rtol=1e-4)
-        for B, L, cin, c in CONV_CASES + [(1, 13, 9, 16)]:
-            args = _torch(_conv_inputs(rng, B, L, cin, c), "cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,L,cin,c", CONV_CASES + OFF_CONV)
+def test_cuda_head_matches_plain(B, L, cin, c, dtype):
+    """The head's kernel off the main path: Cin = 7 and 9 (4-byte copies in
+    float32, 2-byte in bfloat16), cg = 2, L = 13, and Cin = 1000, which
+    streams through the two-deep ring."""
+    _need_card()
+    rng = np.random.default_rng(1)
+    dt = getattr(torch, dtype)
+    tol = dict(atol=1e-4, rtol=1e-4) if dtype == "float32" else dict(atol=3e-2, rtol=1.6e-2)
+    args = _torch(_conv_inputs(rng, B, L, cin, c), "cuda", dt)
+    geo = kernels.head_geometry(B, L, cin, c, 5, 8, args[0].element_size(), args[1].element_size())
+    if (L, cin, c) == (13, 9, 16) and dtype == "float32":
+        assert geo.width == 4
+    if cin == 1000 and dtype == "float32":
+        assert geo.stage < cin
+    before = kernels.fused_conv1d_gn_mish.launches
+    with torch.no_grad():
+        got = kernels.fused_conv1d_gn_mish(*args).float()
+        want = kernels.conv1d_gn_mish_plain(*args).float()
+    torch.cuda.synchronize()
+    assert kernels.fused_conv1d_gn_mish.launches == before + 1
+    torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stage", [16, 24])
+def test_cuda_head_at_forced_geometries(monkeypatch, stage):
+    """The main-path head with stages forced small, so that the ring runs on
+    it (64 = 24 + 24 + 16 takes a ragged last stage)."""
+    _need_card()
+    pick = kernels.head_geometry
+    monkeypatch.setattr(kernels, "head_geometry", lambda *a, **kw: pick(*a, **kw, stage=stage))
+    rng = np.random.default_rng(4)
+    with torch.no_grad():
+        for B in (1, 2):
+            args = _torch(_conv_inputs(rng, B, 16, 64, 64), "cuda")
             got = kernels.fused_conv1d_gn_mish(*args)
             torch.cuda.synchronize()
             torch.testing.assert_close(got, kernels.conv1d_gn_mish_plain(*args), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1, 3, 7, 11])
+def test_cuda_head_other_kernel_sizes(K):
+    """Kernel sizes other than the planner's 5: the taps go five at a time,
+    with zero weights past K."""
+    _need_card()
+    rng = np.random.default_rng(6)
+    x, w, b, gamma, beta = _torch(_conv_inputs(rng, 2, 16, 64, 64), "cuda")
+    w = torch.from_numpy((rng.standard_normal((K, 64, 64)) * 0.1).astype(np.float32)).cuda()
+    with torch.no_grad():
+        got = kernels.fused_conv1d_gn_mish(x, w, b, gamma, beta)
+        want = kernels.conv1d_gn_mish_plain(x, w, b, gamma, beta)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.gpu
@@ -264,16 +386,12 @@ def test_cuda_kernels_match_plain_at_each_cluster_size(monkeypatch, cs):
             got = kernels.fused_residual_block(*args)
             torch.cuda.synchronize()
             torch.testing.assert_close(got, kernels.residual_block_plain(*args), atol=1e-4, rtol=1e-4)
-        for B, L, cin, c in OFF_CONV:
-            args = _torch(_conv_inputs(rng, B, L, cin, c), "cuda")
-            got = kernels.fused_conv1d_gn_mish(*args)
-            torch.cuda.synchronize()
-            torch.testing.assert_close(got, kernels.conv1d_gn_mish_plain(*args), atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.gpu
 def test_cuda_kernels_repeat_bit_for_bit():
-    """No atomics and a fixed rank order: two launches of one call agree exactly."""
+    """No atomics and a fixed order of every sum: two launches of one call
+    agree exactly, for both kernels."""
     _need_card()
     rng = np.random.default_rng(3)
     with torch.no_grad():
@@ -282,20 +400,66 @@ def test_cuda_kernels_repeat_bit_for_bit():
                 args = _torch(_res_inputs(rng, B, L, cin, c, 128), "cuda")
                 first = kernels.fused_residual_block(*args)
                 assert torch.equal(first, kernels.fused_residual_block(*args))
+            for shape in [(16, 64, 64)] + [sh[1:] for sh in OFF_CONV]:
+                args = _torch(_conv_inputs(rng, B, *shape), "cuda")
+                first = kernels.fused_conv1d_gn_mish(*args)
+                assert torch.equal(first, kernels.fused_conv1d_gn_mish(*args))
+
+
+@pytest.mark.gpu
+def test_cuda_phase_stamps():
+    """A stamped launch gives the same output as a plain one, and each CTA's
+    five stamps run forward in time on both clocks."""
+    _need_card()
+    rng = np.random.default_rng(5)
+    with torch.no_grad():
+        args = _torch(_conv_inputs(rng, 2, 16, 64, 64), "cuda")
+        geo = kernels.head_geometry(2, 16, 64, 64, 5, 8)
+        stamps = kernels.phase_stamps(geo.ctas, "cuda")
+        got = kernels.fused_conv1d_gn_mish(*args, stamps=stamps)
+        assert torch.equal(got, kernels.fused_conv1d_gn_mish(*args))
+        args = _torch(_res_inputs(rng, 1, 16, 64, 64, 128), "cuda")
+        geos = kernels.residual_block_geometry(1, 16, 64, 64, 128, False)
+        pair = tuple(kernels.phase_stamps(g.ctas, "cuda") for g in geos)
+        got = kernels.fused_residual_block(*args, stamps=pair)
+        assert torch.equal(got, kernels.fused_residual_block(*args))
+    for s in (stamps,) + pair:
+        s = s.cpu()
+        assert (s[:, 0, 0] > 0).all()
+        assert (s[:, 1:, :] >= s[:, :-1, :]).all()
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("field,value", [("cs", 3), ("cs", 16), ("threads", 2048), ("smem", 4)])
 def test_cuda_refused_geometry_raises(field, value):
-    """A geometry the C side does not take raises; nothing falls back."""
+    """A geometry the residual block's template does not take raises; nothing
+    falls back."""
     _need_card()
     rng = np.random.default_rng(0)
-    x, w, b, gamma, beta = _torch(_conv_inputs(rng, 1, 16, 64, 64), "cuda")
-    out = torch.empty_like(x)
-    geo = kernels.launch_geometry(1, 16, 64, 64, 5, 8, 0, kernels.EPI_NONE)._replace(**{field: value})
-    before = kernels.fused_conv1d_gn_mish.launches
+    x, t, w1, b1, g1, be1, tw, tb, w2, b2, g2, be2, _, _ = _torch(_res_inputs(rng, 1, 16, 64, 64, 128), "cuda")
+    h = torch.empty_like(x)
+    geo = kernels.launch_geometry(1, 16, 64, 64, 5, 8, 64, kernels.EPI_RES_ID)._replace(**{field: value})
+    before = kernels.fused_residual_block.launches
     with torch.no_grad(), pytest.raises(ValueError, match="conv_gn_mish takes"):
-        kernels._launch(geo, x, w, b, gamma, beta, out, 8, 1e-5, kernels.EPI_NONE)
+        kernels._launch(geo, h, w2, b2, g2, be2, torch.empty_like(x), 8, 1e-5, kernels.EPI_RES_ID, x)
+    assert kernels.fused_residual_block.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "field,value",
+    [("threads", 2048), ("threads", 512), ("smem", 4), ("width", 8), ("S", 3), ("stage", 0)],
+)
+def test_cuda_refused_head_geometry_raises(monkeypatch, field, value):
+    """A head geometry the C side does not take raises ValueError through the
+    wrapper and leaves its launch count as it was; nothing falls back."""
+    _need_card()
+    pick = kernels.head_geometry
+    monkeypatch.setattr(kernels, "head_geometry", lambda *a, **kw: pick(*a, **kw)._replace(**{field: value}))
+    args = _torch(_conv_inputs(np.random.default_rng(0), 1, 16, 64, 64), "cuda")
+    before = kernels.fused_conv1d_gn_mish.launches
+    with torch.no_grad(), pytest.raises(ValueError, match="conv1d_gn_mish takes"):
+        kernels.fused_conv1d_gn_mish(*args)
     assert kernels.fused_conv1d_gn_mish.launches == before
 
 
@@ -310,5 +474,11 @@ def test_cuda_wrapper_rejects_bad_input():
         with pytest.raises(TypeError):
             kernels.fused_conv1d_gn_mish(args[0].double(), *args[1:])
         longer = torch.zeros(1, kernels.MAX_L + 1, 64, device="cuda")
-        with pytest.raises(ValueError, match="conv_gn_mish takes"):
+        with pytest.raises(ValueError, match="conv1d_gn_mish takes"):
             kernels.fused_conv1d_gn_mish(longer, *args[1:])
+        # groups of 257 channels: their tiles do not fit one CTA
+        wide = _torch(_conv_inputs(rng, 1, 16, 16, 8 * 257), "cuda")
+        before = kernels.fused_conv1d_gn_mish.launches
+        with pytest.raises(ValueError, match="conv1d_gn_mish takes"):
+            kernels.fused_conv1d_gn_mish(*wide)
+        assert kernels.fused_conv1d_gn_mish.launches == before
