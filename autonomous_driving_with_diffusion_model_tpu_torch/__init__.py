@@ -3,7 +3,11 @@
 It sits beside the JAX package ``autonomous_driving_with_diffusion_model_tpu``,
 which stays the reference, and imports nothing of it. The JAX package's two
 Pallas kernels are CUDA C++ kernels here (``ops/csrc``, ``ops/kernels.py``).
-This slice ports the closed-loop planner: ``driving.DiffusionPlanner``.
+It ports the closed-loop planner (``driving.DiffusionPlanner``) and the
+agents around it (``driving.InteractAgent``, the leaderboard
+``driving/leaderboard_agent.py``, ``driving.RouteEvaluator``, the
+``driving.evaluate_cli`` and ``interact`` CLIs), which run on the card
+unless asked for the CPU.
 """
 
 __version__ = "0.1.0"

@@ -19,11 +19,22 @@ Phases, each of which fails the run (nonzero exit, no result line):
    with each launch's geometry; each residual block's time at every cluster
    size the geometry can pick; and the phase stamps of the head, of downs.0.1 and of mid_block1, cold (L2
    flushed) and warm: the median time of each phase over the CTAs, in ns and
-   in SM cycles, and the span from the first entry to the last store.
+   in SM cycles, and the span from the first entry to the last store;
+6. the agents, through the port's own entry points, at the same width: per
+   config, an ``InteractAgent`` on the card and one on the CPU over the
+   recorded frames of ``tests/fixtures/replay_town01.npz`` in lockstep
+   (launches per tick, plans within PLAN_TOL, raw controls within
+   CONTROL_TOL), tick latency p50/p90 on ``FakeDrivingEnv`` at 900x256,
+   sequential and pipelined in turns, and one profiled tick; the 2-dim
+   waypoint model (its Cin = 2 block held against the plain version) through
+   the PID controller; the leaderboard ``DiffusionAgent`` loaded from its file as
+   the harness loads it; and ``evaluate_cli --fake-env``, which must write
+   one ``Completed`` record. Each path runs with the launch counts set to 0
+   just before and read just after, and fails if a kernel was not launched.
 
 The last two lines of standard output are the card (nvidia-smi) and the
-kernels as JSON, then ``{"ok": true, "device": ...}``. Per-shape numbers go
-to chiprun_out/chip_smoke.json.
+kernels as JSON, then ``{"ok": true, "device": ...}``. Per-shape numbers and
+phase 6's results (under ``agents``) go to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -48,6 +59,11 @@ KERNEL_TOL = {
 # GPU plan vs CPU plan, in meters: 2 to 100 DDIM steps of float32 math whose
 # sums run in other orders on the two devices
 PLAN_TOL = dict(atol=5e-3, rtol=1e-3)
+# GPU vs CPU raw controls traj[0, 0, -3:]: PLAN_TOL's 5e-3 m over the 23.3 m
+# that scales xy (the controls are not scaled)
+CONTROL_TOL = 2.5e-4
+REPLAY = os.path.join("tests", "fixtures", "replay_town01.npz")
+LATENCY_TICKS = 20
 REPLACES = {
     "fused_residual_block": "autonomous_driving_with_diffusion_model_tpu/ops/pallas_kernels.py:106",
     "fused_conv1d_gn_mish": "autonomous_driving_with_diffusion_model_tpu/ops/pallas_kernels.py:206",
@@ -58,6 +74,37 @@ def log(*a):
     print(*a, flush=True)
 
 
+def replay_observations(path):
+    """The recorded Town01 frames of ``tests/fixtures/replay_town01.npz`` as
+    observation dicts, built as ``tests/test_replay_env.py`` builds them."""
+    import numpy as np
+
+    data = np.load(path)
+    route, obs = data["route"], []
+    for i in range(len(data["frames"])):
+        pos = data["pos"][i]
+        ahead = np.where(np.linalg.norm(route - pos[None], axis=-1) > 4.0)[0]
+        obs.append({
+            "camera": [data["frames"][i]],
+            "bev": [data["bevs"][i]],
+            "compass": [[0.0]],
+            "cur_waypoint": np.asarray([pos]),
+            "next_waypoint": np.asarray([route[ahead[0]] if len(ahead) else route[-1]]),
+            "next_command": [4],
+            "state": [[0.0, float(data["speed"][i]), 0.5, 0.0, 0.0]],
+            "at_red_light": [0],
+        })
+    return obs
+
+
+def near_threshold(raw, tol: float) -> bool:
+    """Whether the interact post-processing may rightly branch otherwise on
+    two devices: the raw brake within ``tol`` of 0.05 or 0.5, or of the raw
+    throttle (``driving/plan.py:post_process_control_interact``)."""
+    throttle, _, brake = (float(v) for v in raw)
+    return min(abs(brake - 0.05), abs(brake - 0.5), abs(throttle - brake)) <= tol
+
+
 def card_rates(name: str):
     """(bytes/s, float32 FLOP/s) from the data sheet of the named part."""
     if "PCIe" in name:
@@ -65,6 +112,259 @@ def card_rates(name: str):
     if "NVL" in name:
         return 3.9e12, 60e12
     return 3.35e12, 67e12  # H100 SXM
+
+
+def agents(load_cfg, case, device_breakdown, launches, max_err, smi) -> dict:
+    """Phase 6: the port's closed-loop agents and entry points on the card,
+    at full width. ``launches`` and ``max_err`` gather this phase's launch
+    counts and fp32 kernel errors into the kernels line."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from autonomous_driving_with_diffusion_model_tpu_torch.driving import (
+        DiffusionPlanner,
+        FakeDrivingEnv,
+        InteractAgent,
+        ReplayEnv,
+        evaluate_cli,
+    )
+    from autonomous_driving_with_diffusion_model_tpu_torch.models import ResidualTemporalMapBlock
+    from autonomous_driving_with_diffusion_model_tpu_torch.ops import kernels
+
+    def counted(run):
+        """run() with every launch count set to 0 just before and read just
+        after; the counts also go to the kernels line."""
+        kernels.reset_launch_counts()
+        out = run()
+        torch.cuda.synchronize()
+        got = {k: getattr(kernels, k).launches for k in launches}
+        for k in launches:
+            launches[k] += got[k]
+        if not all(got.values()):
+            raise AssertionError(f"a kernel of the path was not launched: {got}")
+        return out, got
+
+    def steps_of(cfg):
+        return len(cfg.TPU.SAMPLE_TIMESTEPS) or cfg.EVAL.SAMPLE_STEPS
+
+    def pct(xs, q):
+        return float(np.percentile(xs, q))
+
+    out = {"configs": {}}
+    replay = replay_observations(os.path.join(REPO, REPLAY))
+    for path in CONFIGS:
+        cfg = load_cfg(path)
+        n_fwd = steps_of(cfg)
+        per_tick = {"fused_residual_block": 16 * n_fwd, "fused_conv1d_gn_mish": n_fwd}
+        gpu = DiffusionPlanner(cfg, seed=0)
+        cpu = DiffusionPlanner(cfg, seed=0, device="cpu")
+        cpu.init_trajs = gpu.init_trajs.cpu()
+        row = {"steps": n_fwd, "launches_per_tick": per_tick}
+
+        # 6.1 the same recorded frames through a GPU and a CPU agent, in lockstep
+        frames = {"gpu": [], "cpu": []}
+        agent = {d: InteractAgent(cfg, ReplayEnv(replay), planner=p,
+                                  on_frame=lambda s, t, c, d=d: frames[d].append((t, c)))
+                 for d, p in (("gpu", gpu), ("cpu", cpu))}
+        obs = {d: a.env.reset() for d, a in agent.items()}
+        row["lockstep"] = []
+        for tick in range(2 if n_fwd > 10 else 4):
+            _, got = counted(lambda: agent["gpu"].compute_control(obs["gpu"]))
+            if got != per_tick:
+                raise AssertionError(f"{path} tick {tick}: launches {got} != {per_tick}")
+            agent["cpu"].compute_control(obs["cpu"])
+            (tg, cg), (tc, cc) = frames["gpu"][tick], frames["cpu"][tick]
+            plan_diff = float(np.abs(tg - tc).max())
+            raw_diff = float(np.abs(tg[0, 0, -3:] - tc[0, 0, -3:]).max())
+            branch = not near_threshold(tc[0, 0, -3:], CONTROL_TOL)
+            ok = (np.allclose(tg, tc, **PLAN_TOL) and raw_diff <= CONTROL_TOL
+                  and (not branch or (np.array_equal(cg == 0, cc == 0)
+                                      and np.abs(cg - cc).max() <= CONTROL_TOL)))
+            row["lockstep"].append(dict(tick=tick, launches=got, plan_max_abs_m=plan_diff,
+                                        raw_control_max_abs=raw_diff, controls_compared=branch,
+                                        control_gpu=cg.tolist(), control_cpu=cc.tolist()))
+            log(f"agents {path} replay tick {tick}: launches {got}; GPU vs CPU plan max_abs_diff "
+                f"{plan_diff:.3e} m, raw controls {raw_diff:.3e}; controls {[round(float(v), 4) for v in cg]} "
+                f"({'compared' if branch else 'raw near a threshold: branch not compared'}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{path} tick {tick}: GPU agent differs from the CPU agent")
+            for d in agent:
+                obs[d] = agent[d].env.step({0: frames[d][tick][1]})[0]
+        del cpu, agent
+
+        # 6.2 tick latency on the fake env: the agent's decision plus the env
+        # step, after one warm tick; sequential and pipelined in turns
+        # (sequential, pipelined, pipelined, sequential), since the host
+        # clock drifts within a run
+        ticks = {"sequential": [], "pipelined": []}
+        controls = {"sequential": [], "pipelined": []}
+        runs = []
+        for pipelined in (False, True, True, False):
+            mode = "pipelined" if pipelined else "sequential"
+            env = FakeDrivingEnv(image_hw=(256, 900), seed=0)
+            agent = InteractAgent(cfg, env, planner=gpu, pipelined=pipelined)
+            state = env.reset()
+            tick_ms = []
+
+            def run_ticks():
+                nonlocal state
+                for i in range(LATENCY_TICKS + 1):
+                    t0 = time.perf_counter()
+                    control = agent.compute_control(state)
+                    t1 = time.perf_counter()
+                    state = env.step({0: control})[0]
+                    if i:  # the first tick is the warm one
+                        tick_ms.append((time.perf_counter() - t0) * 1e3)
+                        controls[mode].append((t1 - t0) * 1e3)
+                    if not np.isfinite(control).all():
+                        raise AssertionError(f"{path}: non-finite control {control}")
+                if pipelined:  # the last plan is still in flight: land it
+                    agent._pending_plan[0].result()
+
+            _, got = counted(run_ticks)
+            agent.close()
+            want = {k: v * (LATENCY_TICKS + 1) for k, v in per_tick.items()}
+            if got != want:
+                raise AssertionError(f"{path} {mode}: launches {got} != {want}")
+            ticks[mode] += tick_ms
+            runs.append(dict(mode=mode, tick_ms_p50=pct(tick_ms, 50), tick_ms=tick_ms, launches=got))
+            log(f"agents {path} {mode} (run {len(runs)} of 4): tick p50 {pct(tick_ms, 50):.2f} ms, "
+                f"p90 {pct(tick_ms, 90):.2f} ms over {LATENCY_TICKS} ticks of FakeDrivingEnv 900x256 "
+                f"after one warm tick; launches {got}; on {smi}")
+        row["ticks"] = {mode: dict(tick_ms_p50=pct(t, 50), tick_ms_p90=pct(t, 90),
+                                   control_ms_p50=pct(controls[mode], 50),
+                                   run_p50s=[r["tick_ms_p50"] for r in runs if r["mode"] == mode])
+                        for mode, t in ticks.items()}
+        row["tick_runs"] = runs
+        for mode, t in row["ticks"].items():
+            log(f"agents {path} {mode}: tick p50 {t['tick_ms_p50']:.2f} ms, p90 {t['tick_ms_p90']:.2f} ms "
+                f"(compute_control p50 {t['control_ms_p50']:.2f} ms) over the {2 * LATENCY_TICKS} ticks of "
+                f"its two runs (run p50s {', '.join(f'{v:.2f}' for v in t['run_p50s'])}); on {smi}")
+        env = FakeDrivingEnv(image_hw=(256, 900), seed=0)
+        agent = InteractAgent(cfg, env, planner=gpu)
+        state = env.reset()
+        busy = device_breakdown(lambda: env.step({0: agent.compute_control(state)}))
+        row["profiled_tick"] = busy
+        log(f"agents {path}: profiled sequential tick {busy['wall_ms']:.2f} ms, device busy "
+            f"{busy['device_ms']:.2f} ms ({busy['busy_share']:.3f}); by kind {busy['by_kind']}; on {smi}")
+        out["configs"][path] = row
+        del gpu, agent
+
+    # 6.3 the 2-dim waypoint model and its PID controls, at the default width
+    cfg = load_cfg(CONFIGS[0])
+    cfg.MODEL.TRANSITION_DIM = 2
+    planner = DiffusionPlanner(cfg, seed=0)
+    calls = []
+    hooks = [m.register_forward_hook(lambda mod, args, o, n=n: calls.append((n, mod, args)))
+             for n, m in planner.model.named_modules() if isinstance(m, ResidualTemporalMapBlock)]
+    with torch.no_grad():
+        feat = planner.model.encode_image(torch.zeros(1, 256, 900, 3, device=planner.device))
+        planner.model(planner.init_trajs[:1], time=torch.ones(1, device=planner.device), img_feature=feat)
+    for h in hooks:
+        h.remove()
+    gen = torch.Generator().manual_seed(2)
+    checks = []
+    with torch.no_grad():
+        for n, m, a in [c for c in calls if c[2][0].shape[-1] == 2]:
+            for dtype in (torch.float32, torch.bfloat16):
+                for B in (1, 2):
+                    fn, plain, args = case(m, a, B, dtype, gen)
+                    got, want = fn(*args).float(), plain(*args).float()
+                    torch.cuda.synchronize()
+                    err = (got - want).abs().max().item()
+                    ok = torch.allclose(got, want, **KERNEL_TOL[str(dtype)[6:]]) and bool(torch.isfinite(got).all())
+                    if dtype == torch.float32:
+                        max_err[fn.__name__] = max(max_err[fn.__name__], err)
+                    checks.append(dict(block=n, B=B, dtype=str(dtype)[6:], max_abs_err=err, ok=ok))
+                    log(f"agents 2-dim check {fn.__name__} {n} B={B} {tuple(args[0].shape)} {str(dtype)[6:]} "
+                        f"max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(f"{fn.__name__} at {n} (Cin 2) B={B} {dtype}: {err}")
+    if not checks:
+        raise AssertionError("the 2-dim model has no residual block with Cin = 2")
+    env = FakeDrivingEnv(image_hw=(256, 900), seed=0)
+    trajs = []
+    agent = InteractAgent(cfg, env, planner=planner, on_frame=lambda s, t, c: trajs.append(t))
+    pid = []
+
+    def pid_ticks():
+        state = env.reset()
+        for _ in range(3):
+            control = agent.compute_control(state)
+            pid.append(control.tolist())
+            state = env.step({0: control})[0]
+
+    _, got = counted(pid_ticks)
+    cpu = DiffusionPlanner(cfg, seed=0, device="cpu")
+    cpu.init_trajs = planner.init_trajs.cpu()
+    diff = float(np.abs(trajs[0] - cpu.plan(np.asarray(FakeDrivingEnv(image_hw=(256, 900), seed=0)
+                                                         .reset()["camera"][0]))).max())
+    ok = (all(np.isfinite(c).all() and 0.0 <= c[0] <= cfg.CONTROL.MAX_THROTTLE for c in pid)
+          and trajs[0].shape == (1, cfg.MODEL.HORIZON, 2) and diff <= PLAN_TOL["atol"])
+    out["pid_2dim"] = dict(checks=checks, controls=pid, launches=got, first_plan_gpu_vs_cpu_m=diff)
+    log(f"agents 2-dim PID: 3 ticks, controls {np.round(pid, 4).tolist()}, launches {got}, "
+        f"first plan GPU vs CPU {diff:.3e} m {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"2-dim PID path: controls {pid}, plan diff {diff}")
+    del planner, cpu, agent
+
+    # 6.4 the leaderboard agent, loaded from its file as the harness loads it
+    spec = importlib.util.spec_from_file_location(
+        "leaderboard_agent", os.path.join(REPO, PKG, "driving", "leaderboard_agent.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    agent = getattr(mod, mod.get_entry_point())()  # the default config, on the card
+    agent.set_global_plan(None, [((5.0 * i, 0.0), 4) for i in range(20)])
+    rng = np.random.default_rng(3)
+    lb = []
+    for step in range(agent.cfg.ENV.AGENT_WARMUP + 3):
+        inputs = {
+            "rgb": (step, rng.integers(0, 256, (256, 900, 4), dtype=np.uint8)),
+            "bev": (step, rng.integers(0, 256, (512, 512, 4), dtype=np.uint8)),
+            "gps": (step, np.array([1.5 * step, 0.1 * step, 0.0])),
+            "imu": (step, np.array([0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.05 * step])),
+            "speed": (step, {"speed": 2.0}),
+        }
+        if step < agent.cfg.ENV.AGENT_WARMUP:
+            c = agent.run_step(inputs, 0.05 * step)
+        else:
+            c, got = counted(lambda: agent.run_step(inputs, 0.05 * step))
+        lb.append(dict(step=step, control=[c.throttle, c.steer, c.brake],
+                       launches=None if step < agent.cfg.ENV.AGENT_WARMUP else got))
+    ok = (all(np.isfinite(r["control"]).all() for r in lb)
+          and mod.DiffusionPlanner.__module__ == f"{PKG}.driving.plan")
+    out["leaderboard"] = dict(module=mod.DiffusionPlanner.__module__, steps=lb)
+    log(f"agents leaderboard_agent.py by file path ({mod.DiffusionPlanner.__module__}): "
+        + "; ".join(f"step {r['step']} {np.round(r['control'], 4).tolist()} launches {r['launches']}" for r in lb)
+        + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"leaderboard agent: {lb}")
+    agent.destroy()
+
+    # 6.5 the evaluation CLI over the fake env, on the card
+    ckpt = os.path.join(REPO, "chiprun_out", "eval_ckpt.json")
+    os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+    if os.path.exists(ckpt):
+        os.remove(ckpt)  # a resumed run would skip the route
+    t0 = time.perf_counter()
+    data, got = counted(lambda: evaluate_cli.main(
+        ["--env-id", "Endless-v0", "--weather-group", "simple", "--fake-env", "--max-steps", "15",
+         "--checkpoint-json", ckpt]))
+    records = data["_checkpoint"]["records"]
+    ok = (len(records) == 1 and records[0]["status"] == "Completed" and records[0]["num_steps"] == 15
+          and got["fused_conv1d_gn_mish"] == 15 * steps_of(load_cfg(CONFIGS[0])))
+    out["evaluate_cli"] = dict(record=records[0] if records else None, launches=got,
+                               seconds=time.perf_counter() - t0)
+    log(f"agents evaluate_cli --fake-env: {len(records)} record(s): "
+        + "; ".join(f"{r['route_id']} {r['status']} num_steps {r['num_steps']} scores {r['scores']}"
+                    for r in records)
+        + f"; launches {got}; {out['evaluate_cli']['seconds']:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"evaluate_cli: {records}, launches {got}")
+    return out
 
 
 def main() -> int:
@@ -452,6 +752,9 @@ def main() -> int:
         ).stdout.strip().splitlines()[0]
         report["clocks_sm"] = clocks
         log(f"phases: nvidia-smi clocks.sm, clocks.max.sm after the stamped launches: {clocks}")
+
+    # -------------------------------------------------------------- 6. agents
+    report["agents"] = agents(load_cfg, case, device_breakdown, launches, max_err, smi)
 
     kernels_line = []
     for kname in ("fused_residual_block", "fused_conv1d_gn_mish"):

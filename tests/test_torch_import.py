@@ -1,11 +1,15 @@
 """The port imports neither JAX nor anything of the JAX package: every module
 of ``autonomous_driving_with_diffusion_model_tpu_torch`` and ``chip_smoke``
-import in a fresh interpreter where ``import jax`` and ``import flax`` fail."""
+import in a fresh interpreter where ``import jax`` and ``import flax`` fail;
+and the leaderboard agent, loaded by file path as the harness loads it,
+ticks with neither them nor ``cv2`` and ``PIL``."""
 
 import json
 import os
 import subprocess
 import sys
+
+import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -41,7 +45,65 @@ def test_port_imports_without_jax_or_the_jax_package():
     result = _probe()
     # every subpackage of the slice was reached
     for sub in ("utils.config", "ops.kernels", "ops.build", "models.temporal_unet",
-                "models.convert", "diffusion.sampler", "data.augment", "driving.plan"):
+                "models.convert", "diffusion.sampler", "data.augment", "driving.plan",
+                "utils.watchdog", "driving.pid", "driving.controller", "driving.gps",
+                "driving.planner", "driving.fake_env", "driving.interact_agent",
+                "driving.leaderboard_agent", "driving.scoring", "driving.statistics",
+                "driving.leaderboard_stats", "driving.routes", "driving.evaluator",
+                "driving.evaluate_cli", "sim.suites", "interact"):
         assert f"autonomous_driving_with_diffusion_model_tpu_torch.{sub}" in result["imported"]
     assert result["jax_side"] == []
     assert result["jax"] == []
+
+
+# The harness's way: the bare file by path, no parent package, with jax,
+# flax, cv2 and PIL unimportable; then one agent ticks past its warm-up on
+# the CPU at a tiny size.
+_LEADERBOARD_PROBE = r"""
+import importlib.util, json, os, sys
+for name in ("jax", "flax", "cv2", "PIL"):
+    sys.modules[name] = None
+path = os.path.join(REPO, "autonomous_driving_with_diffusion_model_tpu_torch", "driving",
+                    "leaderboard_agent.py")
+spec = importlib.util.spec_from_file_location("leaderboard_agent", path)
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+import numpy as np
+agent = getattr(mod, mod.get_entry_point())(CFG, device="cpu")
+agent.set_global_plan(None, [((float(i * 5), 0.0), 4) for i in range(20)])
+rng = np.random.default_rng(0)
+controls = []
+for step in range(3):
+    c = agent.run_step({
+        "rgb": (step, rng.integers(0, 255, (32, 48, 4), dtype=np.uint8)),
+        "bev": (step, rng.integers(0, 255, (64, 64, 4), dtype=np.uint8)),
+        "gps": (step, np.array([1.0 * step, 0.0, 0.0])),
+        "speed": (step, {"speed": 1.0}),
+        "imu": (step, np.zeros(7)),
+    }, 0.05 * step)
+    controls.append([c.throttle, c.steer, c.brake])
+mods = [m for m in sys.modules if sys.modules[m] is not None]
+print(json.dumps({
+    "package": mod.DiffusionPlanner.__module__,
+    "controls": controls,
+    "jax_side": sorted(m for m in mods if m.split(".")[0] == "autonomous_driving_with_diffusion_model_tpu"),
+    "blocked": sorted(m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "flax", "cv2", "PIL")),
+}))
+"""
+
+
+def test_leaderboard_agent_by_file_path_imports_no_jax_and_no_cv2(tmp_path):
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text("MODEL:\n  DIM: 8\n  PERCEPTION: tiny\nEVAL:\n  SAMPLE_STEPS: 2\n"
+                   "TRAIN:\n  IMAGE_HEIGHT: 32\n  IMAGE_WIDTH: 48\n")
+    code = _LEADERBOARD_PROBE.replace("REPO", repr(REPO)).replace("CFG", repr(str(cfg)))
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "SAVE_PATH", "AGENT_OPTS")}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=str(tmp_path), env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    # the fallback imports reached the port, not the JAX package
+    assert result["package"] == "autonomous_driving_with_diffusion_model_tpu_torch.driving.plan"
+    assert result["jax_side"] == [] and result["blocked"] == []
+    assert result["controls"][0] == [0.0, 0.0, 0.0]  # the warm-up tick
+    assert all(np.isfinite(c).all() for c in result["controls"])
