@@ -17,6 +17,7 @@ __all__ = [
     "make_schedule",
     "make_schedule_from_cfg",
     "leading_timesteps",
+    "add_noise",
 ]
 
 
@@ -37,9 +38,11 @@ def compute_betas(
 ) -> np.ndarray:
     if schedule_type == "linear":
         return np.linspace(beta_start, beta_end, num_steps, dtype=np.float64)
+    if schedule_type == "scaled_linear":
+        return np.linspace(beta_start**0.5, beta_end**0.5, num_steps, dtype=np.float64) ** 2
     if schedule_type == "squaredcos_cap_v2":
         return _betas_squaredcos_cap_v2(num_steps)
-    raise ValueError(f"unknown beta schedule for the port: {schedule_type}")
+    raise ValueError(f"Unknown beta schedule: {schedule_type}")
 
 
 class DiffusionSchedule(NamedTuple):
@@ -92,3 +95,10 @@ def leading_timesteps(num_train_timesteps: int, num_inference_steps: int) -> Tup
     step_ratio = num_train_timesteps // num_inference_steps
     timesteps = (np.arange(0, num_inference_steps) * step_ratio).round()[::-1].astype(np.int64)
     return timesteps, timesteps - step_ratio
+
+
+def add_noise(schedule: DiffusionSchedule, x0: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Forward-noise x0 at the (B,) timesteps t (diffusers add_noise; train.py:234)."""
+    ac = schedule.alphas_cumprod[t.to(torch.long)]
+    shape = (-1,) + (1,) * (x0.ndim - 1)
+    return torch.sqrt(ac).reshape(shape) * x0 + torch.sqrt(1.0 - ac).reshape(shape) * noise

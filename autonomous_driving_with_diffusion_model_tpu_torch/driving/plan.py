@@ -7,6 +7,14 @@ K hypotheses in one batch, scores them and returns the best. ``plan_begin``
 queues all of it on the current CUDA stream and returns device tensors
 without waiting; ``plan_fetch`` waits. Weights come from a seed, or from a
 reference ``.pth`` (``state_dict`` + EMA shadow overwrite).
+
+Random numbers come from the planner's CPU generator, so the GPU and the CPU
+planner of one seed draw the same: the init trajectories, and the step noise
+of the samplers that need it (DDPM, DDIM with eta > 0, inpainting), both
+drawn once at construction under ``TPU.FIXED_INIT_NOISE`` (the JAX planner's
+fixed noise key) and afresh for every plan otherwise, then copied to the
+device once per plan. ``init_trajs`` and ``step_noise`` are settable, so a
+test can inject the JAX planner's.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from ..diffusion.guidance import target_guidance_loss
 from ..diffusion.sampler import sampler_from_cfg
 from ..diffusion.schedule import make_schedule_from_cfg
 from ..models.convert import load_torch_checkpoint
+from ..models.scorer import HypothesisScorer, load_scorer
 from ..models.temporal_unet import build_model
 from ..utils.constants import MAGIC_NUM, GuidanceType
 from ..utils.device import resolve_device
@@ -80,25 +89,43 @@ class DiffusionPlanner:
         self._sample = sampler_from_cfg(self.model, make_schedule_from_cfg(cfg, self.device), cfg)
 
         # fixed init noise across plans (interact.py:100); K hypotheses draw K
-        # rows of it. Settable, so that tests can inject another planner's.
+        # rows of it, and the step noise (S, K, H, D) follows it
         self._generator = torch.Generator().manual_seed(seed)
         self.num_hypotheses = max(1, int(cfg.TPU.NUM_HYPOTHESES))
         shape = (self.num_hypotheses, cfg.MODEL.HORIZON, cfg.MODEL.TRANSITION_DIM)
-        self.init_trajs = torch.randn(shape, generator=self._generator).to(self.device)
+        self._noise_shape = (self._sample.num_steps,) + shape if self._sample.needs_noise else None
+        self.init_trajs, self.step_noise = (
+            None if a is None else a.to(self.device) for a in self._draw(shape)
+        )
         self._fixed_noise = bool(cfg.TPU.FIXED_INIT_NOISE)
 
         self._needs_target = self.use_guidance_type != GuidanceType.NO_GUIDANCE
         self._hoisted = bool(cfg.TPU.HOIST_PERCEPTION)
         self._scorer = str(cfg.TPU.HYPOTHESIS_SCORER).lower()
-        if self._scorer == "learned":
-            raise NotImplementedError(
-                "TPU.HYPOTHESIS_SCORER=learned waits until models/scorer.py is ported"
+        if self._scorer not in ("auto", "guidance_loss", "jerk", "learned"):
+            raise ValueError(
+                f"TPU.HYPOTHESIS_SCORER={self._scorer!r}; use auto | guidance_loss | jerk | learned"
             )
-        if self._scorer not in ("auto", "guidance_loss", "jerk"):
-            raise ValueError(f"TPU.HYPOTHESIS_SCORER={self._scorer!r}; use auto | guidance_loss | jerk")
+        if self._scorer == "learned":
+            # the outcome-trained net of models/scorer.py (JAX plan.py:121-134)
+            path = str(cfg.TPU.SCORER_CHECKPOINT)
+            if not path:
+                raise ValueError(
+                    "TPU.HYPOTHESIS_SCORER=learned needs TPU.SCORER_CHECKPOINT "
+                    "(a .npz written by models.scorer.save_scorer)"
+                )
+            self._scorer_net = HypothesisScorer.from_params(*load_scorer(path)).to(self.device)
+
+    def _draw(self, shape):
+        """(init trajectories, step noise or None) from the CPU generator."""
+        init = torch.randn(shape, generator=self._generator)
+        if self._noise_shape is None:
+            return init, None
+        return init, torch.randn(self._noise_shape, generator=self._generator)
 
     @torch.no_grad()
-    def _plan(self, init_trajs: torch.Tensor, rgb_u8: torch.Tensor, target: torch.Tensor):
+    def _plan(self, init_trajs: torch.Tensor, rgb_u8: torch.Tensor, target: torch.Tensor,
+              step_noise: Optional[torch.Tensor]):
         image = normalize_images(rgb_u8)[None]  # (1, H, W, 3)
         K = init_trajs.shape[0]
         if self._hoisted:
@@ -106,9 +133,12 @@ class DiffusionPlanner:
         else:  # the reference's execution re-encodes in every step
             kwargs = dict(image=image.repeat(K, 1, 1, 1))
         trajs = self._sample(
-            init_trajs, target=target.repeat(K, 1) if self._needs_target else None, **kwargs
+            init_trajs, target=target.repeat(K, 1) if self._needs_target else None,
+            noise_seq=step_noise, **kwargs
         )
-        if self._scorer == "guidance_loss" and self._needs_target:
+        if self._scorer == "learned":
+            score = self._scorer_net(trajs, target[0])
+        elif self._scorer == "guidance_loss" and self._needs_target:
             # the TargetGuidance objective per hypothesis, on normalized xy
             score = torch.stack([target_guidance_loss((t / MAGIC_NUM)[None, :, :2], target) for t in trajs])
         elif self._needs_target and self._scorer != "jerk":
@@ -134,14 +164,15 @@ class DiffusionPlanner:
     def plan_begin(self, rgb_u8: np.ndarray, target: Optional[np.ndarray] = None):
         """Queue a plan without waiting: returns device tensors (trajs, best)."""
         if self._fixed_noise:
-            init = self.init_trajs
+            init, noise = self.init_trajs, self.step_noise
         else:
-            init = torch.randn(self.init_trajs.shape, generator=self._generator)
+            init, noise = self._draw(self.init_trajs.shape)
         tgt = np.zeros((1, 2), np.float32) if target is None else np.asarray(target, np.float32).reshape(1, 2)
         return self._plan(
             init.to(self.device, torch.float32),
             torch.from_numpy(np.ascontiguousarray(rgb_u8)).to(self.device),
             torch.from_numpy(tgt).to(self.device),
+            None if noise is None else noise.to(self.device, torch.float32),
         )
 
     def plan_fetch(self, handle) -> np.ndarray:

@@ -11,8 +11,17 @@ slots the reference fills with parameter-free modules (``Rearrange``,
 ``Conv1dBlock`` and ``ResidualTemporalMapBlock`` run through the CUDA kernels
 of ``ops/kernels.py`` on a CUDA device (their plain versions on the CPU).
 The kernels take (K, Cin, C) weights: each block packs its parameters into
-that layout once and repacks only after a parameter changed
-(``load_state_dict``, ``.to()``, an in-place update), never per call.
+that layout once per compute dtype and repacks only after a parameter
+changed (``load_state_dict``, ``.to()``, an in-place update), never per call.
+
+Parameters stay float32 in every model. A bfloat16 model (JAX
+``TPU.COMPUTE_DTYPE``) computes in bfloat16: activations are bfloat16, and
+each layer casts its weights to the activation's dtype where the JAX package
+casts them, while normalisation and softmax run in float32 (``ops/nn.py``).
+The kernels take every operand in x's dtype, so in a bfloat16 model the
+GroupNorm gamma and beta reach them rounded to bfloat16, where the JAX model
+keeps them float32: a relative change of at most 2^-9 in each, the size of
+the bfloat16 rounding of the block's output (``tests/test_torch_bf16.py``).
 """
 
 from __future__ import annotations
@@ -25,7 +34,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.kernels import check_forward_only, fused_conv1d_gn_mish, fused_residual_block
-from ..ops.nn import channel_layer_norm, conv1d, conv1d_transpose, sinusoidal_pos_emb
+from ..ops.nn import channel_layer_norm, conv1d, conv1d_transpose, dense, layer_norm, mish, sinusoidal_pos_emb
 
 __all__ = [
     "Conv1dBlock",
@@ -42,15 +51,17 @@ __all__ = [
 ]
 
 
-def _packed(module: nn.Module, build: Callable[[], Tuple]) -> Tuple:
-    """``build()`` (kernel-layout copies of ``module``'s parameters), cached
-    until a parameter changes storage, type, device or version."""
+def _packed(module: nn.Module, dtype: torch.dtype, build: Callable[[], Tuple]) -> Tuple:
+    """``build()`` (kernel-layout copies of ``module``'s parameters) cast to
+    the compute dtype ``dtype``, cached per dtype until a parameter changes
+    storage, type, device or version."""
     key = tuple((p.data_ptr(), p._version, p.dtype, p.device) for p in module.parameters())
-    cache = module.__dict__.get("_kernel_params")
+    caches = module.__dict__.setdefault("_kernel_params", {})
+    cache = caches.get(dtype)
     if cache is None or cache[0] != key:
         with torch.no_grad():
-            cache = (key, build())
-        module.__dict__["_kernel_params"] = cache
+            cache = (key, tuple(None if a is None else a.to(dtype).contiguous() for a in build()))
+        caches[dtype] = cache
     return cache[1]
 
 
@@ -74,16 +85,16 @@ class Conv1dBlock(nn.Module):
             ]
         )
 
-    def kernel_params(self) -> Tuple[torch.Tensor, ...]:
+    def kernel_params(self, dtype: torch.dtype = torch.float32) -> Tuple[torch.Tensor, ...]:
         conv, _, norm = self.block
         return _packed(
-            self,
+            self, dtype,
             lambda: (_kio(conv.weight), conv.bias.detach(), norm.weight.detach(), norm.bias.detach()),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         check_forward_only(x, *self.parameters())
-        w, b, g, be = self.kernel_params()
+        w, b, g, be = self.kernel_params(x.dtype)
         return fused_conv1d_gn_mish(x.contiguous(), w, b, g, be, n_groups=self.n_groups)
 
 
@@ -113,12 +124,12 @@ class ResidualTemporalMapBlock(nn.Module):
             res.bias.detach() if has_res else None,
         )
 
-    def kernel_params(self) -> Tuple:
-        return _packed(self, self._build)
+    def kernel_params(self, dtype: torch.dtype = torch.float32) -> Tuple:
+        return _packed(self, dtype, self._build)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         check_forward_only(x, t, *self.parameters())
-        return fused_residual_block(x.contiguous(), t.contiguous(), *self.kernel_params())
+        return fused_residual_block(x.contiguous(), t.contiguous(), *self.kernel_params(x.dtype))
 
 
 class Downsample1d(nn.Module):
@@ -153,12 +164,17 @@ class SinusoidalPosEmb(nn.Module):
 
 
 class TimeMLP(nn.Sequential):
-    """SinusoidalPosEmb -> Linear(4d) -> Mish -> Linear(d) (reference: temporal.py:93-98)."""
+    """SinusoidalPosEmb -> Linear(4d) -> Mish -> Linear(d) (reference: temporal.py:93-98);
+    the float32 embedding is cast to the compute dtype ``dtype``."""
 
     def __init__(self, dim: int):
         super().__init__(
             SinusoidalPosEmb(dim), nn.Linear(dim, dim * 4), nn.Mish(), nn.Linear(dim * 4, dim)
         )
+
+    def forward(self, t: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        x = self[0](t).to(dtype)
+        return dense(mish(dense(x, self[1].weight, self[1].bias)), self[3].weight, self[3].bias)
 
 
 class CondMLP(nn.Sequential):
@@ -166,6 +182,9 @@ class CondMLP(nn.Sequential):
 
     def __init__(self, dim: int, cond_dim: int = 2):
         super().__init__(nn.Linear(cond_dim, dim), nn.Mish(), nn.Linear(dim, dim))
+
+    def forward(self, c: torch.Tensor) -> torch.Tensor:
+        return dense(mish(dense(c, self[0].weight, self[0].bias)), self[2].weight, self[2].bias)
 
 
 class LinearAttention(nn.Module):
@@ -254,13 +273,15 @@ class TransformerEncoderLayer(nn.Module):
     def forward(self, x):
         B, L, D = x.shape
         hd = D // self.num_heads
-        qkv = F.linear(x, self.self_attn.in_proj_weight, self.self_attn.in_proj_bias)
+        qkv = dense(x, self.self_attn.in_proj_weight, self.self_attn.in_proj_bias)
         q, k, v = (a.reshape(B, L, self.num_heads, hd).transpose(1, 2) for a in qkv.chunk(3, dim=-1))
         scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(hd)
         probs = torch.softmax(scores.to(torch.float32), dim=-1).to(x.dtype)
         attn = torch.einsum("bhqk,bhkd->bhqd", probs, v).transpose(1, 2).reshape(B, L, D)
-        x = self.norm1(x + self.self_attn.out_proj(attn))
-        return self.norm2(x + self.linear2(F.silu(self.linear1(x))))
+        out_proj = self.self_attn.out_proj
+        x = layer_norm(x + dense(attn, out_proj.weight, out_proj.bias), self.norm1.weight, self.norm1.bias)
+        h = dense(F.silu(dense(x, self.linear1.weight, self.linear1.bias)), self.linear2.weight, self.linear2.bias)
+        return layer_norm(x + h, self.norm2.weight, self.norm2.bias)
 
 
 class _Encoder(nn.Module):
@@ -276,7 +297,7 @@ class _Encoder(nn.Module):
     def forward(self, x):
         for layer in self.layers:
             x = layer(x)
-        return self.norm(x)
+        return layer_norm(x, self.norm.weight, self.norm.bias)
 
 
 class TrajPredict(nn.Module):
@@ -294,5 +315,6 @@ class TrajPredict(nn.Module):
     def forward(self, x, time_embed):
         L = x.shape[1]
         pos = sinusoidal_pos_emb(torch.arange(L, dtype=torch.float32, device=x.device), self.hidden_dim)
-        h = self.input_proj(x) + pos[None].to(x.dtype) + time_embed[:, None, :].to(x.dtype)
-        return self.output_proj(self.encoder_traj(h))
+        h = dense(x, self.input_proj.weight, self.input_proj.bias)
+        h = h + pos[None].to(h.dtype) + time_embed[:, None, :].to(h.dtype)
+        return dense(self.encoder_traj(h), self.output_proj.weight, self.output_proj.bias)

@@ -14,7 +14,10 @@ JAX package's declarative mapping ``(torch_key, flax_path, transform)``
   parameters with its EMA ``shadow_params`` list, in ``model.parameters()``
   order (reference: interact.py:102-108, misc/load_param.py:4-8).
 
-Beyond the JAX mapping, the ``tiny`` test encoder maps too.
+Beyond the JAX package's ``.pth`` mapping, which covers ResNet-34 only, the
+whole ResNet family and the ``tiny`` test encoder map too, so
+:func:`from_jax_variables` carries any JAX encoder; a ``.pth`` stays
+ResNet-34 only, as there.
 """
 
 from __future__ import annotations
@@ -98,30 +101,47 @@ def _bn(tk: str, fp: Tuple[str, ...]) -> Tuple[List[Entry], List[Entry]]:
     return _norm(tk, fp), stats
 
 
-def _resnet34_mapping(prefix: str = "perception") -> Tuple[List[Entry], List[Entry]]:
-    """torchvision resnet34 layout (reference: modeling/resnet.py:163-296)."""
+# MODEL.PERCEPTION -> (bottleneck blocks, blocks per stage), JAX ``resnet.py:211-236``
+RESNET_LAYERS = {
+    "resnet18": (False, (2, 2, 2, 2)),
+    "resnet34": (False, (3, 4, 6, 3)),
+    "resnet50": (True, (3, 4, 6, 3)),
+    "resnet101": (True, (3, 4, 23, 3)),
+    "resnet152": (True, (3, 8, 36, 3)),
+    "resnext50_32x4d": (True, (3, 4, 6, 3)),
+    "wide_resnet50_2": (True, (3, 4, 6, 3)),
+}
+
+
+def _resnet_mapping(perception: str, prefix: str = "perception") -> Tuple[List[Entry], List[Entry]]:
+    """torchvision layout (reference: modeling/resnet.py:163-296); JAX block
+    names ``layer{s}_{i}`` with ``ds_conv``/``ds_bn``."""
+    bottleneck, layers = RESNET_LAYERS[perception]
+    expansion = 4 if bottleneck else 1
+    convs = ("conv1", "conv2", "conv3") if bottleneck else ("conv1", "conv2")
     params: List[Entry] = [(f"{prefix}.conv1.weight", ("perception", "conv1", "weight"), T_CONV2D)]
     stats: List[Entry] = []
     p, s = _bn(f"{prefix}.bn1", ("perception", "bn1"))
     params += p
     stats += s
     in_ch = 64
-    for stage, (planes, blocks) in enumerate(zip((64, 128, 256, 512), (3, 4, 6, 3))):
+    for stage, (planes, blocks) in enumerate(zip((64, 128, 256, 512), layers)):
         stride = 1 if stage == 0 else 2
         for i in range(blocks):
             tk = f"{prefix}.layer{stage + 1}.{i}"
             fp = ("perception", f"layer{stage + 1}_{i}")
-            for conv, bn in (("conv1", "bn1"), ("conv2", "bn2")):
+            for conv in convs:
+                bn = "bn" + conv[-1]
                 params.append((f"{tk}.{conv}.weight", fp + (conv, "weight"), T_CONV2D))
                 p, s = _bn(f"{tk}.{bn}", fp + (bn,))
                 params += p
                 stats += s
-            if (stride if i == 0 else 1) != 1 or in_ch != planes:
+            if (stride if i == 0 else 1) != 1 or in_ch != planes * expansion:
                 params.append((f"{tk}.downsample.0.weight", fp + ("ds_conv", "weight"), T_CONV2D))
                 p, s = _bn(f"{tk}.downsample.1", fp + ("ds_bn",))
                 params += p
                 stats += s
-            in_ch = planes
+            in_ch = planes * expansion
     params += _dense(f"{prefix}.fc", ("perception", "fc"))
     return params, stats
 
@@ -150,8 +170,8 @@ def build_mapping(cfg) -> Tuple[List[Entry], List[Entry]]:
     """(param_entries, batch_stat_entries); param_entries follow the torch
     ``named_parameters()`` order."""
     perception = cfg.MODEL.get("PERCEPTION", "resnet34")
-    if perception == "resnet34":
-        params, stats = _resnet34_mapping()
+    if perception in RESNET_LAYERS:
+        params, stats = _resnet_mapping(perception)
     elif perception == "tiny":
         params, stats = _tiny_mapping()
     else:
@@ -246,7 +266,14 @@ def apply_ema_shadow_params(state_dict: Dict[str, Any], shadow_params: List[Any]
 
 def load_torch_checkpoint(path: str, cfg, use_ema: bool = True) -> Dict[str, torch.Tensor]:
     """A reference ``.pth`` -> the port's ``state_dict``: ``state_dict``, then
-    the EMA shadow overwrite (reference: interact.py:102-108)."""
+    the EMA shadow overwrite (reference: interact.py:102-108). ResNet-34
+    only, the reference's encoder, as in JAX ``models/torch_convert.py:171-174``."""
+    perception = cfg.MODEL.get("PERCEPTION", "resnet34")
+    if perception != "resnet34":
+        raise ValueError(
+            f"torch checkpoint conversion requires MODEL.PERCEPTION=resnet34 "
+            f"(the reference's encoder), got {perception}"
+        )
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     state_dict = ckpt["state_dict"] if "state_dict" in ckpt else ckpt
     if use_ema and isinstance(ckpt, dict) and "ema_state_dict" in ckpt:

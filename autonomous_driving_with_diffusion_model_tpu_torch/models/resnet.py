@@ -1,54 +1,116 @@
 """Perception encoders (counterpart of the JAX package's ``models/resnet.py``).
 
-``resnet34`` is the torchvision layout the reference vendors (reference:
+The torchvision ResNet family the reference vendors (reference:
 modeling/resnet.py:56-333) with the classifier head re-pointed to the
-conditioning width (modeling/temporal.py:83-84). It takes NHWC images, like
-the JAX package, and runs channels-first inside. BatchNorm normalizes with
-the running statistics (eval mode): the port serves, it does not train yet.
-The rest of the ResNet family waits for a later slice.
+conditioning width (modeling/temporal.py:83-84): ``BasicBlock`` for
+resnet18/34, ``Bottleneck`` (with ``groups``/``base_width``) for resnet50/101/152,
+resnext50_32x4d and wide_resnet50_2, under torchvision's ``state_dict`` names
+(``layerN.i.conv3``, ``downsample.0/1``). The encoders take NHWC images, like
+the JAX package, and run channels-first inside. BatchNorm normalizes with the
+running statistics (eval mode): the port serves, it does not train yet.
+
+Each convolution and the head compute in the input's dtype, their weights
+cast to it; BatchNorm runs in float32 and casts back (JAX ``resnet.py:56,
+80-96``), so a bfloat16 image gives a bfloat16 encode with float32
+parameters.
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-__all__ = ["BasicBlock", "ResNet", "resnet34", "TinyEncoder", "PERCEPTION_BUILDERS"]
+from ..ops.nn import dense
+
+__all__ = [
+    "BasicBlock",
+    "Bottleneck",
+    "ResNet",
+    "resnet18",
+    "resnet34",
+    "resnet50",
+    "resnet101",
+    "resnet152",
+    "resnext50_32x4d",
+    "wide_resnet50_2",
+    "TinyEncoder",
+    "PERCEPTION_BUILDERS",
+]
+
+
+def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    return F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride, conv.padding, 1, conv.groups)
 
 
 def _bn_eval(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.0, bn.eps)
+    out = F.batch_norm(x.to(torch.float32), bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                       False, 0.0, bn.eps)
+    return out.to(x.dtype)
+
+
+def _downsample(cin: int, cout: int, stride: int):
+    if stride == 1 and cin == cout:
+        return None
+    return nn.Sequential(nn.Conv2d(cin, cout, 1, stride, 0, bias=False), nn.BatchNorm2d(cout))
+
+
+def _residual(block, out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    identity = x
+    if block.downsample is not None:
+        identity = _bn_eval(block.downsample[1], _conv(block.downsample[0], x))
+    return F.relu(out + identity)
 
 
 class BasicBlock(nn.Module):
     """3x3 + 3x3 residual block (reference: modeling/resnet.py:56-110)."""
 
-    def __init__(self, cin: int, planes: int, stride: int = 1):
+    expansion = 1
+
+    def __init__(self, cin: int, planes: int, stride: int = 1, groups: int = 1, base_width: int = 64):
         super().__init__()
         self.conv1 = nn.Conv2d(cin, planes, 3, stride, 1, bias=False)
         self.bn1 = nn.BatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
         self.bn2 = nn.BatchNorm2d(planes)
-        self.downsample = None
-        if stride != 1 or cin != planes:
-            self.downsample = nn.Sequential(
-                nn.Conv2d(cin, planes, 1, stride, 0, bias=False), nn.BatchNorm2d(planes)
-            )
+        self.downsample = _downsample(cin, planes, stride)
 
     def forward(self, x):
-        out = F.relu(_bn_eval(self.bn1, self.conv1(x)))
-        out = _bn_eval(self.bn2, self.conv2(out))
-        identity = x
-        if self.downsample is not None:
-            identity = _bn_eval(self.downsample[1], self.downsample[0](x))
-        return F.relu(out + identity)
+        out = F.relu(_bn_eval(self.bn1, _conv(self.conv1, x)))
+        return _residual(self, _bn_eval(self.bn2, _conv(self.conv2, out)), x)
+
+
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 (stride, groups) -> 1x1 bottleneck block (reference:
+    modeling/resnet.py:113-160; JAX ``resnet.py:136-165``)."""
+
+    expansion = 4
+
+    def __init__(self, cin: int, planes: int, stride: int = 1, groups: int = 1, base_width: int = 64):
+        super().__init__()
+        width = int(planes * (base_width / 64.0)) * groups
+        out_ch = planes * self.expansion
+        self.conv1 = nn.Conv2d(cin, width, 1, 1, 0, bias=False)
+        self.bn1 = nn.BatchNorm2d(width)
+        self.conv2 = nn.Conv2d(width, width, 3, stride, 1, groups=groups, bias=False)
+        self.bn2 = nn.BatchNorm2d(width)
+        self.conv3 = nn.Conv2d(width, out_ch, 1, 1, 0, bias=False)
+        self.bn3 = nn.BatchNorm2d(out_ch)
+        self.downsample = _downsample(cin, out_ch, stride)
+
+    def forward(self, x):
+        out = F.relu(_bn_eval(self.bn1, _conv(self.conv1, x)))
+        out = F.relu(_bn_eval(self.bn2, _conv(self.conv2, out)))
+        return _residual(self, _bn_eval(self.bn3, _conv(self.conv3, out)), x)
 
 
 class ResNet(nn.Module):
     """torchvision-compatible ResNet trunk + linear head. x: (B, H, W, 3)."""
 
-    def __init__(self, layers, num_classes: int = 1000):
+    def __init__(self, block, layers: Sequence[int], num_classes: int = 1000, groups: int = 1,
+                 width_per_group: int = 64):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = nn.BatchNorm2d(64)
@@ -57,21 +119,45 @@ class ResNet(nn.Module):
             stride = 1 if stage == 0 else 2
             mods = []
             for i in range(blocks):
-                mods.append(BasicBlock(cin, planes, stride if i == 0 else 1))
-                cin = planes
+                mods.append(block(cin, planes, stride if i == 0 else 1, groups, width_per_group))
+                cin = planes * block.expansion
             setattr(self, f"layer{stage + 1}", nn.Sequential(*mods))
-        self.fc = nn.Linear(512, num_classes)
+        self.fc = nn.Linear(512 * block.expansion, num_classes)
 
     def forward(self, x):
         x = x.permute(0, 3, 1, 2)
-        x = F.relu(_bn_eval(self.bn1, self.conv1(x)))
+        x = F.relu(_bn_eval(self.bn1, _conv(self.conv1, x)))
         x = F.max_pool2d(x, 3, 2, 1)
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
-        return self.fc(x.mean(dim=(2, 3)))
+        return dense(x.mean(dim=(2, 3)), self.fc.weight, self.fc.bias)
+
+
+def resnet18(num_classes: int = 1000) -> ResNet:
+    return ResNet(BasicBlock, [2, 2, 2, 2], num_classes)
 
 
 def resnet34(num_classes: int = 1000) -> ResNet:
-    return ResNet([3, 4, 6, 3], num_classes)
+    return ResNet(BasicBlock, [3, 4, 6, 3], num_classes)
+
+
+def resnet50(num_classes: int = 1000) -> ResNet:
+    return ResNet(Bottleneck, [3, 4, 6, 3], num_classes)
+
+
+def resnet101(num_classes: int = 1000) -> ResNet:
+    return ResNet(Bottleneck, [3, 4, 23, 3], num_classes)
+
+
+def resnet152(num_classes: int = 1000) -> ResNet:
+    return ResNet(Bottleneck, [3, 8, 36, 3], num_classes)
+
+
+def resnext50_32x4d(num_classes: int = 1000) -> ResNet:
+    return ResNet(Bottleneck, [3, 4, 6, 3], num_classes, groups=32, width_per_group=4)
+
+
+def wide_resnet50_2(num_classes: int = 1000) -> ResNet:
+    return ResNet(Bottleneck, [3, 4, 6, 3], num_classes, width_per_group=128)
 
 
 class TinyEncoder(nn.Module):
@@ -85,9 +171,19 @@ class TinyEncoder(nn.Module):
         self.fc = nn.Linear(32, num_classes)
 
     def forward(self, x):
-        x = F.relu(self.conv1(x.permute(0, 3, 1, 2)))
-        x = F.relu(self.conv2(x))
-        return self.fc(x.mean(dim=(2, 3)))
+        x = F.relu(_conv(self.conv1, x.permute(0, 3, 1, 2)))
+        x = F.relu(_conv(self.conv2, x))
+        return dense(x.mean(dim=(2, 3)), self.fc.weight, self.fc.bias)
 
 
-PERCEPTION_BUILDERS = {"resnet34": resnet34, "tiny": TinyEncoder}
+# JAX ``models/temporal_unet.py:74-83``
+PERCEPTION_BUILDERS = {
+    "resnet18": resnet18,
+    "resnet34": resnet34,
+    "resnet50": resnet50,
+    "resnet101": resnet101,
+    "resnet152": resnet152,
+    "resnext50_32x4d": resnext50_32x4d,
+    "wide_resnet50_2": wide_resnet50_2,
+    "tiny": TinyEncoder,
+}

@@ -14,6 +14,12 @@ Parameters are registered in the reference order (perception, [cond_mlp],
 time_mlp, downs, ups, mid_block1, [mid_attn], mid_block2, [act_conv +
 state_pred | final_conv]), so ``model.parameters()`` zips against an EMA
 ``shadow_params`` list. Trajectories are (B, horizon, channels).
+
+``compute_dtype`` bfloat16 is the JAX model's ``dtype`` (JAX
+``temporal_unet.py:276-278``): parameters stay float32, the inputs are cast
+to bfloat16 where the model takes them (trajectory, time embedding, target
+point, image, the state head's actions), each layer casts its weights to
+them, and the output is bfloat16 (``models/blocks.py``, ``ops/nn.py``).
 """
 
 from __future__ import annotations
@@ -54,14 +60,13 @@ class TemporalMapUnet(nn.Module):
         dim_mults=(1, 2, 4, 8),
         use_cond: GuidanceType = GuidanceType.NO_GUIDANCE,
         perception_name: str = "resnet34",
+        compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         if perception_name not in PERCEPTION_BUILDERS:
-            raise NotImplementedError(
-                f"MODEL.PERCEPTION={perception_name!r}: the port has "
-                f"{sorted(PERCEPTION_BUILDERS)}; the rest of the ResNet family is a later slice"
-            )
+            raise ValueError(f"MODEL.PERCEPTION={perception_name!r}: expected one of {sorted(PERCEPTION_BUILDERS)}")
         self.use_cond = use_cond
+        self.compute_dtype = compute_dtype
         dims = [transition_dim] + [dim * m for m in dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
         n_res = len(in_out)
@@ -124,13 +129,9 @@ class TemporalMapUnet(nn.Module):
     def device(self) -> torch.device:
         return self.time_mlp[1].weight.device
 
-    @property
-    def dtype(self) -> torch.dtype:
-        return self.time_mlp[1].weight.dtype
-
     def encode_image(self, img: torch.Tensor) -> torch.Tensor:
         """Run the perception encoder once: NHWC image -> (B, dim) feature."""
-        return self.perception(img.to(self.dtype))
+        return self.perception(img.to(self.compute_dtype))
 
     def _unet(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
         skips = []
@@ -172,18 +173,19 @@ class TemporalMapUnet(nn.Module):
         """
         if img_feature is None:
             img_feature = self.encode_image(img)
-        time_embed = self.time_mlp(time)
+        cdt = self.compute_dtype
+        time_embed = self.time_mlp(time, cdt)
         if self.use_cond == GuidanceType.FREE_GUIDANCE:
             if cond is None:
-                cond = torch.zeros((x.shape[0], 2), dtype=x.dtype, device=x.device)
+                cond = torch.zeros((x.shape[0], 2), dtype=cdt, device=x.device)
             if time_embed.shape[0] != cond.shape[0]:
                 time_embed = time_embed.repeat(cond.shape[0] // time_embed.shape[0], 1)
             if img_feature.shape[0] != cond.shape[0]:
                 img_feature = img_feature.repeat(cond.shape[0] // img_feature.shape[0], 1)
-            time_embed = time_embed + self.cond_mlp(cond.to(self.dtype))
+            time_embed = time_embed + self.cond_mlp(cond.to(cdt))
 
         cond_input = torch.cat([time_embed, img_feature.to(time_embed.dtype)], dim=-1)
-        h = self._unet(x.to(self.dtype), cond_input)
+        h = self._unet(x.to(cdt), cond_input)
 
         if self.use_cond == GuidanceType.CLASSIFIER_GUIDANCE:
             action = self._head(self.act_conv, h)  # (B, horizon, 3)
@@ -196,7 +198,7 @@ class TemporalMapUnet(nn.Module):
     def predict_state(self, action: torch.Tensor, time_embed: torch.Tensor) -> torch.Tensor:
         """Classifier-guidance state head on its own (reference:
         interact.py:158-159): the first waypoint's state is zero."""
-        state = self.state_pred(action[:, :-1], time_embed)
+        state = self.state_pred(action[:, :-1].to(self.compute_dtype), time_embed)
         return torch.cat([torch.zeros_like(state[:, :1]), state], dim=1)
 
 
@@ -241,11 +243,9 @@ def build_model(cfg, device=None, seed: int = 0) -> TemporalMapUnet:
     dev = resolve_device(device)
     if cfg.MODEL.DIFFUSER_BUILDING_BLOCK != "concat":
         raise NotImplementedError(cfg.MODEL.DIFFUSER_BUILDING_BLOCK)
-    if cfg.TPU.COMPUTE_DTYPE != "float32":
-        raise NotImplementedError(
-            f"TPU.COMPUTE_DTYPE={cfg.TPU.COMPUTE_DTYPE!r}: the port's model computes in float32 "
-            "(the kernels take bfloat16; a bfloat16 model is a later slice)"
-        )
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    if cfg.TPU.COMPUTE_DTYPE not in dtypes:
+        raise ValueError(f"TPU.COMPUTE_DTYPE={cfg.TPU.COMPUTE_DTYPE!r}: expected float32 | bfloat16")
     model = TemporalMapUnet(
         horizon=cfg.MODEL.HORIZON,
         transition_dim=cfg.MODEL.TRANSITION_DIM,
@@ -254,6 +254,7 @@ def build_model(cfg, device=None, seed: int = 0) -> TemporalMapUnet:
         dim_mults=tuple(cfg.MODEL.DIM_MULTS),
         use_cond=GuidanceType[cfg.TRAIN.USE_COND],
         perception_name=cfg.MODEL.get("PERCEPTION", "resnet34"),
+        compute_dtype=dtypes[cfg.TPU.COMPUTE_DTYPE],
     )
     init_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

@@ -25,6 +25,8 @@ __all__ = [
     "conv1d",
     "conv1d_transpose",
     "conv2d",
+    "dense",
+    "layer_norm",
 ]
 
 
@@ -77,6 +79,18 @@ def channel_layer_norm(
     var, mean = torch.var_mean(x32, dim=-1, keepdim=True, correction=0)
     out = (x32 - mean) / torch.sqrt(var + eps) * gamma.reshape(-1) + beta.reshape(-1)
     return out.to(orig_dtype)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Linear layer in ``x.dtype``; w: (out, in), torch ``nn.Linear`` layout."""
+    return F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Last-dim LayerNorm (torch ``nn.LayerNorm``) in float32, returned in
+    ``x.dtype`` (JAX ``TorchLayerNorm``)."""
+    out = F.layer_norm(x.to(torch.float32), (x.shape[-1],), gamma.to(torch.float32), beta.to(torch.float32), eps)
+    return out.to(x.dtype)
 
 
 def conv1d(

@@ -30,7 +30,16 @@ Phases, each of which fails the run (nonzero exit, no result line):
    the PID controller; the leaderboard ``DiffusionAgent`` loaded from its file as
    the harness loads it; and ``evaluate_cli --fake-env``, which must write
    one ``Completed`` record. Each path runs with the launch counts set to 0
-   just before and read just after, and fails if a kernel was not launched.
+   just before and read just after, and fails if a kernel was not launched;
+7. the rest of the serving path, at the same width: DDPM-100; DPM-Solver++
+   2M at 10 steps in bfloat16; bfloat16 on each of the three configs (the
+   bf16-vs-fp32 plan gap on the card beside it); K = 8 hypotheses with the
+   learned scorer; a ResNet-50 encoder, and one encode of every ResNet on the
+   card against the CPU; inpainting DDIM and DDPM (10 steps) through
+   ``make_sampler`` with the first waypoints pinned. Per path: launch counts (reset before the
+   first plan, read after it, 16 / 1 per forward), the GPU plan against the
+   CPU plan of the same seed (PLAN_TOL, or BF16_PLAN_TOL), plan p50 over 5
+   plans, peak memory and the device-busy share.
 
 The last two lines of standard output are the card (nvidia-smi) and the
 kernels as JSON, then ``{"ok": true, "device": ...}``. Per-shape numbers and
@@ -62,6 +71,20 @@ PLAN_TOL = dict(atol=5e-3, rtol=1e-3)
 # GPU vs CPU raw controls traj[0, 0, -3:]: PLAN_TOL's 5e-3 m over the 23.3 m
 # that scales xy (the controls are not scaled)
 CONTROL_TOL = 2.5e-4
+# GPU vs CPU plan of a bfloat16 model, in meters: both round to bf16 at the
+# same places, but the card and the CPU sum in other orders and can flip a
+# rounding; one bf16 ulp of a value in [0.5, 1) is 2^-8 x 23.3 m = 0.09 m.
+# 1 m is 11 such ulps, a fifth of the JAX package's own bf16-vs-fp32 bound
+# (0.2 x 23.3 m, tests/test_bf16.py:31). Dual-batch CFG multiplies a flip in
+# the U-Net's output by up to 1 + 2 * FREE_SCALE, and the tolerance with it
+BF16_PLAN_TOL = dict(atol=1.0, rtol=0.0)
+# GPU vs CPU encode of a ResNet at 900x256, over the CPU feature's largest
+# value: up to 155 fp32 convolutions that cuDNN sums in other orders
+ENCODE_TOL = 1e-3
+INPAINT_KNOWN = 4  # the waypoints an inpainting path pins, from the first
+# denoising steps of an inpainting path: the default config's 100 cut to 10,
+# which keeps the whole script near half its time limit
+INPAINT_STEPS = 10
 REPLAY = os.path.join("tests", "fixtures", "replay_town01.npz")
 LATENCY_TICKS = 20
 REPLACES = {
@@ -106,12 +129,13 @@ def near_threshold(raw, tol: float) -> bool:
 
 
 def card_rates(name: str):
-    """(bytes/s, float32 FLOP/s) from the data sheet of the named part."""
+    """(bytes/s, float32 FLOP/s, dense bf16 FLOP/s) from the data sheet of
+    the named part."""
     if "PCIe" in name:
-        return 2.0e12, 51e12
+        return 2.0e12, 51e12, 756e12
     if "NVL" in name:
-        return 3.9e12, 60e12
-    return 3.35e12, 67e12  # H100 SXM
+        return 3.9e12, 60e12, 835e12
+    return 3.35e12, 67e12, 989e12  # H100 SXM
 
 
 def agents(load_cfg, case, device_breakdown, launches, max_err, smi) -> dict:
@@ -367,6 +391,209 @@ def agents(load_cfg, case, device_breakdown, launches, max_err, smi) -> dict:
     return out
 
 
+def serving(load_cfg, device_breakdown, launches, smi, dev="cuda") -> dict:
+    """Phase 7: the rest of the serving path at full width. Each path's
+    first plan runs with the launch counts set to 0 just before and read
+    just after; ``launches`` gathers them into the kernels line. ``dev``
+    is the card (another device only to rehearse the phase)."""
+    import numpy as np
+    import torch
+
+    from autonomous_driving_with_diffusion_model_tpu_torch import diffusion
+    from autonomous_driving_with_diffusion_model_tpu_torch.data.augment import normalize_images
+    from autonomous_driving_with_diffusion_model_tpu_torch.driving import DiffusionPlanner
+    from autonomous_driving_with_diffusion_model_tpu_torch.models import (
+        PERCEPTION_BUILDERS,
+        build_model,
+        init_parameters,
+        init_scorer,
+        save_scorer,
+    )
+    from autonomous_driving_with_diffusion_model_tpu_torch.ops import kernels
+    from autonomous_driving_with_diffusion_model_tpu_torch.utils.constants import MAGIC_NUM
+
+    out = {"paths": {}}
+    target = np.array([0.3, 0.1], np.float32)
+
+    def count(run, n_fwd, what):
+        kernels.reset_launch_counts()
+        res = run()
+        torch.cuda.synchronize()
+        got = {k: getattr(kernels, k).launches for k in launches}
+        want = {"fused_residual_block": 16 * n_fwd, "fused_conv1d_gn_mish": n_fwd}
+        log(f"serving {what}: launches {got}, expected {want}")
+        if got != want:
+            raise AssertionError(f"{what}: launch counts {got} != {want}")
+        for k in launches:
+            launches[k] += got[k]
+        return res, got
+
+    def timing(run, frames, base):
+        """plan p50 over 5 plans after one warm plan, peak MiB (and above
+        ``base``, the bytes allocated before the path: what earlier phases
+        hold), one profiled plan."""
+        run(frames[1])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(5):
+            t0 = time.perf_counter()
+            run(frames[i % len(frames)])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        return dict(plan_ms_p50=float(np.median(times)), plan_ms=times, peak_mib=peak,
+                    path_peak_mib=peak - base / 2**20, profile=device_breakdown(lambda: run(frames[2])))
+
+    def configured(path, opts):
+        cfg = load_cfg(path)
+        cfg.merge_from_list([str(v) for kv in opts.items() for v in kv])
+        return cfg
+
+    def record(name, row):
+        out["paths"][name] = row
+        busy = row["profile"]
+        log(f"serving {name}: plan p50 {row['plan_ms_p50']:.2f} ms over 5 plans ({row['steps']} steps), "
+            f"peak {row['peak_mib']:.1f} MiB ({row['path_peak_mib']:.1f} above what earlier phases hold), "
+            f"CPU reference {row['cpu_s']:.1f} s, path {row['seconds']:.1f} s, device busy {busy['device_ms']:.2f} of {busy['wall_ms']:.2f} ms "
+            f"({busy['busy_share']:.3f}), by kind {busy['by_kind']}; on {smi}")
+
+    h, w = load_cfg(CONFIGS[0]).TRAIN.IMAGE_HEIGHT, load_cfg(CONFIGS[0]).TRAIN.IMAGE_WIDTH
+    frames = np.random.default_rng(7).integers(0, 256, (4, h, w, 3), dtype=np.uint8)
+    scorer_npz = os.path.join(REPO, "chiprun_out", "phase7_scorer.npz")
+    os.makedirs(os.path.dirname(scorer_npz), exist_ok=True)
+    bf16 = {"TPU.COMPUTE_DTYPE": "bfloat16"}
+    paths = [
+        ("ddpm100", CONFIGS[0], {"EVAL.SCHEDULER": "ddpm"}),
+        ("dpm10_bf16", CONFIGS[0], {"EVAL.SCHEDULER": "dpm", "EVAL.SAMPLE_STEPS": 10, **bf16}),
+        ("bf16_default", CONFIGS[0], bf16),
+        ("bf16_free_guidance", CONFIGS[1], bf16),
+        ("bf16_classifier_guidance", CONFIGS[2], bf16),
+        ("learned_scorer_k8", CONFIGS[1], {"TPU.NUM_HYPOTHESES": 8, "TPU.HYPOTHESIS_SCORER": "learned",
+                                           "TPU.SCORER_CHECKPOINT": scorer_npz}),
+        ("resnet50", CONFIGS[1], {"MODEL.PERCEPTION": "resnet50"}),
+    ]
+    for name, path, opts in paths:
+        cfg = configured(path, opts)
+        if name == "learned_scorer_k8":
+            save_scorer(scorer_npz, init_scorer(0, cfg.MODEL.HORIZON, cfg.MODEL.TRANSITION_DIM))
+        n_fwd = len(cfg.TPU.SAMPLE_TIMESTEPS) or cfg.EVAL.SAMPLE_STEPS
+        t_path, base = time.perf_counter(), torch.cuda.memory_allocated()
+        is_bf16 = cfg.TPU.COMPUTE_DTYPE == "bfloat16"
+        tol = dict(BF16_PLAN_TOL) if is_bf16 else PLAN_TOL
+        if is_bf16 and cfg.GUIDANCE.USE_COND == "FREE_GUIDANCE" and cfg.GUIDANCE.FREE_SCALE != 1.0:
+            tol["atol"] *= 1.0 + 2.0 * abs(cfg.GUIDANCE.FREE_SCALE)
+        gpu = DiffusionPlanner(cfg, seed=0, device=dev)
+        tgt = target if gpu.use_guidance_type.name != "NO_GUIDANCE" else None
+        (first, best), got = count(lambda: gpu.plan_hypotheses(frames[0], tgt), n_fwd, name)
+        if first.shape != (gpu.num_hypotheses, cfg.MODEL.HORIZON, cfg.MODEL.TRANSITION_DIM) \
+                or first.dtype != np.float32 or not np.isfinite(first).all():
+            raise AssertionError(f"{name}: plans of shape {first.shape}, {first.dtype}, or non-finite")
+        t_cpu = time.perf_counter()
+        cpu = DiffusionPlanner(cfg, seed=0, device="cpu")  # the same weights and noise
+        ref, ref_best = cpu.plan_hypotheses(frames[0], tgt)
+        t_cpu = time.perf_counter() - t_cpu
+        diff = float(np.abs(first - ref).max())
+        rms = float(np.sqrt(np.mean((first - ref) ** 2)))
+        ok = np.allclose(first, ref, **tol)
+        row = dict(steps=n_fwd, launches=got, hypotheses=gpu.num_hypotheses, gpu_vs_cpu_max_abs_m=diff,
+                   gpu_vs_cpu_rms_m=rms, tolerance=tol, best=int(best), cpu_best=int(ref_best), cpu_s=t_cpu)
+        if cfg.TPU.HYPOTHESIS_SCORER == "learned":
+            # the index must agree unless the CPU's two best scores are closer
+            # than the plans' tolerance can separate
+            with torch.no_grad():
+                scores = np.sort(cpu._scorer_net(torch.from_numpy(ref), torch.from_numpy(target)).numpy())
+            row["cpu_score_margin"] = float(scores[1] - scores[0])
+            ok = ok and (int(best) == int(ref_best) or row["cpu_score_margin"] < 1e-3)
+        del cpu
+        if is_bf16:
+            f32 = DiffusionPlanner(configured(path, {**opts, "TPU.COMPUTE_DTYPE": "float32"}), seed=0, device=dev)
+            row["bf16_vs_fp32_gpu_max_abs_m"] = float(np.abs(first - f32.plan_hypotheses(frames[0], tgt)[0]).max())
+            del f32
+        log(f"serving {name}: GPU vs CPU plan max_abs_diff={diff:.3e} m, rms {rms:.3e} m (tolerance {tol})"
+            + (f", best {int(best)} / CPU {int(ref_best)}" if gpu.num_hypotheses > 1 else "")
+            + (f"; bf16 vs fp32 plan on the card {row['bf16_vs_fp32_gpu_max_abs_m']:.3e} m" if is_bf16 else "")
+            + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name}: GPU plan differs from the CPU plan by {diff} m")
+        row.update(timing(lambda f: gpu.plan_hypotheses(f, tgt), frames, base))
+        record(name, dict(row, seconds=time.perf_counter() - t_path))
+        del gpu
+
+    # every ResNet once on the card against the CPU, at the frame size
+    out["encoders"] = {}
+    img = torch.randn((1, h, w, 3), generator=torch.Generator().manual_seed(0))
+    for pname, builder in PERCEPTION_BUILDERS.items():
+        if pname == "tiny":
+            continue
+        net = init_parameters(builder(num_classes=64), torch.Generator().manual_seed(0)).eval()
+        with torch.no_grad():
+            want = net(img)
+            net = net.to(dev)
+            got = net(img.to(dev))
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(3):
+                net(img.to(dev))
+            end.record()
+            torch.cuda.synchronize()
+        err = float((got.cpu() - want).abs().max() / want.abs().max())
+        ok = err <= ENCODE_TOL and bool(torch.isfinite(got).all())
+        out["encoders"][pname] = dict(rel_err=err, encode_ms=start.elapsed_time(end) / 3)
+        log(f"serving encode {pname} ({h}x{w}): GPU vs CPU max_abs / max |feature| {err:.3e}, "
+            f"{out['encoders'][pname]['encode_ms']:.2f} ms per encode (3 after one, host included) on {smi} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"encode {pname}: relative error {err}")
+        del net
+
+    # inpainting through make_sampler: the first INPAINT_KNOWN waypoints known
+    cfg = load_cfg(CONFIGS[0])
+    devices = {"card": dev, "cpu": "cpu"}
+    models = {k: build_model(cfg, device=d, seed=0) for k, d in devices.items()}
+    H, D = cfg.MODEL.HORIZON, cfg.MODEL.TRANSITION_DIM
+    init = torch.randn((1, H, D), generator=torch.Generator().manual_seed(0))
+    known = torch.zeros((1, H, D))
+    known[0, :INPAINT_KNOWN, 0] = 0.05 * torch.arange(INPAINT_KNOWN)  # straight ahead, the anchor at 0
+    mask = torch.zeros((1, H, D))
+    mask[:, :INPAINT_KNOWN] = 1.0
+    for scheduler in ("ddim", "ddpm"):
+        name = f"inpaint_{scheduler}"
+        scfg = diffusion.SamplerConfig(
+            scheduler=scheduler, num_steps=INPAINT_STEPS, inpainting=True,
+            step=diffusion.StepConfig(prediction_type=cfg.TRAIN.NOISE_SCHEDULER.PRED_TYPE, thresholding=True),
+        )
+
+        def run(frame, which):
+            d = devices[which]
+            with torch.no_grad():
+                image = normalize_images(torch.from_numpy(frame).to(d))[None]
+                return samplers[which](init.to(d), image=image, target_traj=known.to(d), target_mask=mask.to(d),
+                                       generator=torch.Generator().manual_seed(1)).cpu().numpy()
+
+        samplers = {k: diffusion.make_sampler(m, diffusion.make_schedule_from_cfg(cfg, devices[k]), scfg)
+                    for k, m in models.items()}
+        t_path = time.perf_counter()
+        first, got = count(lambda: run(frames[0], "card"), INPAINT_STEPS, name)
+        t_cpu = time.perf_counter()
+        ref = run(frames[0], "cpu")
+        t_cpu = time.perf_counter() - t_cpu
+        diff = float(np.abs(first - ref).max())
+        want = known[:, :INPAINT_KNOWN].numpy().copy()
+        want[..., :2] *= MAGIC_NUM
+        pinned = float(np.abs(first[:, :INPAINT_KNOWN] - want).max())
+        ok = np.allclose(first, ref, **PLAN_TOL) and pinned <= 1e-4 and np.isfinite(first).all()
+        log(f"serving {name}: GPU vs CPU max_abs_diff={diff:.3e} m; the {INPAINT_KNOWN} known waypoints "
+            f"pinned to {pinned:.3e} m {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name}: GPU vs CPU {diff} m, known region off by {pinned} m")
+        row = dict(steps=INPAINT_STEPS, launches=got, gpu_vs_cpu_max_abs_m=diff, pinned_max_abs_m=pinned,
+                   cpu_s=t_cpu)
+        row.update(timing(lambda f: run(f, "card"), frames, base))
+        record(name, dict(row, seconds=time.perf_counter() - t_path))
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -393,13 +620,20 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
+    t_start = time.perf_counter()
+    phase_s = {}
+
+    def phase_done(n):
+        phase_s[n] = time.perf_counter() - t_start
+        log(f"phase {n} done at {phase_s[n]:.1f} s of command time")
+
     # ---------------------------------------------------------------- 1. card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
-    bw, flops = card_rates(name)
+    bw, flops, bf16_flops = card_rates(name)
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # ---------------------------------------------------------------- 2. build
@@ -434,7 +668,7 @@ def main() -> int:
         with its weights and random inputs of the shape the path gave it."""
         L, cin = args[0].shape[1:]
         x = torch.randn(B, L, cin, generator=gen).to(dev, dtype)
-        params = tuple(None if p is None else p.to(dtype) for p in mod.kernel_params())
+        params = mod.kernel_params(dtype)
         if isinstance(mod, ResidualTemporalMapBlock):
             t = torch.randn(B, args[1].shape[1], generator=gen).to(dev, dtype)
             return kernels.fused_residual_block, kernels.residual_block_plain, (x, t) + params
@@ -463,6 +697,7 @@ def main() -> int:
                     if not ok:
                         raise AssertionError(f"{fn.__name__} at {n} B={B} {dtype}: max_abs_err {err}")
 
+    phase_done(3)
     # ---------------------------------------------------------------- 4. path
     def device_breakdown(run):
         """One run under torch.profiler: wall ms, the kernels' summed device
@@ -499,7 +734,7 @@ def main() -> int:
     target = np.array([0.3, 0.1], np.float32)
     for path in CONFIGS:
         cfg = load_cfg(path)
-        gpu = DiffusionPlanner(cfg, seed=0)
+        gpu = DiffusionPlanner(cfg, seed=0, device=dev)
         tgt = target if gpu.use_guidance_type.name != "NO_GUIDANCE" else None
         n_fwd = len(cfg.TPU.SAMPLE_TIMESTEPS) or cfg.EVAL.SAMPLE_STEPS
         kernels.reset_launch_counts()
@@ -547,6 +782,7 @@ def main() -> int:
         del gpu
     report["plans"] = plans
 
+    phase_done(4)
     # ---------------------------------------------------------------- 5. time
     def eager_cycle_ms(fns, reps=20, warm=3):
         """Mean ms of each fn, called eagerly in turn as one forward calls
@@ -612,11 +848,13 @@ def main() -> int:
             C = args[1].shape[2]
             ops = 2 * B * L * 5 * cin * C
         nbytes = sum(a.numel() * a.element_size() for a in tensors) + B * L * C * x.element_size()
-        t_bytes, t_ops = nbytes / bw * 1e3, ops / flops * 1e3
+        rate = flops if x.dtype == torch.float32 else bf16_flops
+        t_bytes, t_ops = nbytes / bw * 1e3, ops / rate * 1e3
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
     gen = torch.Generator().manual_seed(1)
     cases = [case(m, a, 1, torch.float32, gen) for n, m, a in calls]
+    cases16 = [case(m, a, 1, torch.bfloat16, gen) for n, m, a in calls]
     kcall = lambda c: (lambda: c[0](*c[2]))
     pcall = lambda c: (lambda: c[1](*c[2]))
     template_lib = build.library(kernels.SOURCE)
@@ -654,6 +892,18 @@ def main() -> int:
                 f"{summary[kname]['ms']:.4f}, plain {summary[kname]['plain_ms']:.4f}, "
                 f"bound {summary[kname]['bound_ms']:.7f}, launch floor {summary[kname]['floor_ms']:.4f} "
                 f"on {smi}")
+            # the same forward in bfloat16, the bound from bf16 bytes
+            mine16 = [c for c in cases16 if c[0].__name__ == kname]
+            bounds16 = [bound_ms(c[0], c[2]) for c in mine16]
+            summary[kname].update(
+                ms_bf16=graph_ms([kcall(c) for c in mine16]),
+                plain_ms_bf16=graph_ms([pcall(c) for c in mine16]),
+                bound_ms_bf16=sum(b for b, _ in bounds16),
+                bound_by_bf16="bytes" if all(by == "bytes" for _, by in bounds16) else "operations",
+            )
+            log(f"time {kname} bfloat16: one forward's {len(mine16)} calls, device ms: kernel "
+                f"{summary[kname]['ms_bf16']:.4f}, plain {summary[kname]['plain_ms_bf16']:.4f}, "
+                f"bound {summary[kname]['bound_ms_bf16']:.7f} ({summary[kname]['bound_by_bf16']}) on {smi}")
         k_eager = eager_cycle_ms([kcall(c) for c in cases])
         p_eager = eager_cycle_ms([pcall(c) for c in cases])
         for (n, m, a), c, ke, pe in zip(calls, cases, k_eager, p_eager):
@@ -753,8 +1003,15 @@ def main() -> int:
         report["clocks_sm"] = clocks
         log(f"phases: nvidia-smi clocks.sm, clocks.max.sm after the stamped launches: {clocks}")
 
+    phase_done(5)
     # -------------------------------------------------------------- 6. agents
     report["agents"] = agents(load_cfg, case, device_breakdown, launches, max_err, smi)
+
+    phase_done(6)
+    # ------------------------------------------------- 7. the rest of serving
+    report["serving"] = serving(load_cfg, device_breakdown, launches, smi)
+    phase_done(7)
+    report["phase_done_s"] = phase_s
 
     kernels_line = []
     for kname in ("fused_residual_block", "fused_conv1d_gn_mish"):
@@ -765,7 +1022,9 @@ def main() -> int:
             replaces=REPLACES[kname], launches=launches[kname], max_abs_err=max_err[kname],
             ms=s["ms"], plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
             bound_by=s["bound_by"], library_ms=None, floor_ms=s["floor_ms"],
-            per=f"one U-Net forward at batch 1, float32, device time: its {s['calls']} calls",
+            ms_bf16=s["ms_bf16"], plain_ms_bf16=s["plain_ms_bf16"], bound_ms_bf16=s["bound_ms_bf16"],
+            per=f"one U-Net forward at batch 1, device time: its {s['calls']} calls; ms, plain_ms, "
+                f"bound_ms in float32, the *_bf16 keys in bfloat16",
             library_note="no single PyTorch call computes this function",
         ))
     report["kernels"] = kernels_line

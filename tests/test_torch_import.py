@@ -45,7 +45,8 @@ def test_port_imports_without_jax_or_the_jax_package():
     result = _probe()
     # every subpackage of the slice was reached
     for sub in ("utils.config", "ops.kernels", "ops.build", "models.temporal_unet",
-                "models.convert", "diffusion.sampler", "data.augment", "driving.plan",
+                "models.convert", "models.resnet", "models.scorer", "diffusion.sampler",
+                "diffusion.dpm", "diffusion.steps", "data.augment", "driving.plan",
                 "utils.watchdog", "driving.pid", "driving.controller", "driving.gps",
                 "driving.planner", "driving.fake_env", "driving.interact_agent",
                 "driving.leaderboard_agent", "driving.scoring", "driving.statistics",

@@ -1,7 +1,8 @@
 """The port's models against the JAX package's: the weight carry
 (``from_jax_variables`` == ``variables_to_torch_state_dict``), the U-Net
-forward in all three guidance variants, the ResNet-34 encoder, and reference
-``.pth`` loading with the EMA-shadow overwrite."""
+forward in all three guidance variants, with and without attention, the
+ResNet family's encoders, and reference ``.pth`` loading with the EMA-shadow
+overwrite."""
 
 import numpy as np
 import pytest
@@ -35,8 +36,9 @@ MODES = ["NO_GUIDANCE", "FREE_GUIDANCE", "CLASSIFIER_GUIDANCE"]
 FWD_TOL = dict(atol=2e-5, rtol=1e-4)
 
 
-def _cfg(mode, perception="tiny", dim=None):
+def _cfg(mode, perception="tiny", dim=None, attention=False):
     cfg = create_cfg()
+    cfg.MODEL.USE_ATTN = attention
     cfg.MODEL.DIM = dim or (64 if mode == "CLASSIFIER_GUIDANCE" else 8)
     cfg.MODEL.DIM_MULTS = (1, 2)
     cfg.MODEL.PERCEPTION = perception
@@ -93,18 +95,19 @@ def test_from_jax_variables_equals_jax_export(mode):
     assert [k for k, _ in fresh.named_parameters()] == [k for k, _, _ in build_mapping(cfg)[0]]
 
 
+def _carry(cfg, seed=5):
+    """(cfg, the JAX model, a random tree, the port model loaded from that
+    tree through from_jax_variables)."""
+    tree = _jax_tree(build_model(cfg, device="cpu", seed=seed), cfg)
+    tm = build_model(cfg, device="cpu")
+    tm.load_state_dict(from_jax_variables(tree, cfg), strict=True)
+    return cfg, jax_build_model(_jax_cfg(cfg)), tree, tm
+
+
 @pytest.fixture(scope="module")
 def carried():
-    """Per mode: the JAX model, a random tree, and the port model loaded from
-    that tree through from_jax_variables."""
-    out = {}
-    for mode in MODES:
-        cfg = _cfg(mode)
-        tree = _jax_tree(build_model(cfg, device="cpu", seed=5), cfg)
-        tm = build_model(cfg, device="cpu")
-        tm.load_state_dict(from_jax_variables(tree, cfg), strict=True)
-        out[mode] = (cfg, jax_build_model(_jax_cfg(cfg)), tree, tm)
-    return out
+    """Per mode: the carry of _carry."""
+    return {mode: _carry(_cfg(mode)) for mode in MODES}
 
 
 def _inputs(rng, B):
@@ -115,9 +118,40 @@ def _inputs(rng, B):
     )
 
 
+def _jax_init_tree(jm, cfg):
+    """The JAX model's own variable tree (shapes only: no compile)."""
+    x = jnp.zeros((1, cfg.MODEL.HORIZON, cfg.MODEL.TRANSITION_DIM), jnp.float32)
+    img = jnp.zeros((1, 64, 96, 3), jnp.float32)
+    return jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), x, img=img, time=jnp.ones((1,))))
+
+
+def _leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), tuple(v.shape)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_attention_carry_and_forward_match_jax(rng, mode):
+    """MODEL.USE_ATTN: every attention weight maps onto the JAX tree, and
+    the forward agrees at FWD_TOL."""
+    cfg, jm, variables, tm = _carry(_cfg(mode, attention=True))
+    want_paths = dict(_leaves(_jax_init_tree(jm, cfg)["params"]))
+    assert dict(_leaves(variables["params"])).keys() == want_paths.keys()
+    for path, shape in _leaves(variables["params"]):
+        assert shape == want_paths[path], path
+    assert any("attn" in k for k in tm.state_dict())
+    _check_forward(rng, mode, jm, variables, tm)
+
+
 @pytest.mark.parametrize("mode", MODES)
 def test_unet_forward_matches_jax(carried, rng, mode):
-    cfg, jm, variables, tm = carried[mode]
+    _check_forward(rng, mode, *carried[mode][1:])
+
+
+def _check_forward(rng, mode, jm, variables, tm):
     x, img, t = _inputs(rng, 2)
     kw_j, kw_t = {}, {}
     if mode == "FREE_GUIDANCE":
@@ -165,8 +199,17 @@ def test_classifier_action_time_and_predict_state_match_jax(carried, rng):
 
 
 def test_resnet34_encode_matches_jax(rng):
-    """One resnet34 encode at a small image, with random BN running stats."""
-    cfg = _cfg("NO_GUIDANCE", "resnet34")
+    _check_encode(rng, "resnet34")
+
+
+@pytest.mark.parametrize("perception", ["resnet18", "resnet50", "resnext50_32x4d", "wide_resnet50_2"])
+def test_resnet_family_encode_matches_jax(rng, perception):
+    _check_encode(rng, perception)
+
+
+def _check_encode(rng, perception):
+    """One encode at a small image, with random BN running stats."""
+    cfg = _cfg("NO_GUIDANCE", perception)
     tm = build_model(cfg, device="cpu")
     _random_bn_stats(tm, rng)
     tree = _jax_tree(tm, cfg)
@@ -175,8 +218,35 @@ def test_resnet34_encode_matches_jax(rng):
     want = jax.jit(lambda v, i: jm.apply(v, i, method=JaxUnet.encode_image))(tree, jnp.asarray(img))
     with torch.no_grad():
         got = tm.encode_image(torch.from_numpy(img))
-    # 36 convolutions deep, sums of up to 4608 products
+    # up to 53 convolutions deep, sums of up to 4608 products
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("perception", ["resnet101", "resnet152"])
+def test_deep_resnet_mapping_matches_jax_tree(perception):
+    """resnet101/152 repeat resnet50's block: their mapping equals the JAX
+    encoder's variables path for path and shape for shape, and the carry
+    loads strictly."""
+    cfg = _cfg("NO_GUIDANCE", perception)
+    tm = build_model(cfg, device="cpu")
+    jtree = _jax_init_tree(jax_build_model(_jax_cfg(cfg)), cfg)
+    tree = _jax_tree(tm, cfg)
+    for col in ("params", "batch_stats"):
+        got, want = dict(_leaves(tree[col])), dict(_leaves(jtree[col]))
+        assert got == want, col
+    params_map, stats_map = build_mapping(cfg)
+    assert [k for k, _ in tm.named_parameters()] == [k for k, _, _ in params_map]
+    assert len(stats_map) == 2 * sum(1 for m in tm.modules() if isinstance(m, torch.nn.BatchNorm2d))
+    build_model(cfg, device="cpu", seed=1).load_state_dict(from_jax_variables(tree, cfg), strict=True)
+
+
+def test_pth_needs_resnet34_like_jax(tmp_path):
+    cfg = _cfg("NO_GUIDANCE", "resnet18")
+    path = tmp_path / "r18.pth"
+    torch.save({"state_dict": build_model(cfg, device="cpu").state_dict()}, path)
+    for load in (load_torch_checkpoint, lambda p, c: jax_load_torch_checkpoint(p, _jax_cfg(c))):
+        with pytest.raises(ValueError, match="resnet34"):
+            load(str(path), cfg)
 
 
 def test_kernel_layout_copies_follow_load_state_dict(rng):
