@@ -12,7 +12,10 @@ slots the reference fills with parameter-free modules (``Rearrange``,
 of ``ops/kernels.py`` on a CUDA device (their plain versions on the CPU).
 The kernels take (K, Cin, C) weights: each block packs its parameters into
 that layout once per compute dtype and repacks only after a parameter
-changed (``load_state_dict``, ``.to()``, an in-place update), never per call.
+changed (``load_state_dict``, ``.to()``, an in-place update such as an
+optimizer step), never per call. Under autograd (training) the pack is built
+afresh on each call and differentiably, so the gradient reaches the
+parameters through it; the kernels' gradient is ``ops/kernels.py:Recompute``.
 
 Parameters stay float32 in every model. A bfloat16 model (JAX
 ``TPU.COMPUTE_DTYPE``) computes in bfloat16: activations are bfloat16, and
@@ -33,7 +36,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.kernels import check_forward_only, fused_conv1d_gn_mish, fused_residual_block
+from ..ops.kernels import fused_conv1d_gn_mish, fused_residual_block
 from ..ops.nn import channel_layer_norm, conv1d, conv1d_transpose, dense, layer_norm, mish, sinusoidal_pos_emb
 
 __all__ = [
@@ -48,26 +51,32 @@ __all__ = [
     "PreNormAttention",
     "TransformerEncoderLayer",
     "TrajPredict",
+    "dropout",
 ]
 
 
 def _packed(module: nn.Module, dtype: torch.dtype, build: Callable[[], Tuple]) -> Tuple:
     """``build()`` (kernel-layout copies of ``module``'s parameters) cast to
     the compute dtype ``dtype``, cached per dtype until a parameter changes
-    storage, type, device or version."""
-    key = tuple((p.data_ptr(), p._version, p.dtype, p.device) for p in module.parameters())
+    storage, type, device or version. When autograd records and a parameter
+    needs a gradient, the copies are made on every call, in the graph."""
+    pack = lambda: tuple(None if a is None else a.to(dtype).contiguous() for a in build())
+    params = list(module.parameters())
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+        return pack()
+    key = tuple((p.data_ptr(), p._version, p.dtype, p.device) for p in params)
     caches = module.__dict__.setdefault("_kernel_params", {})
     cache = caches.get(dtype)
     if cache is None or cache[0] != key:
         with torch.no_grad():
-            cache = (key, tuple(None if a is None else a.to(dtype).contiguous() for a in build()))
+            cache = (key, pack())
         caches[dtype] = cache
     return cache[1]
 
 
 def _kio(w: torch.Tensor) -> torch.Tensor:
     """torch Conv1d weight (C, Cin, K) -> kernel layout (K, Cin, C)."""
-    return w.detach().permute(2, 1, 0).contiguous()
+    return w.permute(2, 1, 0)
 
 
 class Conv1dBlock(nn.Module):
@@ -89,11 +98,10 @@ class Conv1dBlock(nn.Module):
         conv, _, norm = self.block
         return _packed(
             self, dtype,
-            lambda: (_kio(conv.weight), conv.bias.detach(), norm.weight.detach(), norm.bias.detach()),
+            lambda: (_kio(conv.weight), conv.bias, norm.weight, norm.bias),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        check_forward_only(x, *self.parameters())
         w, b, g, be = self.kernel_params(x.dtype)
         return fused_conv1d_gn_mish(x.contiguous(), w, b, g, be, n_groups=self.n_groups)
 
@@ -117,18 +125,15 @@ class ResidualTemporalMapBlock(nn.Module):
         res = self.residual_conv
         has_res = isinstance(res, nn.Conv1d)
         return (
-            _kio(c1.weight), c1.bias.detach(), n1.weight.detach(), n1.bias.detach(),
-            lin.weight.detach().t().contiguous(), lin.bias.detach(),
-            _kio(c2.weight), c2.bias.detach(), n2.weight.detach(), n2.bias.detach(),
-            _kio(res.weight) if has_res else None,
-            res.bias.detach() if has_res else None,
+            _kio(c1.weight), c1.bias, n1.weight, n1.bias, lin.weight.t(), lin.bias,
+            _kio(c2.weight), c2.bias, n2.weight, n2.bias,
+            _kio(res.weight) if has_res else None, res.bias if has_res else None,
         )
 
     def kernel_params(self, dtype: torch.dtype = torch.float32) -> Tuple:
         return _packed(self, dtype, self._build)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        check_forward_only(x, t, *self.parameters())
         return fused_residual_block(x.contiguous(), t.contiguous(), *self.kernel_params(x.dtype))
 
 
@@ -255,32 +260,49 @@ class _SelfAttention(nn.Module):
         nn.init.xavier_uniform_(self.in_proj_weight)
 
 
+def dropout(x: torch.Tensor, rate: float, training: bool, generator=None) -> torch.Tensor:
+    """Inverted dropout (flax ``nn.Dropout``): each element kept with
+    probability 1 - rate and scaled by 1 / (1 - rate), in training only. The
+    mask is drawn from ``generator`` (None: the default generator) on the
+    generator's device."""
+    if not training or rate == 0.0:
+        return x
+    dev = x.device if generator is None else generator.device
+    keep = torch.rand(x.shape, generator=generator, device=dev) >= rate
+    return x * keep.to(x.device, x.dtype) / (1.0 - rate)
+
+
 class TransformerEncoderLayer(nn.Module):
     """Post-norm encoder layer with torch ``nn.TransformerEncoderLayer``'s
     parameters (batch_first, SiLU): x = norm1(x + MHA(x)); x = norm2(x + FF(x)).
-    Inference only, so dropout is the identity. JAX ``TorchLayerNorm`` is
-    ``nn.LayerNorm`` here."""
+    Dropout (``dropout_rate``, torch's 0.1) acts in training mode at the four
+    places JAX ``blocks.py:332-344`` drops: the attention probabilities, the
+    attention output, the feed-forward hidden and its output. JAX
+    ``TorchLayerNorm`` is ``nn.LayerNorm`` here."""
 
-    def __init__(self, dim: int, num_heads: int = 4, ff_dim: int = 256):
+    def __init__(self, dim: int, num_heads: int = 4, ff_dim: int = 256, dropout_rate: float = 0.1):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout_rate = dropout_rate
         self.self_attn = _SelfAttention(dim)
         self.linear1 = nn.Linear(dim, ff_dim)
         self.linear2 = nn.Linear(ff_dim, dim)
         self.norm1 = nn.LayerNorm(dim)
         self.norm2 = nn.LayerNorm(dim)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         B, L, D = x.shape
         hd = D // self.num_heads
+        drop = lambda a: dropout(a, self.dropout_rate, self.training, generator)
         qkv = dense(x, self.self_attn.in_proj_weight, self.self_attn.in_proj_bias)
         q, k, v = (a.reshape(B, L, self.num_heads, hd).transpose(1, 2) for a in qkv.chunk(3, dim=-1))
         scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(hd)
-        probs = torch.softmax(scores.to(torch.float32), dim=-1).to(x.dtype)
+        probs = drop(torch.softmax(scores.to(torch.float32), dim=-1).to(x.dtype))
         attn = torch.einsum("bhqk,bhkd->bhqd", probs, v).transpose(1, 2).reshape(B, L, D)
         out_proj = self.self_attn.out_proj
-        x = layer_norm(x + dense(attn, out_proj.weight, out_proj.bias), self.norm1.weight, self.norm1.bias)
-        h = dense(F.silu(dense(x, self.linear1.weight, self.linear1.bias)), self.linear2.weight, self.linear2.bias)
+        x = layer_norm(x + drop(dense(attn, out_proj.weight, out_proj.bias)), self.norm1.weight, self.norm1.bias)
+        h = drop(F.silu(dense(x, self.linear1.weight, self.linear1.bias)))
+        h = drop(dense(h, self.linear2.weight, self.linear2.bias))
         return layer_norm(x + h, self.norm2.weight, self.norm2.bias)
 
 
@@ -294,9 +316,9 @@ class _Encoder(nn.Module):
         )
         self.norm = nn.LayerNorm(dim)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, generator)
         return layer_norm(x, self.norm.weight, self.norm.bias)
 
 
@@ -312,9 +334,10 @@ class TrajPredict(nn.Module):
         self.encoder_traj = _Encoder(hidden_dim, num_heads, num_layers)
         self.output_proj = nn.Linear(hidden_dim, out_dim)
 
-    def forward(self, x, time_embed):
+    def forward(self, x, time_embed, generator=None):
+        """``generator``: the dropout masks' (training mode only)."""
         L = x.shape[1]
         pos = sinusoidal_pos_emb(torch.arange(L, dtype=torch.float32, device=x.device), self.hidden_dim)
         h = dense(x, self.input_proj.weight, self.input_proj.bias)
         h = h + pos[None].to(h.dtype) + time_embed[:, None, :].to(h.dtype)
-        return dense(self.encoder_traj(h), self.output_proj.weight, self.output_proj.bias)
+        return dense(self.encoder_traj(h, generator), self.output_proj.weight, self.output_proj.bias)

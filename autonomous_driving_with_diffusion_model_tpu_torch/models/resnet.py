@@ -6,8 +6,14 @@ conditioning width (modeling/temporal.py:83-84): ``BasicBlock`` for
 resnet18/34, ``Bottleneck`` (with ``groups``/``base_width``) for resnet50/101/152,
 resnext50_32x4d and wide_resnet50_2, under torchvision's ``state_dict`` names
 (``layerN.i.conv3``, ``downsample.0/1``). The encoders take NHWC images, like
-the JAX package, and run channels-first inside. BatchNorm normalizes with the
-running statistics (eval mode): the port serves, it does not train yet.
+the JAX package, and run channels-first inside.
+
+BatchNorm is JAX ``resnet.py:59-96``'s: in eval mode it normalizes with the
+running statistics; a BatchNorm module in training mode normalizes with the
+batch mean and biased variance in float32 and moves ``running_mean`` and
+``running_var`` (the unbiased variance, ``n / (n - 1)``) by momentum 0.1, as
+torch does. ``TemporalMapUnet.train(bn_mode="frozen")`` keeps the encoder's
+BatchNorms in eval mode while the rest trains (JAX ``TPU.BN_MODE``).
 
 Each convolution and the head compute in the input's dtype, their weights
 cast to it; BatchNorm runs in float32 and casts back (JAX ``resnet.py:56,
@@ -45,9 +51,11 @@ def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride, conv.padding, 1, conv.groups)
 
 
-def _bn_eval(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+def _bn(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    if bn.training:
+        bn.num_batches_tracked.add_(1)
     out = F.batch_norm(x.to(torch.float32), bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                       False, 0.0, bn.eps)
+                       bn.training, bn.momentum, bn.eps)
     return out.to(x.dtype)
 
 
@@ -60,7 +68,7 @@ def _downsample(cin: int, cout: int, stride: int):
 def _residual(block, out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     identity = x
     if block.downsample is not None:
-        identity = _bn_eval(block.downsample[1], _conv(block.downsample[0], x))
+        identity = _bn(block.downsample[1], _conv(block.downsample[0], x))
     return F.relu(out + identity)
 
 
@@ -78,8 +86,8 @@ class BasicBlock(nn.Module):
         self.downsample = _downsample(cin, planes, stride)
 
     def forward(self, x):
-        out = F.relu(_bn_eval(self.bn1, _conv(self.conv1, x)))
-        return _residual(self, _bn_eval(self.bn2, _conv(self.conv2, out)), x)
+        out = F.relu(_bn(self.bn1, _conv(self.conv1, x)))
+        return _residual(self, _bn(self.bn2, _conv(self.conv2, out)), x)
 
 
 class Bottleneck(nn.Module):
@@ -101,9 +109,9 @@ class Bottleneck(nn.Module):
         self.downsample = _downsample(cin, out_ch, stride)
 
     def forward(self, x):
-        out = F.relu(_bn_eval(self.bn1, _conv(self.conv1, x)))
-        out = F.relu(_bn_eval(self.bn2, _conv(self.conv2, out)))
-        return _residual(self, _bn_eval(self.bn3, _conv(self.conv3, out)), x)
+        out = F.relu(_bn(self.bn1, _conv(self.conv1, x)))
+        out = F.relu(_bn(self.bn2, _conv(self.conv2, out)))
+        return _residual(self, _bn(self.bn3, _conv(self.conv3, out)), x)
 
 
 class ResNet(nn.Module):
@@ -126,7 +134,7 @@ class ResNet(nn.Module):
 
     def forward(self, x):
         x = x.permute(0, 3, 1, 2)
-        x = F.relu(_bn_eval(self.bn1, _conv(self.conv1, x)))
+        x = F.relu(_bn(self.bn1, _conv(self.conv1, x)))
         x = F.max_pool2d(x, 3, 2, 1)
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
         return dense(x.mean(dim=(2, 3)), self.fc.weight, self.fc.bias)

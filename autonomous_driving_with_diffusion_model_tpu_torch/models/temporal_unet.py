@@ -20,6 +20,12 @@ state_pred | final_conv]), so ``model.parameters()`` zips against an EMA
 to bfloat16 where the model takes them (trajectory, time embedding, target
 point, image, the state head's actions), each layer casts its weights to
 them, and the output is bfloat16 (``models/blocks.py``, ``ops/nn.py``).
+
+Training mode is ``model.train(bn_mode=...)`` (JAX's ``train=``,
+``deterministic=False``): dropout acts in ``TrajPredict``, and the encoder's
+BatchNorm uses batch statistics under ``bn_mode="train"`` or its running
+statistics under ``"frozen"`` (JAX ``TPU.BN_MODE``, whose default is
+``frozen``). :func:`build_model` returns an eval model, for serving.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ import torch.nn as nn
 
 from ..ops.nn import conv1d
 from ..utils.constants import MAGIC_NUM, GuidanceType
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, use_float32_math
 from .blocks import (
     CondMLP,
     Conv1dBlock,
@@ -45,7 +51,9 @@ from .blocks import (
 )
 from .resnet import PERCEPTION_BUILDERS
 
-__all__ = ["TemporalMapUnet", "build_model", "init_parameters"]
+__all__ = ["TemporalMapUnet", "build_model", "init_parameters", "BN_MODES"]
+
+BN_MODES = ("train", "frozen")
 
 
 class TemporalMapUnet(nn.Module):
@@ -129,6 +137,19 @@ class TemporalMapUnet(nn.Module):
     def device(self) -> torch.device:
         return self.time_mlp[1].weight.device
 
+    def train(self, mode: bool = True, bn_mode: str = "train") -> "TemporalMapUnet":
+        """``nn.Module.train``; in training mode ``bn_mode="frozen"`` keeps the
+        encoder's BatchNorms in eval mode (running statistics, never
+        updated) while dropout acts."""
+        if bn_mode not in BN_MODES:
+            raise ValueError(f"TPU.BN_MODE must be 'train' or 'frozen', got {bn_mode!r}")
+        super().train(mode)
+        if mode and bn_mode == "frozen":
+            for m in self.perception.modules():
+                if isinstance(m, nn.BatchNorm2d):
+                    m.eval()
+        return self
+
     def encode_image(self, img: torch.Tensor) -> torch.Tensor:
         """Run the perception encoder once: NHWC image -> (B, dim) feature."""
         return self.perception(img.to(self.compute_dtype))
@@ -162,6 +183,7 @@ class TemporalMapUnet(nn.Module):
         cond: Optional[torch.Tensor] = None,
         img_feature: Optional[torch.Tensor] = None,
         return_action_and_time_only: bool = False,
+        dropout_generator: Optional[torch.Generator] = None,
     ):
         """Denoise one step.
 
@@ -169,7 +191,8 @@ class TemporalMapUnet(nn.Module):
         image, or ``img_feature`` (B, dim) from :meth:`encode_image`;
         time: (B,); cond: (B', 2) target point for FREE_GUIDANCE, where B' may
         be 2B for the dual-batch CFG (time and image features are then tiled,
-        as in reference temporal.py:206-212).
+        as in reference temporal.py:206-212); ``dropout_generator``: the
+        state head's dropout masks, in training mode.
         """
         if img_feature is None:
             img_feature = self.encode_image(img)
@@ -191,14 +214,15 @@ class TemporalMapUnet(nn.Module):
             action = self._head(self.act_conv, h)  # (B, horizon, 3)
             if return_action_and_time_only:
                 return action, time_embed
-            state = self.predict_state(action.detach(), time_embed)
+            state = self.predict_state(action.detach(), time_embed, dropout_generator)
             return torch.cat([state, action], dim=-1)
         return self._head(self.final_conv, h)
 
-    def predict_state(self, action: torch.Tensor, time_embed: torch.Tensor) -> torch.Tensor:
+    def predict_state(self, action: torch.Tensor, time_embed: torch.Tensor,
+                      dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Classifier-guidance state head on its own (reference:
         interact.py:158-159): the first waypoint's state is zero."""
-        state = self.state_pred(action[:, :-1].to(self.compute_dtype), time_embed)
+        state = self.state_pred(action[:, :-1].to(self.compute_dtype), time_embed, dropout_generator)
         return torch.cat([torch.zeros_like(state[:, :1]), state], dim=1)
 
 
@@ -239,8 +263,11 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 def build_model(cfg, device=None, seed: int = 0) -> TemporalMapUnet:
     """Construct the denoiser from a config (reference: modeling/temporal.py:248-258),
-    weights drawn from ``seed``, in eval mode on ``device`` (None: the card)."""
+    weights drawn from ``seed``, in eval mode on ``device`` (None: the card).
+    On the card it turns TF32 off (``utils.device.use_float32_math``), so a
+    float32 model serves and trains in float32."""
     dev = resolve_device(device)
+    use_float32_math(dev)
     if cfg.MODEL.DIFFUSER_BUILDING_BLOCK != "concat":
         raise NotImplementedError(cfg.MODEL.DIFFUSER_BUILDING_BLOCK)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}

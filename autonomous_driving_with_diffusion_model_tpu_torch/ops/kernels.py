@@ -28,9 +28,16 @@ Both kernels can record phase stamps (``stamps=``, off by default): thread 0
 of each CTA writes the device's ns timer and its SM's cycle counter at the
 five :data:`PHASES`, into an int64 tensor from :func:`phase_stamps`.
 
-A wrapper given CPU tensors computes the plain version; given CUDA tensors it
-launches the kernel or raises. It adds one to its ``launches`` count for each
-call that launches. Both are forward-only: they raise under autograd.
+A wrapper given CPU tensors computes the plain version, which autograd
+differentiates as it stands; given CUDA tensors it launches the kernel or
+raises. It adds one to its ``launches`` count for each call that launches.
+
+Neither TPU kernel has a backward (the JAX package trains through the XLA
+composite, ``TPU.USE_PALLAS_CONV`` off). So when a CUDA call needs a gradient,
+it goes through :class:`Recompute`, a ``torch.autograd.Function`` whose
+forward launches the kernel and whose backward recomputes the plain version
+from the saved inputs and returns its gradients: the same function JAX's
+training differentiates. Hand-written backward kernels are open work.
 """
 
 from __future__ import annotations
@@ -52,7 +59,7 @@ __all__ = [
     "rank_slice",
     "conv1d_gn_mish_plain",
     "residual_block_plain",
-    "check_forward_only",
+    "Recompute",
     "reset_launch_counts",
 ]
 
@@ -70,14 +77,6 @@ MIN_RANK_CHANNELS = 8  # input channels a cluster's rank keeps at least
 HEAD_P = 4  # positions of one output channel a head thread holds (the C side's P)
 HEAD_MAX_LANES = 8  # lanes sharing one head output's sum
 PHASES = ("entry", "loads landed", "outputs in shared memory", "statistics done", "stored")
-
-
-def check_forward_only(*tensors: Optional[torch.Tensor]) -> None:
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(
-            "the conv_gn_mish kernels are forward-only: call them under torch.no_grad() "
-            "or with inputs that do not require grad"
-        )
 
 
 # ---------------------------------------------------------------- plain versions
@@ -345,15 +344,55 @@ def _launch_head(geo: HeadGeometry, x, w, b, gamma, beta, out, n_groups, eps, st
         raise RuntimeError(f"conv1d_gn_mish launch failed (CUDA error {err}, {geo})")
 
 
+class Recompute(torch.autograd.Function):
+    """A kernel call that autograd can differentiate:
+    ``Recompute.apply(launch, plain, kw, *tensors)``.
+
+    The forward returns ``launch(*tensors, **kw)``, the kernel's output, and
+    saves the inputs (``tensors`` may hold None: an absent residual
+    projection). The backward recomputes ``plain(*tensors, **kw)`` from them
+    under autograd and returns its gradient for every input that needs one.
+    The plain version is float32 inside, so the gradient is too, returned in
+    each input's dtype."""
+
+    @staticmethod
+    def forward(ctx, launch, plain, kw, *tensors):
+        ctx.plain, ctx.kw = plain, kw
+        ctx.save_for_backward(*tensors)
+        return launch(*tensors, **kw)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        needs = ctx.needs_input_grad[3:]
+        with torch.enable_grad():
+            inputs = [None if a is None else a.detach().requires_grad_(n)
+                      for a, n in zip(ctx.saved_tensors, needs)]
+            wrt = [a for a in inputs if a is not None and a.requires_grad]
+            grads = iter(torch.autograd.grad(ctx.plain(*inputs, **ctx.kw), wrt, grad_out) if wrt else ())
+        return (None, None, None) + tuple(
+            next(grads) if a is not None and a.requires_grad else None for a in inputs)
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
 def fused_conv1d_gn_mish(x, w, b, gamma, beta, n_groups: int = 8, eps: float = 1e-5, *,
                          stamps=None):
     """x: (B, L, Cin); w: (K, Cin, C); b/gamma/beta: (C,) -> (B, L, C).
     ``stamps``: None, or a :func:`phase_stamps` buffer of the launch's CTAs."""
-    check_forward_only(x, w, b, gamma, beta)
     if x.device.type == "cpu":
         if stamps is not None:
             raise ValueError("phase stamps come from the CUDA kernel: give CUDA tensors")
         return conv1d_gn_mish_plain(x, w, b, gamma, beta, n_groups, eps)
+    launch = functools.partial(_conv1d_gn_mish_cuda, stamps=stamps)
+    kw = dict(n_groups=n_groups, eps=eps)
+    if _needs_grad(x, w, b, gamma, beta):
+        return Recompute.apply(launch, conv1d_gn_mish_plain, kw, x, w, b, gamma, beta)
+    return launch(x, w, b, gamma, beta, **kw)
+
+
+def _conv1d_gn_mish_cuda(x, w, b, gamma, beta, n_groups, eps, stamps=None):
     B, L, Cin = x.shape
     K, _, C = w.shape
     _check_cuda(
@@ -377,13 +416,20 @@ def fused_residual_block(
     C); w2 (K, C, C); tw (E, C); wres (1, Cin, C) or None (then Cin == C).
     ``stamps``: None, or a pair of :func:`phase_stamps` buffers, one for
     each launch."""
-    check_forward_only(x, t, w1, b1, g1, be1, tw, tb, w2, b2, g2, be2, wres, bres)
+    args = (x, t, w1, b1, g1, be1, tw, tb, w2, b2, g2, be2, wres, bres)
     if x.device.type == "cpu":
         if stamps is not None:
             raise ValueError("phase stamps come from the CUDA kernel: give CUDA tensors")
-        return residual_block_plain(
-            x, t, w1, b1, g1, be1, tw, tb, w2, b2, g2, be2, wres, bres, n_groups, eps
-        )
+        return residual_block_plain(*args, n_groups=n_groups, eps=eps)
+    launch = functools.partial(_residual_block_cuda, stamps=stamps)
+    kw = dict(n_groups=n_groups, eps=eps)
+    if _needs_grad(*args):
+        return Recompute.apply(launch, residual_block_plain, kw, *args)
+    return launch(*args, **kw)
+
+
+def _residual_block_cuda(x, t, w1, b1, g1, be1, tw, tb, w2, b2, g2, be2, wres, bres,
+                         n_groups, eps, stamps=None):
     B, L, Cin = x.shape
     K, _, C = w1.shape
     E = t.shape[1]

@@ -39,7 +39,24 @@ Phases, each of which fails the run (nonzero exit, no result line):
    ``make_sampler`` with the first waypoints pinned. Per path: launch counts (reset before the
    first plan, read after it, 16 / 1 per forward), the GPU plan against the
    CPU plan of the same seed (PLAN_TOL, or BF16_PLAN_TOL), plan p50 over 5
-   plans, peak memory and the device-busy share.
+   plans, peak memory and the device-busy share;
+8. training: each kernel's ``autograd.Function`` at every main-path shape at
+   B = 2 and 32 (forward against the plain forward, every input's gradient
+   against autograd of the plain version, GRAD_TOL), and both kernels' device
+   time at B = 32 with the recompute backward's; three full-width training
+   steps at B = 2 on the card against the CPU (the same weights, batch and
+   draws, BatchNorm frozen and train: the first-step gradients per tensor,
+   each check shown to catch a planted fault; each tensor's update and EMA
+   by norm; losses; the first step's BatchNorm statistics); the timed step at TRAIN.BATCH_SIZE 32 from a
+   dataset of 64 900x256 frames that the script writes under ``build/``
+   with the port's PNG writer, through the loader, the augmentation and the
+   step: device-resident with BN_MODE frozen and train (and frozen with
+   REMAT), and through the host loader decoding every batch (frames of Sub
+   rows, and of Paeth rows): step p50, samples/s, peak memory, launches per
+   step (16 / 1 per forward, doubled under REMAT), one profiled step; and
+   the train CLI, 4 iterations saving at 2, then resumed from
+   ``checkpoint_2.pth``. Float32 is float32 throughout: ``build_model``
+   turns TF32 off on the card, and the script checks that it did.
 
 The last two lines of standard output are the card (nvidia-smi) and the
 kernels as JSON, then ``{"ok": true, "device": ...}``. Per-shape numbers and
@@ -85,6 +102,49 @@ INPAINT_KNOWN = 4  # the waypoints an inpainting path pins, from the first
 # denoising steps of an inpainting path: the default config's 100 cut to 10,
 # which keeps the whole script near half its time limit
 INPAINT_STEPS = 10
+# an autograd.Function's input gradient against autograd of the plain
+# version, over the gradient's largest value: the backward IS the plain
+# version's, at the same inputs, so they differ only by cuDNN's choice of
+# algorithm for the two calls
+GRAD_TOL = 1e-4
+# GPU vs CPU training (phase 8), full width, B = 2, float32 (build_model
+# turns TF32 off), BatchNorm frozen and in train mode. The first step (its
+# LR is 0, so both sides hold the same weights) compares the gradient of
+# every tensor outside the encoder to STEP_GRAD_TOL of that tensor's
+# largest CPU value plus STEP_GRAD_FLOOR, the size of float32 rounding noise
+# in a gradient whose exact value is 0, as the CPU tests hold the port to
+# JAX. The encoder's are held by each tensor's norm to ENCODER_GRAD_RTOL:
+# the two devices' forwards differ by float32 rounding, which flips ReLU
+# and max-pool decisions at elements next to a tie, and each flip moves a
+# weight gradient at once (on the card under frozen: 3.7e-4 of the
+# encoder's norm, 4.2e-3 of the worst tensor's, conv1; the same with
+# PyTorch's own CUDA convolutions in place of cuDNN's). Both checks are shown to
+# catch a planted fault (a U-Net block's gradient zeroed, the encoder's
+# first weight's scaled by 1 + 5e-2). Under BatchNorm train the encoder's
+# gradient passes each BatchNorm as the deviation of each frame's upstream
+# gradient from the batch mean, small against each, so any other summation
+# order moves it far more (on the card: 8.8e-3 of the encoder's norm, 24
+# times its distance under frozen): it is reported, and its BatchNorm
+# statistics are compared. After three steps
+# the update of each tensor outside the encoder (final minus initial
+# weights, and the EMA shadow's) is compared by norm over the elements
+# whose first gradient is not near 0 (below NOISE_GRAD or 1e-3 of the
+# tensor's largest), to UPDATE_RTOL of the CPU update's norm, as the CPU
+# tests do; every element stays within Adam's bound, PARAM_TOL x the LRs
+# summed (an update is at most 1.0 LR in its first steps whatever the
+# gradient: |m_hat| / sqrt(v_hat) <= sqrt(sum a_i^2 / c_i) = 1.0 for b1 =
+# 0.95, b2 = 0.999), which holds the encoder's. The loss: float32 sums in
+# other orders, relative. The first step's BatchNorm statistics, at the
+# same weights, relative to 1 + |value|
+STEP_GRAD_TOL = 1e-4
+STEP_GRAD_FLOOR = 1e-7
+ENCODER_GRAD_RTOL = 1e-2
+NOISE_GRAD = 1e-6
+UPDATE_RTOL = 1e-3
+PARAM_TOL = 2.0
+LOSS_RTOL = 1e-4
+STAT_TOL = 1e-4
+TRAIN_FRAMES = 64
 REPLAY = os.path.join("tests", "fixtures", "replay_town01.npz")
 LATENCY_TICKS = 20
 REPLACES = {
@@ -594,6 +654,426 @@ def serving(load_cfg, device_breakdown, launches, smi, dev="cuda") -> dict:
     return out
 
 
+def write_dataset(root: str, n: int, h: int, w: int, seed: int = 0) -> None:
+    """``n`` frames of ``h`` x ``w`` and their waypoint files in the dataset
+    layout (``front/*.png``, ``waypoints/{idx:06d}.txt``), written with the
+    port's PNG writer (row filter Sub, as libpng often picks): a smooth
+    random field plus noise, targets and 16 x 7 transitions."""
+    import numpy as np
+
+    from autonomous_driving_with_diffusion_model_tpu_torch.data.png import write_png
+
+    rng = np.random.default_rng(seed)
+    for sub in ("front", "waypoints"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    yy, xx = np.mgrid[0:h, 0:w]
+    for i in range(n):
+        phase = rng.uniform(0, 2 * np.pi, 3)
+        base = 127 + 100 * np.sin(xx[..., None] / 37.0 + yy[..., None] / 23.0 + phase)
+        img = np.clip(base + rng.normal(0, 20, (h, w, 3)), 0, 255).astype(np.uint8)
+        write_png(os.path.join(root, "front", f"{i:06d}.png"), img, 1, level=1)
+        lines = [" ".join(f"{v:.6f}" for v in rng.uniform(-1, 1, 2))]
+        lines += [" ".join(f"{v:.6f}" for v in rng.uniform(-1.2, 1.2, 7)) for _ in range(16)]
+        with open(os.path.join(root, "waypoints", f"{i:06d}.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+
+def training(load_cfg, calls, case, graph_ms, bound_ms, device_breakdown, launches, smi, dev="cuda") -> dict:
+    """Phase 8: training on the card. ``calls`` are the main-path blocks of
+    one U-Net forward; ``launches`` gathers the timed steps' launch counts
+    into the kernels line. ``dev`` is the card (another device only to
+    rehearse the phase)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from autonomous_driving_with_diffusion_model_tpu_torch.data import (
+        DeviceResidentLoader,
+        Loader,
+        TrajDataset,
+        augment_batch,
+        get_loader,
+        maybe_device_resident,
+        normalize_images,
+        read_png,
+        write_png,
+    )
+    from autonomous_driving_with_diffusion_model_tpu_torch.diffusion import make_schedule_from_cfg
+    from autonomous_driving_with_diffusion_model_tpu_torch.models import build_model
+    from autonomous_driving_with_diffusion_model_tpu_torch.ops import kernels
+    from autonomous_driving_with_diffusion_model_tpu_torch.train import (
+        StepDraws,
+        create_train_state,
+        import_torch_checkpoint,
+        make_train_step,
+    )
+    from autonomous_driving_with_diffusion_model_tpu_torch.train import cli
+    from autonomous_driving_with_diffusion_model_tpu_torch.utils.config import create_cfg, merge_possible_with_base
+
+    out = {}
+    dev = torch.device(dev)
+
+    # 8.1 each kernel through its autograd.Function at every main-path shape,
+    # B = 2 and 32: the forward against the plain forward, and the gradient
+    # of every input against autograd of the plain version
+    gen = torch.Generator().manual_seed(8)
+    rows = []
+    for B in (2, 32):
+        for n, m, a in calls:
+            fn, plain, args = case(m, a, B, torch.float32, gen)
+            leaves = [None if v is None else v.detach().clone().requires_grad_(True) for v in args]
+            refs = [None if v is None else v.detach().clone().requires_grad_(True) for v in args]
+            before = fn.launches
+            got = fn(*leaves)
+            if fn.launches != before + 1 or (dev.type == "cuda" and "Recompute" not in type(got.grad_fn).__name__):
+                raise AssertionError(f"{fn.__name__} at {n} B={B}: the autograd.Function did not launch the kernel")
+            want = plain(*refs)
+            up = torch.randn(got.shape, generator=gen).to(dev)
+            g_got = torch.autograd.grad((got * up).sum(), [v for v in leaves if v is not None])
+            g_want = torch.autograd.grad((want * up).sum(), [v for v in refs if v is not None])
+            torch.cuda.synchronize()
+            fwd_err = (got - want).abs().max().item()
+            ok = torch.allclose(got, want, **KERNEL_TOL["float32"]) and bool(torch.isfinite(got).all())
+            grad_rel = 0.0
+            for gg, gw in zip(g_got, g_want):
+                rel = ((gg - gw).abs().max() / gw.abs().max().clamp_min(1e-30)).item()
+                grad_rel = max(grad_rel, rel)
+                ok = ok and rel <= GRAD_TOL and bool(torch.isfinite(gg).all())
+            rows.append(dict(block=n, B=B, forward_max_abs_err=fwd_err, grad_max_rel_err=grad_rel,
+                             inputs=len(g_got), ok=ok))
+            log(f"train grad {fn.__name__:22s} {n:22s} B={B:2d} {tuple(args[0].shape)}: forward "
+                f"max_abs_err={fwd_err:.3e}, {len(g_got)} input gradients max rel err {grad_rel:.3e} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{fn.__name__} at {n} B={B}: forward {fwd_err}, gradient {grad_rel}")
+    out["kernel_gradients"] = rows
+
+    # the kernels at B = 32, one forward's calls in a graph, and the
+    # recompute backward of the same calls, by CUDA events
+    out["b32"] = {}
+    cases = [case(m, a, 32, torch.float32, gen) for n, m, a in calls]
+    with torch.no_grad():
+        for kname in ("fused_residual_block", "fused_conv1d_gn_mish"):
+            mine = [c for c in cases if c[0].__name__ == kname]
+            bounds = [bound_ms(c[0], c[2]) for c in mine]
+            row = dict(calls=len(mine), ms=graph_ms([lambda c=c: c[0](*c[2]) for c in mine]),
+                       plain_ms=graph_ms([lambda c=c: c[1](*c[2]) for c in mine]),
+                       bound_ms=sum(b for b, _ in bounds),
+                       bound_by="bytes" if all(by == "bytes" for _, by in bounds) else "operations")
+            out["b32"][kname] = row
+    for kname in ("fused_residual_block", "fused_conv1d_gn_mish"):
+        mine = [c for c in cases if c[0].__name__ == kname]
+        leaves = [[None if v is None else v.detach().clone().requires_grad_(True) for v in c[2]] for c in mine]
+        outs = [c[0](*lv) for c, lv in zip(mine, leaves)]
+        ups = [torch.ones_like(o) for o in outs]
+        for _ in range(2):  # warm
+            torch.autograd.grad(outs, [v for lv in leaves for v in lv if v is not None], ups, retain_graph=True)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            torch.autograd.grad(outs, [v for lv in leaves for v in lv if v is not None], ups, retain_graph=True)
+        end.record()
+        torch.cuda.synchronize()
+        row = out["b32"][kname]
+        row["recompute_backward_ms"] = start.elapsed_time(end) / 5
+        log(f"train time {kname} B=32: one forward's {row['calls']} calls, device ms: kernel {row['ms']:.4f}, "
+            f"plain {row['plain_ms']:.4f}, bound {row['bound_ms']:.5f} ({row['bound_by']}); the recompute "
+            f"backward of those calls {row['recompute_backward_ms']:.4f} ms (CUDA events, host included) on {smi}")
+        del outs, leaves
+
+    # 8.2 GPU against CPU: full width, B = 2, the same weights, batch and
+    # draws, three steps (the first update's LR is 0), BatchNorm frozen and
+    # in train mode
+    rng = np.random.default_rng(8)
+    cfg = load_cfg(CONFIGS[0])
+    B, H, W = 2, cfg.TRAIN.IMAGE_HEIGHT, cfg.TRAIN.IMAGE_WIDTH
+    frames = torch.from_numpy(rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8))
+    batch = {"image": normalize_images(frames), "trajs": torch.from_numpy(rng.uniform(-1, 1, (B, 16, 7)).astype(np.float32)),
+             "target": torch.from_numpy(rng.uniform(-1, 1, (B, 2)).astype(np.float32))}
+    draws = [StepDraws(torch.from_numpy(rng.integers(0, cfg.TRAIN.TIME_STEPS, B)),
+                       torch.from_numpy(rng.standard_normal((B, 16, 7)).astype(np.float32)),
+                       torch.tensor([True])) for _ in range(3)]
+
+    def run_steps(cfg, d, n_steps=3):
+        """n_steps from seed 0's weights on device d: losses, the first
+        step's gradients and BatchNorm statistics, the initial and final
+        weights and the final EMA shadow, all on the CPU."""
+        t0 = time.perf_counter()
+        st = create_train_state(build_model(cfg, device=d, seed=0), cfg)
+        start = {n: p.detach().cpu().clone() for n, p in st.model.named_parameters()}
+        step = make_train_step(make_schedule_from_cfg(cfg, d), cfg)
+        b = {k: v.to(d) for k, v in batch.items()}
+        r = dict(losses=[], start=start)
+        for dr in draws[:n_steps]:
+            r["losses"].append(float(step(st, b, dr)["loss"]))
+            if len(r["losses"]) == 1:
+                r["stats"] = {k: v.cpu().clone() for k, v in st.model.state_dict().items() if "running" in k}
+                r["grads"] = {n: p.grad.detach().cpu().clone() for n, p in st.model.named_parameters()}
+        r["params"] = {n: p.detach().cpu().clone() for n, p in st.model.named_parameters()}
+        r["ema"] = dict(zip(r["params"], (s.cpu().clone() for s in st.ema.shadow_params)))
+        r["seconds"] = time.perf_counter() - t0
+        return r
+
+    def grad_ratio(got, want, names):
+        """The worst tensor's max abs gradient difference over its tolerance
+        (fails above 1), and its name."""
+        return max((((got[n] - want[n]).abs().max() / (STEP_GRAD_TOL * want[n].abs().max()
+                                                        + STEP_GRAD_FLOOR)).item(), n) for n in names)
+
+    def rel_norm(got, want, names):
+        return (sum(float((got[n] - want[n]).square().sum()) for n in names)
+                / sum(float(want[n].square().sum()) for n in names)) ** 0.5
+
+    def norm_ratio(got, want, names):
+        """The worst tensor's gradient distance, by norm, over ENCODER_GRAD_RTOL
+        of its norm (plus STEP_GRAD_FLOOR), and its name."""
+        return max((((got[n] - want[n]).norm() / (ENCODER_GRAD_RTOL * want[n].norm() + STEP_GRAD_FLOOR)).item(), n)
+                   for n in names)
+
+    def compare(label, gpu, cpu, held, by_norm=()):
+        """Hold ``gpu`` to ``cpu``: the first-step gradients of the ``held``
+        tensors per element and of the ``by_norm`` ones by each tensor's
+        norm, each check shown to catch a planted fault; the updates (and
+        EMA) of the ``held`` tensors; every element within Adam's bound;
+        the losses."""
+        g_gpu, g_cpu = gpu["grads"], cpu["grads"]
+        row = dict(tensors=len(g_cpu), tensors_held=len(held), tensors_by_norm=len(by_norm),
+                   seconds=dict(gpu=gpu["seconds"], cpu=cpu["seconds"]))
+        row["grad_worst_over_tol"], row["grad_worst_tensor"] = grad_ratio(g_gpu, g_cpu, held)
+        encoder = [n for n in g_cpu if n.startswith("perception.")]
+        row["encoder_grad_rel_norm"] = rel_norm(g_gpu, g_cpu, encoder)
+        block = next(n for n in held if n.startswith("downs.0.0.") and n.endswith("weight"))
+        row["planted_faults_over_tol"] = {
+            f"{block} gradient zeroed": grad_ratio({block: torch.zeros_like(g_gpu[block])}, g_cpu, [block])[0]}
+        if by_norm:
+            row["by_norm_worst_over_tol"], row["by_norm_worst_tensor"] = norm_ratio(g_gpu, g_cpu, by_norm)
+            enc = next(n for n in by_norm if n.endswith("weight"))
+            row["planted_faults_over_tol"][f"{enc} gradient x (1 + 5e-2)"] = norm_ratio(
+                {enc: g_gpu[enc] * (1 + 5e-2)}, g_cpu, [enc])[0]
+        caught = all(r > 1.0 for r in row["planted_faults_over_tol"].values())
+        p_tol = PARAM_TOL * sum([0.0] + [cfg.TRAIN.LR] * 2)
+        update_worst, update_at, bound_err = 0.0, None, 0.0
+        for kind in ("params", "ema"):
+            got, want = gpu[kind], cpu[kind]
+            for n in want:
+                bound_err = max(bound_err, (got[n] - want[n]).abs().max().item())
+                g = g_cpu[n].abs()
+                keep = g >= max(NOISE_GRAD, 1e-3 * g.max().item())
+                if n in held and keep.any():
+                    moved, ref = (got[n] - cpu["start"][n])[keep], (want[n] - cpu["start"][n])[keep]
+                    r = ((moved - ref).norm() / (UPDATE_RTOL * ref.norm() + 1e-6)).item()
+                    if r >= update_worst:
+                        update_worst, update_at = r, f"{kind} {n}"
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(gpu["losses"], cpu["losses"]))
+        row.update(losses=dict(gpu=gpu["losses"], cpu=cpu["losses"]), loss_max_rel=loss_rel,
+                   update_worst_over_tol=update_worst, update_worst_tensor=update_at, max_abs_after_3_steps=bound_err,
+                   adam_bound=p_tol)
+        ok = (loss_rel <= LOSS_RTOL and row["grad_worst_over_tol"] <= 1.0 and update_worst <= 1.0
+              and row.get("by_norm_worst_over_tol", 0.0) <= 1.0 and bound_err <= p_tol
+              and all(np.isfinite(gpu["losses"])))
+        by = (f"; {len(by_norm)} by norm: worst {row['by_norm_worst_over_tol']:.3f} of the tolerance "
+              f"({ENCODER_GRAD_RTOL} of the tensor's norm) at {row['by_norm_worst_tensor']}" if by_norm else "")
+        log(f"train GPU vs CPU, full width, B={B}, 3 steps, {label}: first-step gradients of {len(held)} of "
+            f"{len(g_cpu)} tensors: worst {row['grad_worst_over_tol']:.3f} of the tolerance ({STEP_GRAD_TOL} x the "
+            f"tensor's largest + {STEP_GRAD_FLOOR}) at {row['grad_worst_tensor']}{by}; the encoder's "
+            f"{row['encoder_grad_rel_norm']:.3e} of their norm; planted "
+            + ", ".join(f"{k}: {r:.1f}" for k, r in row["planted_faults_over_tol"].items())
+            + f" of the tolerance ({'caught' if caught else 'NOT caught'}); updates after 3 steps: worst "
+            f"{update_worst:.3f} of the tolerance ({UPDATE_RTOL} of the norm) at {update_at}; every element within "
+            f"{bound_err:.3e} (Adam's bound {p_tol:.1e}); losses GPU {gpu['losses']} CPU {cpu['losses']} (max rel "
+            f"{loss_rel:.3e}, tolerance {LOSS_RTOL}); GPU {gpu['seconds']:.1f} s, CPU {cpu['seconds']:.1f} s "
+            f"{'ok' if ok and caught else 'FAIL'}")
+        if not caught:
+            raise AssertionError(f"the gradient check does not catch a planted fault ({label}): {row}")
+        if not ok:
+            raise AssertionError(f"GPU training differs from CPU training ({label}): {row}")
+        return row
+
+    out["gpu_vs_cpu"] = {}
+    for bn_mode in ("frozen", "train"):
+        cfg = load_cfg(CONFIGS[0])
+        cfg.merge_from_list(["TPU.BN_MODE", bn_mode, "TRAIN.LR_WARMUP", "1"])
+        cpu, gpu = run_steps(cfg, torch.device("cpu")), run_steps(cfg, dev)
+        names = list(cpu["grads"])
+        encoder = [n for n in names if n.startswith("perception.")]
+        unet = [n for n in names if n not in encoder]
+        # the U-Net held per element; under frozen the encoder by each
+        # tensor's norm
+        row = compare(f"BN_MODE {bn_mode}", gpu, cpu, unet, encoder if bn_mode == "frozen" else ())
+        if bn_mode == "train":
+            fg, fc = gpu["stats"], cpu["stats"]
+            row["bn_stat_max_rel"] = max((((fg[k] - fc[k]).abs() / (fc[k].abs() + 1.0)).max().item() for k in fc),
+                                         default=0.0)
+            log(f"train GPU vs CPU, BN_MODE train: the first step's BN statistics max rel "
+                f"{row['bn_stat_max_rel']:.3e} (tolerance {STAT_TOL})")
+            if row["bn_stat_max_rel"] > STAT_TOL:
+                raise AssertionError(f"BatchNorm statistics on the card differ from the CPU's: {row}")
+        out["gpu_vs_cpu"][bn_mode] = row
+        del gpu, cpu
+
+    # 8.3 the timed step: TRAIN.BATCH_SIZE 32 from a dataset of 64 frames
+    # through the loader, the augmentation and the step
+    root = os.path.join(REPO, "build", "phase8_data")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_dataset(root, TRAIN_FRAMES, H, W)
+    out["dataset_write_s"] = time.perf_counter() - t0
+    # the host loader's datasets: 8 epochs' worth of links to the 64 frames
+    # (so the timed steps stay in one epoch), of Sub rows and of Paeth rows
+    # (the row filter that costs the reader most, written from the same
+    # pixels); every batch is decoded, as for a dataset too large to cache
+    hosts = {}
+    for rows in ("sub", "paeth"):
+        frames_dir = os.path.join(REPO, "build", f"phase8_{rows}_frames")
+        hosts[rows] = os.path.join(REPO, "build", f"phase8_host_{rows}")
+        for d in (frames_dir, hosts[rows]):
+            shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(frames_dir)
+        for sub in ("front", "waypoints"):
+            os.makedirs(os.path.join(hosts[rows], sub))
+        for i in range(TRAIN_FRAMES):
+            src = os.path.join(root, "front", f"{i:06d}.png")
+            if rows == "paeth":
+                write_png(os.path.join(frames_dir, f"{i:06d}.png"), read_png(src), 4, level=1)
+                src = os.path.join(frames_dir, f"{i:06d}.png")
+            for j in range(i, 8 * TRAIN_FRAMES, TRAIN_FRAMES):
+                os.symlink(src, os.path.join(hosts[rows], "front", f"{j:06d}.png"))
+                os.symlink(os.path.join(root, "waypoints", f"{i:06d}.txt"),
+                           os.path.join(hosts[rows], "waypoints", f"{j:06d}.txt"))
+    decode = {}
+    for name in ("sub", "paeth"):
+        path = os.path.join(hosts[name], "front", "000001.png")
+        t0 = time.perf_counter()
+        for _ in range(3):
+            read_png(path)
+        decode[name] = (time.perf_counter() - t0) / 3 * 1e3
+    out["decode_ms"] = decode
+    log(f"train data: {TRAIN_FRAMES} frames of {W}x{H} written in {out['dataset_write_s']:.1f} s; one PNG "
+        f"decodes in {decode['sub']:.1f} ms (Sub rows) / {decode['paeth']:.1f} ms (Paeth rows) on the host")
+
+    out["timed"] = {}
+    for key, bn_mode, remat, source in (("frozen", "frozen", False, "device"), ("train", "train", False, "device"),
+                                        ("frozen_remat", "frozen", True, "device"),
+                                        ("frozen_host_sub", "frozen", False, "sub"),
+                                        ("frozen_host_paeth", "frozen", False, "paeth")):
+        cfg = load_cfg(CONFIGS[0])
+        cfg.merge_from_list(["TRAIN.ROOT", root if source == "device" else hosts[source], "TPU.BN_MODE", bn_mode,
+                             "TPU.REMAT", str(remat)])
+        t0 = time.perf_counter()
+        if source == "device":
+            loader = maybe_device_resident(get_loader(cfg), cfg, dev)
+            if not isinstance(loader, DeviceResidentLoader):
+                raise AssertionError(f"{TRAIN_FRAMES} frames were not made device-resident")
+        else:  # get_loader's Loader with the decoded-frame cache off
+            loader = Loader(TrajDataset(cfg.TRAIN.ROOT, cache_decoded=False), batch_size=cfg.TRAIN.BATCH_SIZE,
+                            num_workers=cfg.TRAIN.NUM_WORKERS)
+        load_s = time.perf_counter() - t0
+        st = create_train_state(build_model(cfg, device=dev, seed=0), cfg)
+        step = make_train_step(make_schedule_from_cfg(cfg, dev), cfg)
+        data = iter(loader)
+
+        def one(it):
+            nonlocal data
+            try:
+                b = next(data)
+            except StopIteration:
+                data = iter(loader)
+                b = next(data)
+            b = {k: torch.as_tensor(v).to(dev, non_blocking=True) for k, v in b.items()}  # as the CLI does
+            aug, g = cli.iteration_generators(it, dev)
+            b["image"] = normalize_images(augment_batch(b["image"], aug, it * cfg.TRAIN.BATCH_SIZE))
+            return step(st, b, generator=g)
+
+        n_warm, n_timed = (1, 3) if remat else (1, 5) if source == "paeth" else (3, 10)
+        for it in range(n_warm):
+            one(it)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for it in range(n_warm, n_warm + n_timed):
+            t0 = time.perf_counter()
+            m = one(it)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        kernels.reset_launch_counts()
+        m = one(n_warm + n_timed)
+        torch.cuda.synchronize()
+        got = {k: getattr(kernels, k).launches for k in launches}
+        per = 2 if remat else 1
+        want = {"fused_residual_block": 16 * per, "fused_conv1d_gn_mish": per}
+        if got != want:
+            raise AssertionError(f"train step {key}: launches {got} != {want}")
+        for k in launches:
+            launches[k] += got[k]
+        busy = device_breakdown(lambda: one(n_warm + n_timed + 1))
+        p50 = float(np.median(times))
+        loss = float(m["loss"])
+        out["timed"][key] = dict(step_ms_p50=p50, step_ms=times, samples_per_s=cfg.TRAIN.BATCH_SIZE / p50 * 1e3,
+                                 peak_mib=peak, launches_per_step=got, profile=busy, loss=loss,
+                                 loader_s=load_s, batch=cfg.TRAIN.BATCH_SIZE, data=source)
+        log(f"train step {key}: B={cfg.TRAIN.BATCH_SIZE} at {W}x{H}, p50 {p50:.2f} ms over {n_timed} steps after "
+            f"{n_warm} warm ({cfg.TRAIN.BATCH_SIZE / p50 * 1e3:.1f} samples/s), peak {peak:.1f} MiB, launches per "
+            f"step {got}, loss {loss:.4f}; data {source} (loader built in {load_s:.1f} s); profiled step "
+            f"{busy['wall_ms']:.2f} ms, device busy {busy['device_ms']:.2f} ms ({busy['busy_share']:.3f}), by "
+            f"kind {busy['by_kind']}; on {smi}")
+        if not np.isfinite(loss):
+            raise AssertionError(f"train step {key}: loss {loss}")
+        del st, loader, data
+    for rows in ("sub", "paeth"):
+        shutil.rmtree(hosts[rows], ignore_errors=True)
+        shutil.rmtree(os.path.join(REPO, "build", f"phase8_{rows}_frames"), ignore_errors=True)
+
+    # 8.4 the train CLI: 4 iterations saving at 2, then a run resumed from
+    # checkpoint_2.pth; the import restores step, moments and EMA exactly
+    runs = os.path.join(REPO, "build", "phase8_runs")
+    shutil.rmtree(runs, ignore_errors=True)
+    common = ["--device", str(dev), "--opts", "TRAIN.ROOT", root, "TRAIN.SAVE_INTERVAL", "2", "TRAIN.SAMPLE_INTERVAL", "0",
+              "TRAIN.LOG_INTERVAL", "1"]
+    t0 = time.perf_counter()
+    first = cli.main(cli.parse_args(["--config", os.path.join(REPO, CONFIGS[0]), "--max-iter", "4"] + common
+                                    + ["PROJECT_DIR", os.path.join(runs, "a")]))
+    ck = os.path.join(runs, "a", "checkpoints")
+    written = sorted(os.listdir(ck))
+    cfg = create_cfg()  # the CLI's config
+    merge_possible_with_base(cfg, os.path.join(REPO, CONFIGS[0]))
+    fresh = create_train_state(build_model(cfg, device=dev, seed=1), cfg)
+    import_torch_checkpoint(os.path.join(ck, "checkpoint_2.pth"), cfg, fresh)
+    saved = torch.load(os.path.join(ck, "checkpoint_2.pth"), map_location="cpu", weights_only=False)
+    params = list(fresh.model.parameters())
+    exact = (fresh.step == 2 == saved["iter"]
+             and all(torch.equal(fresh.optimizer.state[p]["exp_avg"].cpu(), saved["optimizer"]["state"][i]["exp_avg"])
+                     and torch.equal(fresh.optimizer.state[p]["exp_avg_sq"].cpu(),
+                                     saved["optimizer"]["state"][i]["exp_avg_sq"])
+                     and float(fresh.optimizer.state[p]["step"]) == 2.0 for i, p in enumerate(params))
+             and all(torch.equal(s.cpu(), v) for s, v in zip(fresh.ema.shadow_params,
+                                                             saved["ema_state_dict"]["shadow_params"]))
+             and fresh.ema.optimization_step == 2
+             and all(torch.equal(v.cpu(), saved["state_dict"][k]) for k, v in fresh.model.state_dict().items()))
+    del fresh, saved
+    second = cli.main(cli.parse_args(["--config", os.path.join(REPO, CONFIGS[0]), "--max-iter", "4"] + common
+                                     + ["PROJECT_DIR", os.path.join(runs, "b"), "TRAIN.RESUME",
+                                        os.path.join(ck, "checkpoint_2.pth")]))
+    resumed = sorted(os.listdir(os.path.join(runs, "b", "checkpoints")))
+    diff = max((a - b).abs().max().item() for a, b in zip(first.model.parameters(), second.model.parameters()))
+    cfg.merge_from_list(["TRAIN.ROOT", root])
+    eval_out, _ = cli.sample_for_eval(cfg, cli.ema_model(first), make_schedule_from_cfg(cfg, dev), seed=0)
+    ok = (written == ["checkpoint_2.pth", "final.pth"] and resumed == ["final.pth"] and exact
+          and first.step == 4 == second.step and eval_out.shape == (cfg.EVAL.BATCH_SIZE, 16, 2)
+          and np.isfinite(eval_out).all())
+    out["cli"] = dict(written=written, resumed_written=resumed, restored_exactly=exact,
+                      final_param_diff_unbroken_vs_resumed=diff, seconds=time.perf_counter() - t0)
+    log(f"train CLI: wrote {written}; checkpoint_2.pth restored step, AdamW moments, EMA and weights "
+        f"{'exactly' if exact else 'NOT exactly'}; the resumed run wrote {resumed} (final weights "
+        f"{diff:.3e} from the unbroken run's: its loader restarts its epochs); evaluation sampling "
+        f"{eval_out.shape}; {out['cli']['seconds']:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"train CLI: {out['cli']}")
+    shutil.rmtree(runs, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -616,8 +1096,6 @@ def main() -> int:
         merge_possible_with_base,
     )
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
     t_start = time.perf_counter()
@@ -662,6 +1140,9 @@ def main() -> int:
     for h in hooks:
         h.remove()
     del planner
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("build_model left TF32 on: the float32 model would not compute in float32")
+    log("float32 math: build_model turned TF32 off for cuDNN and cuBLAS")
 
     def case(mod, args, B, dtype, gen):
         """(kernel, plain version, arguments) for block ``mod`` at batch B,
@@ -1011,11 +1492,15 @@ def main() -> int:
     # ------------------------------------------------- 7. the rest of serving
     report["serving"] = serving(load_cfg, device_breakdown, launches, smi)
     phase_done(7)
+    # ------------------------------------------------------------ 8. training
+    report["training"] = training(load_cfg, calls, case, graph_ms, bound_ms, device_breakdown, launches, smi)
+    phase_done(8)
     report["phase_done_s"] = phase_s
 
     kernels_line = []
     for kname in ("fused_residual_block", "fused_conv1d_gn_mish"):
         s = summary[kname]
+        b32 = report["training"]["b32"][kname]
         source = kernels.HEAD_SOURCE if kname == "fused_conv1d_gn_mish" else kernels.SOURCE
         kernels_line.append(dict(
             name=kname, route="cuda", source=f"{PKG}/ops/csrc/{source}",
@@ -1023,8 +1508,12 @@ def main() -> int:
             ms=s["ms"], plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
             bound_by=s["bound_by"], library_ms=None, floor_ms=s["floor_ms"],
             ms_bf16=s["ms_bf16"], plain_ms_bf16=s["plain_ms_bf16"], bound_ms_bf16=s["bound_ms_bf16"],
+            ms_b32=b32["ms"], plain_ms_b32=b32["plain_ms"], bound_ms_b32=b32["bound_ms"],
+            recompute_backward_ms_b32=b32["recompute_backward_ms"],
             per=f"one U-Net forward at batch 1, device time: its {s['calls']} calls; ms, plain_ms, "
-                f"bound_ms in float32, the *_bf16 keys in bfloat16",
+                f"bound_ms in float32, the *_bf16 keys in bfloat16, the *_b32 keys float32 at batch 32 "
+                f"(the training batch), recompute_backward_ms_b32 the autograd.Function's backward of "
+                f"those calls",
             library_note="no single PyTorch call computes this function",
         ))
     report["kernels"] = kernels_line

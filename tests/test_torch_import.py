@@ -1,8 +1,9 @@
 """The port imports neither JAX nor anything of the JAX package: every module
 of ``autonomous_driving_with_diffusion_model_tpu_torch`` and ``chip_smoke``
 import in a fresh interpreter where ``import jax`` and ``import flax`` fail;
-and the leaderboard agent, loaded by file path as the harness loads it,
-ticks with neither them nor ``cv2`` and ``PIL``."""
+the leaderboard agent, loaded by file path as the harness loads it, ticks
+with neither them nor ``cv2`` and ``PIL``; and the PNG reader and the train
+CLI read and train with neither."""
 
 import json
 import os
@@ -51,7 +52,9 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "driving.planner", "driving.fake_env", "driving.interact_agent",
                 "driving.leaderboard_agent", "driving.scoring", "driving.statistics",
                 "driving.leaderboard_stats", "driving.routes", "driving.evaluator",
-                "driving.evaluate_cli", "sim.suites", "interact"):
+                "driving.evaluate_cli", "sim.suites", "interact", "data.png", "data.dataset",
+                "train.ema", "train.state", "train.checkpoint", "train.cli", "utils.meters",
+                "utils.tracker", "utils.profiling"):
         assert f"autonomous_driving_with_diffusion_model_tpu_torch.{sub}" in result["imported"]
     assert result["jax_side"] == []
     assert result["jax"] == []
@@ -108,3 +111,44 @@ def test_leaderboard_agent_by_file_path_imports_no_jax_and_no_cv2(tmp_path):
     assert result["jax_side"] == [] and result["blocked"] == []
     assert result["controls"][0] == [0.0, 0.0, 0.0]  # the warm-up tick
     assert all(np.isfinite(c).all() for c in result["controls"])
+
+
+# The train CLI's machine has neither OpenCV nor PIL: with them, jax and
+# flax blocked, data/png.py writes and reads a frame and the CLI trains one
+# iteration on the CPU (no sampling, which paints with cv2).
+_TRAIN_PROBE = r"""
+import json, os, sys
+for name in ("jax", "flax", "cv2", "PIL"):
+    sys.modules[name] = None
+sys.path.insert(0, REPO)
+import numpy as np
+from autonomous_driving_with_diffusion_model_tpu_torch.data.png import read_png, write_png
+from autonomous_driving_with_diffusion_model_tpu_torch.train import cli
+root = os.path.join(TMP, "data")
+for sub in ("front", "waypoints"):
+    os.makedirs(os.path.join(root, sub))
+rng = np.random.default_rng(0)
+frames = rng.integers(0, 256, (2, 32, 48, 3), dtype=np.uint8)
+for i, frame in enumerate(frames):
+    write_png(os.path.join(root, "front", f"{i:06d}.png"), frame, 4)
+    with open(os.path.join(root, "waypoints", f"{i:06d}.txt"), "w") as f:
+        f.write("0.1 0.2\n" + "\n".join(["0 0 0 0 0 0 0"] * 16) + "\n")
+same = bool((read_png(os.path.join(root, "front", "000001.png")) == frames[1]).all())
+state = cli.main(cli.parse_args(["--device", "cpu", "--max-iter", "1", "--opts", "MODEL.DIM", "8",
+    "MODEL.PERCEPTION", "tiny", "TRAIN.ROOT", root, "PROJECT_DIR", os.path.join(TMP, "run"),
+    "TRAIN.BATCH_SIZE", "2", "TRAIN.SAMPLE_INTERVAL", "0", "TRAIN.LOG_INTERVAL", "1"]))
+mods = [m for m in sys.modules if sys.modules[m] is not None]
+print(json.dumps({"same": same, "step": state.step,
+                  "blocked": sorted(m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "flax", "cv2", "PIL")),
+                  "jax_side": sorted(m for m in mods if m.split(".")[0] == "autonomous_driving_with_diffusion_model_tpu")}))
+"""
+
+
+def test_png_and_train_cli_need_no_cv2_or_pil(tmp_path):
+    code = _TRAIN_PROBE.replace("REPO", repr(REPO)).replace("TMP", repr(str(tmp_path)))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=str(tmp_path),
+                         env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result == {"same": True, "step": 1, "blocked": [], "jax_side": []}

@@ -1,7 +1,8 @@
 """The port's two kernels (ops/kernels.py): their plain versions against the
 JAX Pallas kernels (interpret mode, as tests/test_pallas.py runs them), the
-wrappers' CPU and autograd behaviour, and, on a card only, the CUDA kernels
-against the plain versions.
+wrappers' CPU and autograd behaviour (the ``Recompute`` autograd.Function
+whose backward is the plain version's), and, on a card only, the CUDA
+kernels and their gradients against the plain versions.
 
 JAX is imported inside the tests that compare with it, so that the ``gpu``
 tests also run on a machine without JAX:
@@ -105,19 +106,66 @@ def test_wrapper_takes_plain_version_on_cpu(rng, which):
     assert kernels.fused_conv1d_gn_mish.launches == 0
 
 
-@pytest.mark.parametrize("which", ["residual", "conv"])
-def test_wrapper_raises_under_autograd(rng, which):
+def _grad_inputs(rng, which, B=2):
+    """(kernel wrapper, plain version, inputs) at a small shape, every input
+    a leaf that needs its gradient; the residual case has a projection."""
     if which == "residual":
-        args = _torch(_res_inputs(rng, 1, 8, 16, 16, 24))
-        fn = kernels.fused_residual_block
+        arrays, fn, plain = _res_inputs(rng, B, 8, 16, 32, 24), kernels.fused_residual_block, kernels.residual_block_plain
     else:
-        args = _torch(_conv_inputs(rng, 1, 16, 7, 16))
-        fn = kernels.fused_conv1d_gn_mish
-    args[1].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        fn(*args)
-    with torch.no_grad():
-        fn(*args)  # fine without grad mode
+        arrays, fn, plain = _conv_inputs(rng, B, 16, 7, 16), kernels.fused_conv1d_gn_mish, kernels.conv1d_gn_mish_plain
+    return fn, plain, [a.requires_grad_(True) for a in _torch(arrays)]
+
+
+def _grads(out, inputs, up):
+    return torch.autograd.grad((out * up).sum(), inputs)
+
+
+@pytest.mark.parametrize("which", ["residual", "conv"])
+def test_recompute_gradients_match_plain(rng, which):
+    """``Recompute`` (the kernels' autograd.Function), driven with the plain
+    forward injected as its launch: its output is the plain version's, and
+    its backward gives every input (x, t, each weight, bias, gamma and beta,
+    the residual projection) autograd's gradient of the plain version."""
+    fn, plain, inputs = _grad_inputs(rng, which)
+    up = torch.from_numpy(rng.standard_normal((2, 8 if which == "residual" else 16, 32 if which == "residual" else 16)).astype(np.float32))
+    got = kernels.Recompute.apply(plain, plain, dict(n_groups=8, eps=1e-5), *inputs)
+    want = plain(*inputs)
+    assert torch.equal(got, want)
+    for g, w, a in zip(_grads(got, inputs, up), _grads(want, inputs, up), inputs):
+        assert g.shape == a.shape
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("which", ["residual", "conv"])
+def test_recompute_skips_inputs_without_grad(rng, which):
+    """Only the inputs that need a gradient get one; an absent residual
+    projection (None) passes through."""
+    fn, plain, inputs = _grad_inputs(rng, which)
+    if which == "residual":
+        inputs = [inputs[0].detach()] + inputs[1:12] + [None, None]  # x fixed, Cin == C needs no wres
+        inputs[0] = torch.randn(2, 8, 32)
+        inputs[2] = torch.randn(5, 32, 32, requires_grad=True)
+    else:
+        inputs = [inputs[0].detach()] + inputs[1:]
+    got = kernels.Recompute.apply(plain, plain, dict(n_groups=8, eps=1e-5), *inputs)
+    wrt = [a for a in inputs if a is not None and a.requires_grad]
+    g = torch.autograd.grad(got.sum(), wrt)
+    w = torch.autograd.grad(plain(*inputs).sum(), wrt)
+    for a, b in zip(g, w):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("which", ["residual", "conv"])
+def test_wrapper_differentiates_on_cpu(rng, which):
+    """On CPU tensors the wrapper is the plain version, which autograd
+    differentiates as it stands; no kernel launch is counted."""
+    kernels.reset_launch_counts()
+    fn, plain, inputs = _grad_inputs(rng, which)
+    out = fn(*inputs)
+    assert out.grad_fn is not None and "Recompute" not in type(out.grad_fn).__name__
+    for g, w in zip(torch.autograd.grad(out.sum(), inputs), torch.autograd.grad(plain(*inputs).sum(), inputs)):
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+    assert kernels.fused_residual_block.launches == 0 and kernels.fused_conv1d_gn_mish.launches == 0
 
 
 def test_ctypes_signature_matches_the_c_declaration():
@@ -482,3 +530,34 @@ def test_cuda_wrapper_rejects_bad_input():
         with pytest.raises(ValueError, match="conv1d_gn_mish takes"):
             kernels.fused_conv1d_gn_mish(*wide)
         assert kernels.fused_conv1d_gn_mish.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [2, 32])
+def test_cuda_kernel_gradients_match_plain(B):
+    """Both kernels through their autograd.Function at every main-path shape
+    (and the training batch, B = 32): the forward against the plain forward,
+    and every input's gradient against autograd of the plain version (the
+    backward is that autograd, at the same inputs: 1e-4 of the largest
+    gradient covers cuDNN's choice of algorithm)."""
+    _need_card()
+    rng = np.random.default_rng(7)
+    shapes = [("res", L, cin, c) for L, cin, c in MAIN_RES] + [("conv", 16, 64, 64)]
+    for kind, L, cin, c in shapes:
+        arrays = _res_inputs(rng, B, L, cin, c, 128) if kind == "res" else _conv_inputs(rng, B, L, cin, c)
+        fn = kernels.fused_residual_block if kind == "res" else kernels.fused_conv1d_gn_mish
+        plain = kernels.residual_block_plain if kind == "res" else kernels.conv1d_gn_mish_plain
+        got_in = [None if a is None else a.requires_grad_(True) for a in _torch(arrays, "cuda")]
+        want_in = [None if a is None else a.detach().clone().requires_grad_(True) for a in got_in]
+        before = fn.launches
+        got = fn(*got_in)
+        assert fn.launches == before + 1
+        want = plain(*want_in)
+        up = torch.randn_like(want)
+        wrt = lambda xs: [a for a in xs if a is not None]
+        g_got = torch.autograd.grad((got * up).sum(), wrt(got_in))
+        g_want = torch.autograd.grad((want * up).sum(), wrt(want_in))
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        for a, b in zip(g_got, g_want):
+            assert (a - b).abs().max() <= 1e-4 * b.abs().max()
