@@ -1,3 +1,14 @@
+from .distill import (
+    DistillDraws,
+    DistillGrid,
+    DistillState,
+    draw_distill,
+    grid_chain,
+    halve_grid,
+    implied_x0_target,
+    initial_grid,
+    make_distill_step,
+)
 from .dpm import DPMCoeffs, dpm_coeffs, dpm_pp_2m_update, dpm_timesteps
 from .guidance import GUIDANCE_LOSSES, build_loss_list, make_guidance_fn, target_guidance_loss
 from .sampler import SamplerConfig, make_sampler, sampler_from_cfg
@@ -13,6 +24,7 @@ from .steps import (
     StepConfig,
     clip_or_threshold,
     ddim_step,
+    ddim_step_rows,
     ddim_variance,
     ddpm_step,
     ddpm_variance,
@@ -29,6 +41,15 @@ SCHEDULER_FUNC = {"ddpm": ddpm_step, "ddim": ddim_step, "dpm": dpm_pp_2m_update}
 INPAINTING_SCHEDULER_FUNC = {"ddpm": inpaint_blend_ddpm, "ddim": inpaint_blend_ddim}
 
 __all__ = [
+    "DistillDraws",
+    "DistillGrid",
+    "DistillState",
+    "draw_distill",
+    "grid_chain",
+    "halve_grid",
+    "implied_x0_target",
+    "initial_grid",
+    "make_distill_step",
     "SCHEDULER_FUNC",
     "INPAINTING_SCHEDULER_FUNC",
     "GUIDANCE_LOSSES",
@@ -52,6 +73,7 @@ __all__ = [
     "clip_or_threshold",
     "ddpm_step",
     "ddim_step",
+    "ddim_step_rows",
     "ddpm_variance",
     "ddim_variance",
     "dynamic_threshold",

@@ -54,8 +54,15 @@ class DiffusionSchedule(NamedTuple):
     def alpha_prod(self, t: Union[int, torch.Tensor]) -> torch.Tensor:
         return self.alphas_cumprod[t]
 
-    def alpha_prod_prev(self, prev_t: int) -> torch.Tensor:
-        """alphas_cumprod[prev_t], or the final value for prev_t < 0."""
+    def alpha_prod_prev(self, prev_t: Union[int, torch.Tensor]) -> torch.Tensor:
+        """alphas_cumprod[prev_t], or the final value for prev_t < 0. A host
+        ``int`` (the samplers' loop) takes one branch; a tensor of timesteps
+        (distillation's per-row ``s``) is clamped, gathered, then selected
+        row by row, as the JAX package does (JAX ``schedule.py:58-61``)."""
+        if isinstance(prev_t, torch.Tensor):
+            prev_t = prev_t.to(device=self.alphas_cumprod.device, dtype=torch.long)
+            safe = self.alphas_cumprod[prev_t.clamp_min(0)]
+            return torch.where(prev_t >= 0, safe, self.final_alpha_cumprod)
         return self.alphas_cumprod[prev_t] if prev_t >= 0 else self.final_alpha_cumprod
 
     def to(self, device) -> "DiffusionSchedule":

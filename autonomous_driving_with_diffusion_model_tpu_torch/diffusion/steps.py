@@ -4,6 +4,8 @@ scheduler/guidance_ddpm_scheduler.py:59-178,
 scheduler/guidance_ddim_scheduler.py:23-173, scheduler/inpainting_*.py).
 Timesteps are Python ints: the sampler's loop runs on the host and the math
 on the device, so every branch on ``t`` or ``prev_t`` is a Python ``if``.
+Distillation steps every row from its own timestep: :func:`ddim_step_rows`
+takes (B,) tensors ``t`` and ``prev_t`` instead.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ __all__ = [
     "ddim_variance",
     "ddpm_step",
     "ddim_step",
+    "ddim_step_rows",
     "inpaint_blend_ddpm",
     "inpaint_blend_ddim",
 ]
@@ -158,6 +161,30 @@ def ddim_step(
     if cfg.eta > 0 and noise is not None:
         prev_sample = prev_sample + std_dev_t * noise
     return prev_sample, pred_x0
+
+
+def ddim_step_rows(
+    schedule: DiffusionSchedule,
+    cfg: StepConfig,
+    model_output: torch.Tensor,
+    t: torch.Tensor,
+    prev_t: torch.Tensor,
+    sample: torch.Tensor,
+) -> torch.Tensor:
+    """The deterministic (eta = 0) DDIM step with a timestep per row: ``t``
+    and ``prev_t`` are (B,) integer tensors (``prev_t`` < 0: the terminal
+    step). The JAX package vmaps its scalar ``ddim_step`` over the rows
+    (JAX ``diffusion/distill.py:256-258``); here the (B,) alphas broadcast as
+    (B, 1, ..., 1). The x0 clip or dynamic threshold is per row already.
+    Returns the prev sample."""
+    if cfg.eta != 0:
+        raise ValueError(f"ddim_step_rows takes eta = 0 only, got {cfg.eta}")
+    shape = (-1,) + (1,) * (sample.ndim - 1)
+    ap_t = schedule.alpha_prod(t.to(torch.long)).reshape(shape)
+    ap_prev = schedule.alpha_prod_prev(prev_t).reshape(shape)
+    pred_x0, pred_eps = pred_x0_and_eps(cfg, model_output, sample, ap_t)
+    pred_x0 = clip_or_threshold(cfg, pred_x0)
+    return torch.sqrt(ap_prev) * pred_x0 + torch.sqrt(1.0 - ap_prev) * pred_eps
 
 
 def _blend_known(ap_prev, t, noise, prev_unknown, target_traj, target_mask):

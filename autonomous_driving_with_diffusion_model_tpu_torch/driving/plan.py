@@ -6,7 +6,8 @@ One plan normalizes the uint8 frame on the device, encodes it once, denoises
 K hypotheses in one batch, scores them and returns the best. ``plan_begin``
 queues all of it on the current CUDA stream and returns device tensors
 without waiting; ``plan_fetch`` waits. Weights come from a seed, or from a
-reference ``.pth`` (``state_dict`` + EMA shadow overwrite).
+reference ``.pth`` (``state_dict`` + EMA shadow overwrite) or the port's own
+checkpoint (its EMA shadow), as the distill CLI writes for other encoders.
 
 Random numbers come from the planner's CPU generator, so the GPU and the CPU
 planner of one seed draw the same: the init trajectories, and the step noise
@@ -20,6 +21,7 @@ test can inject the JAX planner's.
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import numpy as np
@@ -29,9 +31,9 @@ from ..data.augment import normalize_images
 from ..diffusion.guidance import target_guidance_loss
 from ..diffusion.sampler import sampler_from_cfg
 from ..diffusion.schedule import make_schedule_from_cfg
-from ..models.convert import load_torch_checkpoint
 from ..models.scorer import HypothesisScorer, load_scorer
 from ..models.temporal_unet import build_model
+from ..train.checkpoint import load_eval_state_dict
 from ..utils.constants import MAGIC_NUM, GuidanceType
 from ..utils.device import resolve_device
 
@@ -79,12 +81,13 @@ class DiffusionPlanner:
         self.model = build_model(cfg, device=self.device, seed=seed)
         ckpt_path = checkpoint or cfg.EVAL.CHECKPOINT
         if ckpt_path:
-            if not str(ckpt_path).endswith(".pth"):
+            if os.path.isdir(str(ckpt_path)):
                 raise NotImplementedError(
-                    f"{ckpt_path}: the port loads reference .pth checkpoints; export an Orbax "
-                    "directory to .pth with the JAX package first"
+                    f"{ckpt_path}: the port loads reference .pth checkpoints and its own; export an "
+                    "Orbax directory to .pth with the JAX package first"
                 )
-            self.model.load_state_dict(load_torch_checkpoint(str(ckpt_path), cfg), strict=True)
+            # the serving weights: the EMA shadow over the parameters
+            self.model.load_state_dict(load_eval_state_dict(str(ckpt_path), cfg), strict=True)
         self.model.requires_grad_(False)  # serving: only the guidance gradient is taken
         self._sample = sampler_from_cfg(self.model, make_schedule_from_cfg(cfg, self.device), cfg)
 

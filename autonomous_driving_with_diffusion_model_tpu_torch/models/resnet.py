@@ -12,8 +12,11 @@ BatchNorm is JAX ``resnet.py:59-96``'s: in eval mode it normalizes with the
 running statistics; a BatchNorm module in training mode normalizes with the
 batch mean and biased variance in float32 and moves ``running_mean`` and
 ``running_var`` (the unbiased variance, ``n / (n - 1)``) by momentum 0.1, as
-torch does. ``TemporalMapUnet.train(bn_mode="frozen")`` keeps the encoder's
-BatchNorms in eval mode while the rest trains (JAX ``TPU.BN_MODE``).
+torch does. Under data parallelism (a process group of more than one rank)
+the batch is the global one, as in the JAX program: the mean and then the
+variance are summed over the ranks by a differentiable all-reduce.
+``TemporalMapUnet.train(bn_mode="frozen")`` keeps the encoder's BatchNorms
+in eval mode while the rest trains (JAX ``TPU.BN_MODE``).
 
 Each convolution and the head compute in the input's dtype, their weights
 cast to it; BatchNorm runs in float32 and casts back (JAX ``resnet.py:56,
@@ -26,6 +29,8 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_nn
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -51,9 +56,27 @@ def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride, conv.padding, 1, conv.groups)
 
 
+def _global_bn(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """Training-mode BatchNorm over the batch of every rank (equal local
+    batches): two differentiable all-reduces, the sum for the mean, then
+    the squared deviations for the biased variance."""
+    count = x.numel() // x.shape[1] * dist.get_world_size()
+    mean = dist_nn.all_reduce(x.sum(dim=(0, 2, 3))) / count
+    centered = x - mean.reshape(1, -1, 1, 1)
+    var = dist_nn.all_reduce(centered.square().sum(dim=(0, 2, 3))) / count
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1 - m).add_(mean.detach(), alpha=m)
+        bn.running_var.mul_(1 - m).add_(var.detach() * (count / (count - 1)), alpha=m)
+    scale = torch.rsqrt(var + bn.eps) * bn.weight
+    return centered * scale.reshape(1, -1, 1, 1) + bn.bias.reshape(1, -1, 1, 1)
+
+
 def _bn(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     if bn.training:
         bn.num_batches_tracked.add_(1)
+        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+            return _global_bn(bn, x.to(torch.float32)).to(x.dtype)
     out = F.batch_norm(x.to(torch.float32), bn.running_mean, bn.running_var, bn.weight, bn.bias,
                        bn.training, bn.momentum, bn.eps)
     return out.to(x.dtype)

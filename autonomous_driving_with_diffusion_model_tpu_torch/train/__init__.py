@@ -4,6 +4,7 @@ from .checkpoint import (
     export_torch_checkpoint,
     import_torch_checkpoint,
     load_checkpoint,
+    load_eval_state_dict,
     resume,
     save_checkpoint,
 )
@@ -35,5 +36,6 @@ __all__ = [
     "import_torch_checkpoint",
     "save_checkpoint",
     "load_checkpoint",
+    "load_eval_state_dict",
     "resume",
 ]

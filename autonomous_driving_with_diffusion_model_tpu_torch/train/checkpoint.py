@@ -12,7 +12,8 @@
   scheduler, EMA and step (:func:`save_checkpoint`): the counterpart of the
   JAX package's Orbax directory.
 
-:func:`resume` reads either.
+:func:`resume` reads either; :func:`load_eval_state_dict` takes the serving
+weights (the EMA shadow over the parameters) from either.
 """
 
 from __future__ import annotations
@@ -21,11 +22,11 @@ from typing import Optional
 
 import torch
 
-from ..models.convert import build_mapping
+from ..models.convert import apply_ema_shadow_params, build_mapping, load_torch_checkpoint
 from .state import BETAS, EPS, WEIGHT_DECAY, TrainState
 
 __all__ = ["export_torch_checkpoint", "import_torch_checkpoint", "save_checkpoint", "load_checkpoint",
-           "resume", "FORMAT"]
+           "resume", "load_eval_state_dict", "FORMAT"]
 
 FORMAT = "adm-torch-train-state-1"  # the port's own checkpoint
 
@@ -168,3 +169,14 @@ def resume(path: str, cfg, state: TrainState) -> TrainState:
         if ckpt.get("format") == FORMAT:
             return _load(ckpt, state, path)
         return _import(ckpt, cfg, state)
+
+
+def load_eval_state_dict(path: str, cfg):
+    """The serving weights of a checkpoint of either kind, as a ``state_dict``:
+    a reference ``.pth`` through ``load_torch_checkpoint`` (the EMA shadow
+    overwrites the parameters; ResNet-34), or the port's own file, its EMA
+    shadow over its parameters (JAX ``train.load_eval_variables``)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(ckpt, dict) and ckpt.get("format") == FORMAT:
+        return apply_ema_shadow_params(ckpt["model"], ckpt["ema"]["shadow_params"], cfg)
+    return load_torch_checkpoint(path, cfg)

@@ -1,9 +1,18 @@
 """Training CLI (counterpart of the repo root's ``train.py``; reference:
-train.py:106-333), one process:
+train.py:106-333), one process, or one per card under torchrun:
 
     python -m autonomous_driving_with_diffusion_model_tpu_torch.train \\
         --config configs/default.yaml [--max-iter N] [--generate-only] \\
         [--profile-dir DIR] [--device cpu] [--opts TRAIN.BATCH_SIZE 64 ...]
+    torchrun --nproc_per_node N -m autonomous_driving_with_diffusion_model_tpu_torch.train ...
+
+Under torchrun (its ``WORLD_SIZE`` and the rest in the environment) each
+rank trains on its own card (NCCL; gloo with ``--device cpu``) at
+``TRAIN.BATCH_SIZE``, feeding its shard of the dataset, so the global batch
+is N x BATCH_SIZE, as under the JAX package's ``jax.distributed``; the
+step's forward is wrapped in ``DistributedDataParallel``
+(``parallel/ddp.py``). Logs, the tracker, checkpoints and sampling run on
+rank 0; every rank holds the same weights and EMA.
 
 It trains on the card unless ``--device cpu`` is given. The frames are
 decoded on the host (``data/png.py``) and, with ``TPU.DEVICE_DATA``, kept on
@@ -128,6 +137,9 @@ def save(state, cfg, name: str) -> str:
 
 def main(args):
     """Train as the config says; returns the final train state."""
+    import torch.distributed as dist
+
+    from ..parallel import initialize_distributed, is_main_process, local_device
     from ..utils.config import create_cfg, merge_possible_with_base, show_config
     from ..utils.device import resolve_device
 
@@ -139,30 +151,41 @@ def main(args):
     if args.max_iter is not None:
         cfg.TRAIN.MAX_ITER = args.max_iter
     dev = resolve_device(args.device)
+    owns_group = not dist.is_initialized()
+    initialize_distributed(device=dev)  # torchrun's variables; one process without them
+    owns_group = owns_group and dist.is_initialized()
+    dev = local_device(dev)
 
-    show_config(cfg)
-    os.makedirs(osp.join(cfg.PROJECT_DIR, "checkpoints"), exist_ok=True)
-    os.makedirs(osp.join(cfg.PROJECT_DIR, "generate"), exist_ok=True)
     log = logging.getLogger(__name__)
-    log.setLevel(logging.INFO)
-    fmt = logging.Formatter("%(asctime)s | %(levelname)s | %(message)s")
-    handlers = [logging.StreamHandler(), logging.FileHandler(osp.join(cfg.PROJECT_DIR, "train.log"))]
-    for h in handlers:
-        h.setFormatter(fmt)
-        log.addHandler(h)
+    handlers = []
+    if is_main_process():
+        show_config(cfg)
+        os.makedirs(osp.join(cfg.PROJECT_DIR, "checkpoints"), exist_ok=True)
+        os.makedirs(osp.join(cfg.PROJECT_DIR, "generate"), exist_ok=True)
+        log.setLevel(logging.INFO)
+        fmt = logging.Formatter("%(asctime)s | %(levelname)s | %(message)s")
+        handlers = [logging.StreamHandler(), logging.FileHandler(osp.join(cfg.PROJECT_DIR, "train.log"))]
+        for h in handlers:
+            h.setFormatter(fmt)
+            log.addHandler(h)
     try:
         return _train(args, cfg, dev, log)
     finally:
         for h in handlers:
             log.removeHandler(h)
             h.close()
+        if owns_group:
+            dist.destroy_process_group()
 
 
 def _train(args, cfg, dev, log):
+    import torch.distributed as dist
+
     from ..data import augment_batch, get_loader, maybe_device_resident, normalize_images
     from ..data.dataset import DeviceResidentLoader
     from ..diffusion import make_schedule_from_cfg
     from ..models import build_model
+    from ..parallel import data_parallel_size, is_main_process, process_count, process_index, wrap_ddp
     from ..utils.meters import AverageMeter, MetricMeter
     from ..utils.profiling import trace
     from ..utils.tracker import Tracker
@@ -182,16 +205,24 @@ def _train(args, cfg, dev, log):
         log.info("Resume checkpoint from %s...", cfg.TRAIN.RESUME)
         resume(cfg.TRAIN.RESUME, cfg, state)
 
+    main_process = is_main_process()
     if args.generate_only:
-        evaluate(cfg, ema_model(state), schedule, filename="test.png")
+        if main_process:
+            evaluate(cfg, ema_model(state), schedule, filename="test.png")
         return state
 
+    data_parallel_size(cfg)
+    if dist.is_initialized():
+        wrap_ddp(state, cfg)  # every rank starts from rank 0's weights
+        log.info("Data-parallel: %d rank(s) of TRAIN.BATCH_SIZE %d (%s)", state.world, cfg.TRAIN.BATCH_SIZE,
+                 dist.get_backend())
     train_step = make_train_step(schedule, cfg)
-    loader = maybe_device_resident(get_loader(cfg, train=True), cfg, dev)
+    loader = maybe_device_resident(
+        get_loader(cfg, train=True, shard_index=process_index(), shard_count=process_count()), cfg, dev)
     if isinstance(loader, DeviceResidentLoader):
         log.info("Device-resident dataset: %d samples, %.1f MB uploaded once",
                  len(loader.dataset), loader.nbytes() / 1e6)
-    tracker = Tracker(cfg.PROJECT_DIR, cfg.PROJECT_NAME)
+    tracker = Tracker(cfg.PROJECT_DIR, cfg.PROJECT_NAME, enabled=main_process)
     loss_meter, iter_time = MetricMeter(), AverageMeter()
     max_iter = cfg.TRAIN.MAX_ITER
     cur_iter = state.step
@@ -201,7 +232,7 @@ def _train(args, cfg, dev, log):
     profiler = None
     while cur_iter < max_iter:
         # a steady-state window, past the warm-up iterations
-        if args.profile_dir and cur_iter == 10 and profiler is None:
+        if args.profile_dir and main_process and cur_iter == 10 and profiler is None:
             profiler = trace(args.profile_dir)
             profiler.__enter__()
         if profiler is not None and cur_iter == 15:
@@ -223,7 +254,7 @@ def _train(args, cfg, dev, log):
         image_iteration += cfg.TRAIN.BATCH_SIZE
         cur_iter += 1
 
-        if cur_iter % cfg.TRAIN.LOG_INTERVAL == 0:
+        if cur_iter % cfg.TRAIN.LOG_INTERVAL == 0 and main_process:
             loss = float(metrics["loss"])  # waits for the step
             iter_time.update((time.time() - start) / cfg.TRAIN.LOG_INTERVAL)
             loss_meter.update({"loss": loss})
@@ -233,11 +264,12 @@ def _train(args, cfg, dev, log):
             tracker.log(loss_meter.get_log_dict() | {"lr": metrics["lr"]}, step=cur_iter)
             start = time.time()
 
-        if cur_iter % cfg.TRAIN.SAVE_INTERVAL == 0 or cur_iter == max_iter:
+        if (cur_iter % cfg.TRAIN.SAVE_INTERVAL == 0 or cur_iter == max_iter) and main_process:
             path = save(state, cfg, f"checkpoint_{cur_iter}" if cur_iter != max_iter else "final")
             log.info("Save checkpoint to %s...", path)
 
-        if cfg.TRAIN.SAMPLE_INTERVAL > 0 and (cur_iter % cfg.TRAIN.SAMPLE_INTERVAL == 0 or cur_iter == max_iter):
+        if (cfg.TRAIN.SAMPLE_INTERVAL > 0 and (cur_iter % cfg.TRAIN.SAMPLE_INTERVAL == 0 or cur_iter == max_iter)
+                and main_process):
             filename = osp.join(cfg.PROJECT_DIR, "generate", f"iter_{cur_iter:03d}.png")
             evaluate(cfg, ema_model(state), schedule, filename=filename)
     if profiler is not None:

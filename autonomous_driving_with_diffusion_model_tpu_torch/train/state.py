@@ -20,16 +20,26 @@ The state is PyTorch's: the model (parameters and BatchNorm buffers), a
 place by the step. The step takes its random draws explicitly
 (:class:`StepDraws`), or draws them from a ``torch.Generator`` it is given;
 with neither it refuses.
+
+Data-parallel (``parallel/ddp.py:wrap_ddp``), each rank holds the same
+state, feeds its local batch through the ``DistributedDataParallel``
+wrapper of the step's forward, and takes its rows of the GLOBAL batch's
+draws, which every rank draws alike from the same generator (JAX draws them
+for the global batch inside its one program, ``train.py:265,278``). The
+gradients are averaged over the ranks before the NaN scrub and AdamW, so
+every rank makes the same update and the same EMA step.
 """
 
 from __future__ import annotations
 
 import math
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 from torch.optim.lr_scheduler import LambdaLR
 from torch.utils.checkpoint import checkpoint
@@ -42,6 +52,7 @@ from .ema import EmaConfig, EmaState, ema_init, ema_update
 __all__ = [
     "TrainState",
     "StepDraws",
+    "StepForward",
     "create_train_state",
     "draw_step",
     "make_lr_schedule",
@@ -112,13 +123,42 @@ def ema_config(cfg) -> EmaConfig:
 class TrainState:
     """What a step updates, in place: the model's parameters and BatchNorm
     buffers, the optimizer's moments and counts, the LR schedule, the EMA
-    shadow, and ``step``, the optimizer steps taken."""
+    shadow, and ``step``, the optimizer steps taken. Data-parallel, ``ddp``
+    is the DistributedDataParallel wrapper of the step's forward and
+    ``rank`` / ``world`` the process's place in the group."""
 
     model: TemporalMapUnet
     optimizer: torch.optim.AdamW
     scheduler: LambdaLR
     ema: EmaState
     step: int = 0
+    ddp: Optional[nn.Module] = None
+    rank: int = 0
+    world: int = 1
+
+
+class StepForward(nn.Module):
+    """The train step's forward, the module DistributedDataParallel wraps:
+    ``model(x, img, time, cond)`` with the dropout generator ``gen``; under
+    ``TPU.REMAT`` through ``torch.utils.checkpoint`` (non-reentrant), whose
+    backward recomputes it with the same dropout masks."""
+
+    def __init__(self, model: TemporalMapUnet, remat: bool):
+        super().__init__()
+        self.model = model
+        self.remat = remat
+
+    def forward(self, x, image, time, cond, gen: Optional[torch.Generator] = None):
+        gen_state = gen.get_state() if self.remat and gen is not None else None
+
+        def run(x, image, time, cond):
+            if gen_state is not None:
+                gen.set_state(gen_state)  # the recompute draws the first pass's masks
+            return self.model(x, img=image, time=time, cond=cond, dropout_generator=gen)
+
+        if self.remat:
+            return checkpoint(run, x, image, time, cond, use_reentrant=False)
+        return run(x, image, time, cond)
 
 
 def create_train_state(model: TemporalMapUnet, cfg) -> TrainState:
@@ -174,7 +214,10 @@ def make_train_step(schedule: DiffusionSchedule, cfg) -> Callable:
     :class:`StepDraws`, or None to draw them from ``generator``. The step
     puts the model in training mode (``TPU.BN_MODE``), updates ``state`` in
     place and returns ``{"loss": 0-d tensor on the device, "lr": the update's
-    LR, "ema_decay"}``.
+    LR, "ema_decay"}``. Data-parallel, ``batch`` is the rank's local batch,
+    ``draws`` are the global batch's (``state.world`` x B rows, of which the
+    step takes the rank's, ``parallel/ddp.py:local_rows``) and the loss is
+    the global batch's.
 
     With GRADIENT_ACCUMULATION_STEPS G > 1 the batch's leading dim is cut
     into G micro-batches of consecutive rows, run in order (BatchNorm
@@ -193,7 +236,7 @@ def make_train_step(schedule: DiffusionSchedule, cfg) -> Callable:
     groups = max(int(cfg.TRAIN.GRADIENT_ACCUMULATION_STEPS), 1)
     ema_cfg = ema_config(cfg)
 
-    def micro_loss(model, image, trajs, target, t, noise, keep, gen):
+    def micro_loss(forward, image, trajs, target, t, noise, keep, gen):
         trajs = trajs.to(torch.float32)
         if not torch.is_floating_point(image):
             image = image.to(torch.float32)
@@ -203,18 +246,26 @@ def make_train_step(schedule: DiffusionSchedule, cfg) -> Callable:
         if use_cond == GuidanceType.FREE_GUIDANCE:
             target = target.to(torch.float32)
             cond = torch.where(keep, target, torch.zeros_like(target))
-
-        gen_state = gen.get_state() if remat and gen is not None else None
-
-        def forward(x, image, time, cond):
-            if gen_state is not None:
-                gen.set_state(gen_state)  # the recompute draws the first pass's masks
-            return model(x, img=image, time=time, cond=cond, dropout_generator=gen)
-
-        args = (x, image, t.to(torch.float32), cond)
-        pred = checkpoint(forward, *args, use_reentrant=False) if remat else forward(*args)
+        pred = forward(x, image, t.to(torch.float32), cond, gen)
         want = noise if pred_type == "epsilon" else trajs
         return torch.mean((pred.to(torch.float32) - want) ** 2)
+
+    def local_draws(state: TrainState, draws: StepDraws, B: int) -> StepDraws:
+        """The rank's rows of the global batch's draws; the dropout masks
+        from a generator of the rank's own, seeded alike on every rank."""
+        if draws.t.shape[0] != B * state.world:
+            raise ValueError(f"draws for {draws.t.shape[0]} rows, the global batch has {B * state.world}")
+        if state.world == 1:
+            return draws
+        from ..parallel.ddp import local_rows
+
+        rows = local_rows(B, state.rank, state.world, groups)
+        gen = draws.dropout
+        if gen is not None and use_cond == GuidanceType.CLASSIFIER_GUIDANCE:
+            seed = int(torch.randint(0, 2**62, (1,), generator=gen, device=gen.device))
+            gen = torch.Generator(device=gen.device).manual_seed(seed + state.rank)
+        return StepDraws(draws.t[rows.to(draws.t.device)], draws.noise[rows.to(draws.noise.device)],
+                         draws.keep, gen)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], draws: Optional[StepDraws] = None,
                    generator: Optional[torch.Generator] = None) -> dict:
@@ -223,12 +274,14 @@ def make_train_step(schedule: DiffusionSchedule, cfg) -> Callable:
         if draws is None:
             if generator is None:
                 raise ValueError("the train step needs its draws: pass draws=StepDraws(...) or a torch.Generator")
-            draws = draw_step(cfg, B, generator)
+            draws = draw_step(cfg, B * state.world, generator)
         if B % groups:
             raise ValueError(f"batch {B} does not split into {groups} micro-batches")
+        draws = local_draws(state, draws, B)
         dev = model.device
         t, noise, keep = (a.to(dev) for a in draws[:3])
         model.train(bn_mode=bn_mode)
+        forward = state.ddp if state.ddp is not None else StepForward(model, remat)
         params = list(model.parameters())
         for p in params:
             p.grad = None
@@ -236,10 +289,13 @@ def make_train_step(schedule: DiffusionSchedule, cfg) -> Callable:
         loss = torch.zeros((), dtype=torch.float32, device=dev)
         for i in range(groups):
             rows = slice(i * mb, (i + 1) * mb)
-            loss_i = micro_loss(model, batch["image"][rows], batch["trajs"][rows], batch["target"][rows],
-                                t[rows], noise[rows], keep.reshape(-1)[i], draws.dropout)
-            moved = [b.clone() for b in _bn_buffers(model)] if remat else []
-            loss_i.backward()
+            # DDP averages the gradients once, in the last micro-batch's backward
+            sync = state.ddp.no_sync() if state.ddp is not None and i < groups - 1 else nullcontext()
+            with sync:
+                loss_i = micro_loss(forward, batch["image"][rows], batch["trajs"][rows], batch["target"][rows],
+                                    t[rows], noise[rows], keep.reshape(-1)[i], draws.dropout)
+                moved = [b.clone() for b in _bn_buffers(model)] if remat else []
+                loss_i.backward()
             for b, saved in zip(_bn_buffers(model) if remat else (), moved):
                 b.copy_(saved)  # the recompute moved them a second time
             loss = loss + loss_i.detach()
@@ -251,6 +307,9 @@ def make_train_step(schedule: DiffusionSchedule, cfg) -> Callable:
         if groups > 1:
             torch._foreach_div_(grads, float(groups))
             loss = loss / groups
+        if state.world > 1:  # the global batch's loss
+            dist.all_reduce(loss)
+            loss = loss / state.world
         _nan_scrub_(grads)
         lr = state.scheduler.get_last_lr()[0]
         state.optimizer.step()

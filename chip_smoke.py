@@ -56,7 +56,26 @@ Phases, each of which fails the run (nonzero exit, no result line):
    step (16 / 1 per forward, doubled under REMAT), one profiled step; and
    the train CLI, 4 iterations saving at 2, then resumed from
    ``checkpoint_2.pth``. Float32 is float32 throughout: ``build_model``
-   turns TF32 off on the card, and the script checks that it did.
+   turns TF32 off on the card, and the script checks that it did;
+9. distillation: one distill step on the card against the CPU at B = 2
+   (loss; the student's first-step gradients by phase 8's rule, each check
+   shown to catch a planted fault); the timed distill step at
+   TRAIN.BATCH_SIZE 32 from the 64 frames device-resident, without guidance
+   and under CFG (p50, samples/s, peak memory, one profiled step, launches
+   per step: 48 / 3 and 80 / 5, the teacher's forwards without a gradient
+   and the student's with one); the distill CLI from a teacher ``.pth``
+   (100 -> 50 -> 25 steps, 3 iterations a stage); the 25-step student
+   through ``DiffusionPlanner`` on its recorded grid, GPU plan against CPU
+   plan (PLAN_TOL) and its plan p50; and the learned scorer's fit (N = 512
+   sets of K = 8) on the card against the CPU from the same weights, and
+   the time of the default 3000-step fit;
+10. data parallelism: the train CLI under ``torchrun --nproc_per_node 1``
+   on NCCL (3 iterations, rank 0's ``final.pth``); two ranks on the one card
+   over gloo at TRAIN.BATCH_SIZE 16 each (``parallel/check.py``) against this
+   process's step at 32 on the same global batch and draws, BatchNorm
+   frozen and train: the ranks identical, the loss and first-step gradients
+   within phase 8's tolerances, the BatchNorm statistics of the global
+   batch. Each subprocess has a timeout.
 
 The last two lines of standard output are the card (nvidia-smi) and the
 kernels as JSON, then ``{"ok": true, "device": ...}``. Per-shape numbers and
@@ -147,6 +166,18 @@ STAT_TOL = 1e-4
 TRAIN_FRAMES = 64
 REPLAY = os.path.join("tests", "fixtures", "replay_town01.npz")
 LATENCY_TICKS = 20
+DISTILL_START = 100  # the default config's DDIM-100 teacher grid
+DISTILL_ITERS = 3
+SCORER_N, SCORER_K = 512, 8
+SCORER_CHECK_STEPS = 200
+# the scorer fit, GPU against CPU from the same initial weights: 200
+# full-batch AdamW steps of float32 sums in other orders; each tensor's
+# parameters to 1e-3 of its largest move plus 1e-7, the validation MSE to
+# 1e-3 relative (the CPU tests hold the port's fit to JAX's at 1e-4 after 50)
+SCORER_PARAM_RTOL = 1e-3
+SCORER_MSE_RTOL = 1e-3
+DDP_WORLD = 2
+SUBPROCESS_TIMEOUT_S = 300
 REPLACES = {
     "fused_residual_block": "autonomous_driving_with_diffusion_model_tpu/ops/pallas_kernels.py:106",
     "fused_conv1d_gn_mish": "autonomous_driving_with_diffusion_model_tpu/ops/pallas_kernels.py:206",
@@ -678,6 +709,25 @@ def write_dataset(root: str, n: int, h: int, w: int, seed: int = 0) -> None:
             f.write("\n".join(lines) + "\n")
 
 
+def grad_ratio(got, want, names):
+    """The worst tensor's max abs gradient difference over its tolerance
+    (fails above 1), and its name."""
+    return max((((got[n] - want[n]).abs().max() / (STEP_GRAD_TOL * want[n].abs().max()
+                                                    + STEP_GRAD_FLOOR)).item(), n) for n in names)
+
+
+def rel_norm(got, want, names):
+    return (sum(float((got[n] - want[n]).square().sum()) for n in names)
+            / sum(float(want[n].square().sum()) for n in names)) ** 0.5
+
+
+def norm_ratio(got, want, names):
+    """The worst tensor's gradient distance, by norm, over ENCODER_GRAD_RTOL
+    of its norm (plus STEP_GRAD_FLOOR), and its name."""
+    return max((((got[n] - want[n]).norm() / (ENCODER_GRAD_RTOL * want[n].norm() + STEP_GRAD_FLOOR)).item(), n)
+               for n in names)
+
+
 def training(load_cfg, calls, case, graph_ms, bound_ms, device_breakdown, launches, smi, dev="cuda") -> dict:
     """Phase 8: training on the card. ``calls`` are the main-path blocks of
     one U-Net forward; ``launches`` gathers the timed steps' launch counts
@@ -814,22 +864,6 @@ def training(load_cfg, calls, case, graph_ms, bound_ms, device_breakdown, launch
         r["ema"] = dict(zip(r["params"], (s.cpu().clone() for s in st.ema.shadow_params)))
         r["seconds"] = time.perf_counter() - t0
         return r
-
-    def grad_ratio(got, want, names):
-        """The worst tensor's max abs gradient difference over its tolerance
-        (fails above 1), and its name."""
-        return max((((got[n] - want[n]).abs().max() / (STEP_GRAD_TOL * want[n].abs().max()
-                                                        + STEP_GRAD_FLOOR)).item(), n) for n in names)
-
-    def rel_norm(got, want, names):
-        return (sum(float((got[n] - want[n]).square().sum()) for n in names)
-                / sum(float(want[n].square().sum()) for n in names)) ** 0.5
-
-    def norm_ratio(got, want, names):
-        """The worst tensor's gradient distance, by norm, over ENCODER_GRAD_RTOL
-        of its norm (plus STEP_GRAD_FLOOR), and its name."""
-        return max((((got[n] - want[n]).norm() / (ENCODER_GRAD_RTOL * want[n].norm() + STEP_GRAD_FLOOR)).item(), n)
-                   for n in names)
 
     def compare(label, gpu, cpu, held, by_norm=()):
         """Hold ``gpu`` to ``cpu``: the first-step gradients of the ``held``
@@ -1074,6 +1108,388 @@ def training(load_cfg, calls, case, graph_ms, bound_ms, device_breakdown, launch
     return out
 
 
+def distillation(load_cfg, device_breakdown, launches, smi, dev="cuda", extra_opts=()) -> dict:
+    """Phase 9: progressive distillation on the card at full width.
+    ``launches`` gathers the timed steps' launch counts into the kernels
+    line. ``dev`` is the card and ``extra_opts`` none (another device and a
+    smaller model only to rehearse the phase)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from autonomous_driving_with_diffusion_model_tpu_torch import distill as distill_cli
+    from autonomous_driving_with_diffusion_model_tpu_torch.data import (
+        DeviceResidentLoader,
+        get_loader,
+        maybe_device_resident,
+        normalize_images,
+    )
+    from autonomous_driving_with_diffusion_model_tpu_torch.diffusion import (
+        DistillDraws,
+        grid_chain,
+        make_distill_step,
+        make_schedule_from_cfg,
+    )
+    from autonomous_driving_with_diffusion_model_tpu_torch.driving import DiffusionPlanner
+    from autonomous_driving_with_diffusion_model_tpu_torch.models import build_model, init_scorer, train_scorer
+    from autonomous_driving_with_diffusion_model_tpu_torch.ops import kernels
+    from autonomous_driving_with_diffusion_model_tpu_torch.train import create_train_state, export_torch_checkpoint
+    from autonomous_driving_with_diffusion_model_tpu_torch.utils.constants import GuidanceType
+
+    out = {}
+    dev = torch.device(dev)
+
+    def stage(cfg, d):
+        """(teacher, student state, step, student steps) of the config's
+        first stage on device d: seed 0's weights, the EVAL.SAMPLE_STEPS grid."""
+        sched = make_schedule_from_cfg(cfg, d)
+        grid = grid_chain(sched.num_train_timesteps, int(cfg.EVAL.SAMPLE_STEPS), 1)[0]
+        init_state, step = make_distill_step(
+            sched, grid, use_cond=GuidanceType[cfg.TRAIN.USE_COND], free_scale=float(cfg.GUIDANCE.FREE_SCALE),
+            lr=1e-4, warmup=1, decay_steps=20)
+        teacher = build_model(cfg, device=d, seed=0).requires_grad_(False)
+        return teacher, init_state(teacher), step, len(grid.ts)
+
+    # 9.1 one distill step, GPU against CPU: full width, B = 2, the same
+    # weights, batch and draws; the student's first-step gradients by
+    # phase 8's rule, each check shown to catch a planted fault
+    cfg = load_cfg(CONFIGS[0])
+    rng = np.random.default_rng(9)
+    B, H, W = 2, cfg.TRAIN.IMAGE_HEIGHT, cfg.TRAIN.IMAGE_WIDTH
+    batch = {"image": normalize_images(torch.from_numpy(rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8))),
+             "trajs": torch.from_numpy(rng.uniform(-1, 1, (B, 16, 7)).astype(np.float32)),
+             "target": torch.from_numpy(rng.uniform(-1, 1, (B, 2)).astype(np.float32))}
+    n_grid = len(grid_chain(cfg.TRAIN.SAMPLE_STEPS, int(cfg.EVAL.SAMPLE_STEPS), 1)[0].ts)
+    draws = DistillDraws(torch.from_numpy(rng.integers(0, n_grid, B)),
+                         torch.from_numpy(rng.standard_normal((B, 16, 7)).astype(np.float32)))
+    res = {}
+    for d in (torch.device("cpu"), dev):
+        t0 = time.perf_counter()
+        teacher, st, step, _ = stage(cfg, d)
+        m = step(st, teacher, {k: v.to(d) for k, v in batch.items()}, draws)
+        res[d.type] = dict(loss=float(m["loss"]), seconds=time.perf_counter() - t0,
+                           grads={n: p.grad.detach().cpu().clone() for n, p in st.student.named_parameters()})
+        del teacher, st
+    gpu, cpu = res[dev.type], res["cpu"]
+    encoder = [n for n in cpu["grads"] if n.startswith("perception.")]
+    unet = [n for n in cpu["grads"] if n not in encoder]
+    row = dict(tensors=len(cpu["grads"]), loss=dict(gpu=gpu["loss"], cpu=cpu["loss"]),
+               loss_rel=abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+               seconds=dict(gpu=gpu["seconds"], cpu=cpu["seconds"]))
+    row["grad_worst_over_tol"], row["grad_worst_tensor"] = grad_ratio(gpu["grads"], cpu["grads"], unet)
+    row["by_norm_worst_over_tol"], row["by_norm_worst_tensor"] = norm_ratio(gpu["grads"], cpu["grads"], encoder)
+    row["encoder_grad_rel_norm"] = rel_norm(gpu["grads"], cpu["grads"], encoder)
+    block = next(n for n in unet if n.startswith("downs.0.0.") and n.endswith("weight"))
+    enc = next(n for n in encoder if n.endswith("weight"))
+    row["planted_faults_over_tol"] = {
+        f"{block} gradient zeroed": grad_ratio({block: torch.zeros_like(gpu["grads"][block])}, cpu["grads"],
+                                               [block])[0],
+        f"{enc} gradient x (1 + 5e-2)": norm_ratio({enc: gpu["grads"][enc] * (1 + 5e-2)}, cpu["grads"], [enc])[0]}
+    caught = all(r > 1.0 for r in row["planted_faults_over_tol"].values())
+    ok = (row["loss_rel"] <= LOSS_RTOL and row["grad_worst_over_tol"] <= 1.0 and row["by_norm_worst_over_tol"] <= 1.0
+          and np.isfinite(gpu["loss"]))
+    log(f"distill GPU vs CPU, full width, B={B}, one step: loss GPU {gpu['loss']:.6f} CPU {cpu['loss']:.6f} (rel "
+        f"{row['loss_rel']:.3e}, tolerance {LOSS_RTOL}); the student's first-step gradients of {len(unet)} U-Net "
+        f"tensors: worst {row['grad_worst_over_tol']:.3f} of the tolerance ({STEP_GRAD_TOL} x the tensor's largest "
+        f"+ {STEP_GRAD_FLOOR}) at {row['grad_worst_tensor']}; {len(encoder)} encoder tensors by norm: worst "
+        f"{row['by_norm_worst_over_tol']:.3f} of the tolerance ({ENCODER_GRAD_RTOL} of the norm) at "
+        f"{row['by_norm_worst_tensor']} ({row['encoder_grad_rel_norm']:.3e} of their norm); planted "
+        + ", ".join(f"{k}: {r:.1f}" for k, r in row["planted_faults_over_tol"].items())
+        + f" of the tolerance ({'caught' if caught else 'NOT caught'}); GPU {gpu['seconds']:.1f} s, CPU "
+        f"{cpu['seconds']:.1f} s {'ok' if ok and caught else 'FAIL'}")
+    if not caught:
+        raise AssertionError(f"the distill gradient check does not catch a planted fault: {row}")
+    if not ok:
+        raise AssertionError(f"the GPU distill step differs from the CPU's: {row}")
+    out["gpu_vs_cpu"] = row
+    del res, gpu, cpu
+
+    # 9.2 the timed distill step, TRAIN.BATCH_SIZE 32 from the 64 frames
+    # device-resident, without guidance and under CFG
+    root = os.path.join(REPO, "build", "phase8_data")
+    if not os.path.isdir(root):
+        write_dataset(root, TRAIN_FRAMES, H, W)
+    out["timed"] = {}
+    for path in CONFIGS[:2]:
+        cfg = load_cfg(path)
+        cfg.merge_from_list(["TRAIN.ROOT", root])
+        loader = maybe_device_resident(get_loader(cfg), cfg, dev)
+        if not isinstance(loader, DeviceResidentLoader):
+            raise AssertionError(f"{TRAIN_FRAMES} frames were not made device-resident")
+        teacher, st, step, n_steps = stage(cfg, dev)
+        data = iter(loader)
+
+        def one(it):
+            nonlocal data
+            try:
+                b = next(data)
+            except StopIteration:
+                data = iter(loader)
+                b = next(data)
+            b["image"] = normalize_images(b["image"])
+            return step(st, teacher, b, generator=distill_cli.iteration_generator(0, it, dev))
+
+        n_warm, n_timed = 3, 10
+        for it in range(n_warm):
+            one(it)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for it in range(n_warm, n_warm + n_timed):
+            t0 = time.perf_counter()
+            m = one(it)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        kernels.reset_launch_counts()
+        m = one(n_warm + n_timed)
+        torch.cuda.synchronize()
+        got = {k: getattr(kernels, k).launches for k in launches}
+        fwd = 5 if cfg.TRAIN.USE_COND == "FREE_GUIDANCE" else 3  # teacher 2 (4 under CFG) + student 1
+        want = {"fused_residual_block": 16 * fwd, "fused_conv1d_gn_mish": fwd}
+        if got != want:
+            raise AssertionError(f"distill step {path}: launches {got} != {want}")
+        for k in launches:
+            launches[k] += got[k]
+        busy = device_breakdown(lambda: one(n_warm + n_timed + 1))
+        p50 = float(np.median(times))
+        loss = float(m["loss"])
+        out["timed"][path] = dict(step_ms_p50=p50, step_ms=times, samples_per_s=cfg.TRAIN.BATCH_SIZE / p50 * 1e3,
+                                  peak_mib=peak, launches_per_step=got, profile=busy, loss=loss,
+                                  batch=cfg.TRAIN.BATCH_SIZE, student_steps=n_steps)
+        log(f"distill step {path}: B={cfg.TRAIN.BATCH_SIZE} at {W}x{H}, a {n_steps}-step student, p50 {p50:.2f} ms "
+            f"over {n_timed} steps after {n_warm} warm ({cfg.TRAIN.BATCH_SIZE / p50 * 1e3:.1f} samples/s), peak "
+            f"{peak:.1f} MiB, launches per step {got} (expected {want}), loss {loss:.4f}; profiled step "
+            f"{busy['wall_ms']:.2f} ms, device busy {busy['device_ms']:.2f} ms ({busy['busy_share']:.3f}), by kind "
+            f"{busy['by_kind']}; top 'other' kernels (ms) {busy.get('top_other')}; on {smi}")
+        if not np.isfinite(loss):
+            raise AssertionError(f"distill step {path}: loss {loss}")
+        del teacher, st, loader, data
+
+    # 9.3 the distill CLI on the card from a teacher .pth: 100 -> 50 -> 25
+    work = os.path.join(REPO, "build", "phase9")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg = load_cfg(CONFIGS[0])
+    teacher_pth = os.path.join(work, "teacher.pth")
+    export_torch_checkpoint(create_train_state(build_model(cfg, device=dev, seed=0), cfg), cfg, teacher_pth)
+    workdir = os.path.join(work, "distill")
+    t0 = time.perf_counter()
+    manifest = distill_cli.main(distill_cli.parse_args([
+        "--config", os.path.join(REPO, CONFIGS[0]), "--checkpoint", teacher_pth, "--workdir", workdir,
+        "--start-steps", str(DISTILL_START), "--stages", "2", "--iters", str(DISTILL_ITERS),
+        *([] if dev.type == "cuda" else ["--device", str(dev)]), "--opts", "TRAIN.ROOT", root, *extra_opts]))
+    cli_s = time.perf_counter() - t0
+    written = sorted(os.listdir(workdir))
+    ok = (written == ["distill.json", "student_25.pth", "student_50.pth"]
+          and [s["num_steps"] for s in manifest["stages"]] == [50, 25]
+          and all(np.isfinite(s["final_loss"]) for s in manifest["stages"]))
+    out["cli"] = dict(written=written, stages=[{k: s[k] for k in ("num_steps", "final_loss", "seconds")}
+                                               for s in manifest["stages"]], seconds=cli_s)
+    log(f"distill CLI: --start-steps {DISTILL_START} --stages 2 --iters {DISTILL_ITERS} wrote {written} in "
+        f"{cli_s:.1f} s; stages {out['cli']['stages']} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"distill CLI: {out['cli']}")
+
+    # 9.4 the 25-step student deployed through the planner, GPU against CPU
+    last = manifest["stages"][-1]
+    cfg = load_cfg(CONFIGS[0])
+    cfg.merge_from_list(["EVAL.CHECKPOINT", last["checkpoint"]])
+    cfg.TPU.SAMPLE_TIMESTEPS = list(last["timesteps"])
+    frames = np.random.default_rng(10).integers(0, 256, (2, H, W, 3), dtype=np.uint8)
+    gpu = DiffusionPlanner(cfg, seed=0, device=dev)
+    kernels.reset_launch_counts()
+    first = gpu.plan(frames[0])
+    torch.cuda.synchronize()
+    got = {k: getattr(kernels, k).launches for k in launches}
+    want = {"fused_residual_block": 16 * len(last["timesteps"]), "fused_conv1d_gn_mish": len(last["timesteps"])}
+    for k in launches:
+        launches[k] += got[k]
+    cpu = DiffusionPlanner(cfg, seed=0, device="cpu")
+    cpu.init_trajs = gpu.init_trajs.cpu()
+    ref = cpu.plan(frames[0])
+    diff = float(np.abs(first - ref).max())
+    gpu.plan(frames[1])  # warm
+    torch.cuda.synchronize()
+    times = []
+    for i in range(5):
+        t0 = time.perf_counter()
+        gpu.plan(frames[i % 2])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    p50 = float(np.median(times))
+    ok = got == want and np.allclose(first, ref, **PLAN_TOL) and np.isfinite(first).all()
+    out["deploy"] = dict(steps=len(last["timesteps"]), launches=got, gpu_vs_cpu_max_abs_m=diff, plan_ms_p50=p50,
+                         plan_ms=times)
+    log(f"distill deploy: the {len(last['timesteps'])}-step student through DiffusionPlanner, launches {got} "
+        f"(expected {want}), GPU vs CPU plan max_abs_diff={diff:.3e} m (PLAN_TOL {PLAN_TOL}), plan p50 {p50:.2f} ms "
+        f"over 5 plans, on {smi} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"deployed student: {out['deploy']}")
+    del gpu, cpu
+    shutil.rmtree(work, ignore_errors=True)
+
+    # 9.5 the learned scorer's fit on the card: N = 512 candidate sets of K =
+    # 8, GPU against CPU from the same initial weights, then the timed fit
+    rng = np.random.default_rng(11)
+    trajs = rng.standard_normal((SCORER_N, SCORER_K, 16, 7)).astype(np.float32)
+    trajs[..., :2] *= 5.0
+    targets = (0.3 * rng.standard_normal((SCORER_N, 2))).astype(np.float32)
+    outcomes = (np.linalg.norm(trajs[:, :, -1, :2] / 23.3 - targets[:, None], axis=-1)
+                + 0.1 * rng.standard_normal((SCORER_N, SCORER_K))).astype(np.float32)
+    groups = np.arange(SCORER_N) // 8
+    p0 = init_scorer(0)
+    fits = {}
+    for d in ("cpu", dev):
+        fits[str(d)] = train_scorer(trajs, targets, outcomes, steps=SCORER_CHECK_STEPS, groups=groups, params=p0,
+                                    device=d)
+    (pg, mg), (pc, mc) = fits[str(dev)], fits["cpu"]
+    worst = max(float(np.abs(pg[a][b] - pc[a][b]).max() / (SCORER_PARAM_RTOL * np.abs(pc[a][b] - p0[a][b]).max()
+                                                            + 1e-7)) for a in pc for b in pc[a])
+    mse_rel = abs(mg["val_mse"] - mc["val_mse"]) / abs(mc["val_mse"])
+    ok = mg["val_indices"] == mc["val_indices"] and worst <= 1.0 and mse_rel <= SCORER_MSE_RTOL
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, timed = train_scorer(trajs, targets, outcomes, groups=groups, params=p0, device=dev)
+    fit_s = time.perf_counter() - t0
+    out["scorer"] = dict(n=SCORER_N, k=SCORER_K, check_steps=SCORER_CHECK_STEPS, param_worst_over_tol=worst,
+                         val_mse_rel=mse_rel, metrics_gpu={k: v for k, v in mg.items() if k != "val_indices"},
+                         metrics_cpu={k: v for k, v in mc.items() if k != "val_indices"}, fit_s=fit_s,
+                         fit_metrics={k: v for k, v in timed.items() if k != "val_indices"})
+    log(f"scorer fit: N={SCORER_N} K={SCORER_K}, {SCORER_CHECK_STEPS} steps GPU vs CPU from the same weights: "
+        f"parameters worst {worst:.3f} of the tolerance ({SCORER_PARAM_RTOL} of the largest move), val MSE "
+        f"{mg['val_mse']:.6f} / {mc['val_mse']:.6f} (rel {mse_rel:.2e}), regret {mg['val_top1_regret']:.4f} / "
+        f"{mc['val_top1_regret']:.4f}; the default 3000-step fit on the card {fit_s:.2f} s (val MSE "
+        f"{timed['val_mse']:.4f}, regret {timed['val_top1_regret']:.4f}, random {timed['val_top1_regret_random']:.4f})"
+        f" on {smi} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"scorer fit on the card differs from the CPU's: {out['scorer']}")
+    return out
+
+
+def data_parallel(load_cfg, smi, dev="cuda", extra_opts=()) -> dict:
+    """Phase 10: data-parallel training on the one card. (a) the train CLI
+    under torchrun on one NCCL rank; (b) two gloo ranks on the card at
+    TRAIN.BATCH_SIZE 16 each against this process's step at 32 on the same
+    global batch and draws, BatchNorm frozen and train. Every subprocess has
+    a timeout; a failure fails the phase. ``dev`` is the card and
+    ``extra_opts`` none (the CPU, gloo and a smaller model only to rehearse
+    the phase)."""
+    import shutil
+    import socket
+
+    import torch
+
+    from autonomous_driving_with_diffusion_model_tpu_torch.parallel.check import case_config, run_case
+
+    out = {}
+    cuda = torch.device(dev).type == "cuda"
+    env = {k: v for k, v in os.environ.items() if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    env["PYTHONPATH"] = REPO
+    work = os.path.join(REPO, "build", "phase10")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    # 10.1 NCCL: torchrun, one rank, the train CLI for 3 iterations
+    root = os.path.join(REPO, "build", "phase8_data")
+    project = os.path.join(work, "nccl")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1", "-m",
+         f"{PKG}.train", "--config", os.path.join(REPO, CONFIGS[0]), "--max-iter", "3",
+         *([] if cuda else ["--device", "cpu"]), "--opts", "TRAIN.ROOT", root, "PROJECT_DIR", project,
+         "TRAIN.SAMPLE_INTERVAL", "0", "TRAIN.LOG_INTERVAL", "1", *extra_opts],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=SUBPROCESS_TIMEOUT_S)
+    nccl_s = time.perf_counter() - t0
+    train_log = ""
+    if os.path.exists(os.path.join(project, "train.log")):
+        with open(os.path.join(project, "train.log")) as f:
+            train_log = f.read()
+    checkpoints = os.path.join(project, "checkpoints")
+    written = sorted(os.listdir(checkpoints)) if os.path.isdir(checkpoints) else []
+    ok = (proc.returncode == 0 and written == ["final.pth"] and "Data-parallel: 1 rank(s)" in train_log
+          and ("(nccl)" if cuda else "(gloo)") in train_log and "iter: [3/3]" in train_log)
+    out["nccl"] = dict(rc=proc.returncode, written=written, seconds=nccl_s)
+    log(f"DDP NCCL: torchrun --nproc_per_node 1 train CLI, 3 iterations: rc {proc.returncode}, wrote {written}, "
+        f"{nccl_s:.1f} s; log: {[l.split('| ')[-1] for l in train_log.splitlines() if 'Data-parallel' in l]} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"DDP NCCL run: {out['nccl']}\n{proc.stderr[-4000:]}")
+
+    # 10.2 two gloo ranks on the card against one process on the global batch
+    B = int(load_cfg(CONFIGS[0]).TRAIN.BATCH_SIZE) // DDP_WORLD
+    cases = [{"name": bn, "batch": B, "steps": 2, "opts": ["TPU.BN_MODE", bn, "TRAIN.LR_WARMUP", "1", *extra_opts]}
+             for bn in ("frozen", "train")]
+    with open(os.path.join(work, "cases.json"), "w") as f:
+        json.dump(cases, f)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", f"{PKG}.parallel.check", "--rank", str(r), "--world", str(DDP_WORLD), "--port",
+         str(port), "--device", str(dev), "--backend", "gloo", "--local-rank", "0", "--config",
+         os.path.join(REPO, CONFIGS[0]), "--cases", os.path.join(work, "cases.json"), "--out", work],
+        cwd=REPO, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True) for r in range(DDP_WORLD)]
+    errs = []
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=SUBPROCESS_TIMEOUT_S)
+            errs.append((p.returncode, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    ranks_s = time.perf_counter() - t0
+    for rc, err in errs:
+        if rc != 0:
+            raise AssertionError(f"DDP gloo rank failed (rc {rc}):\n{err[-4000:]}")
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False) for r in range(DDP_WORLD)]
+    out["gloo"] = {"ranks_seconds": ranks_s}
+    for case in cases:
+        name = case["name"]
+        r0, r1 = ranks[0][name], ranks[1][name]
+        identical = r0["losses"] == r1["losses"] and all(
+            torch.equal(r0[k][n], r1[k][n]) for k in ("grads", "params", "ema") for n in r0[k])
+        t0 = time.perf_counter()
+        want = run_case(case_config(case["opts"], os.path.join(REPO, CONFIGS[0])), dev, B * DDP_WORLD, case["steps"])
+        one_s = time.perf_counter() - t0
+        encoder = [n for n in want["grads"] if n.startswith("perception.")]
+        unet = [n for n in want["grads"] if n not in encoder]
+        row = dict(ranks_identical=identical, losses=dict(ranks=r0["losses"], one_process=want["losses"]),
+                   one_process_s=one_s)
+        row["loss_max_rel"] = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], want["losses"]))
+        row["grad_worst_over_tol"], row["grad_worst_tensor"] = grad_ratio(r0["grads"], want["grads"], unet)
+        row["encoder_grad_rel_norm"] = rel_norm(r0["grads"], want["grads"], encoder)
+        ok = identical and row["loss_max_rel"] <= LOSS_RTOL and row["grad_worst_over_tol"] <= 1.0
+        if name == "frozen":  # the encoder by each tensor's norm, as in phase 8
+            row["by_norm_worst_over_tol"], row["by_norm_worst_tensor"] = norm_ratio(r0["grads"], want["grads"],
+                                                                                    encoder)
+            ok = ok and row["by_norm_worst_over_tol"] <= 1.0
+        else:
+            row["bn_stat_max_rel"] = max(float(((r0["stats_first"][k] - v).abs() / (v.abs() + 1.0)).max())
+                                         for k, v in want["stats_first"].items())
+            ok = ok and row["bn_stat_max_rel"] <= STAT_TOL
+        out["gloo"][name] = row
+        log(f"DDP gloo, {DDP_WORLD} ranks on the card at B={B} each against one process at B={B * DDP_WORLD}, "
+            f"BN_MODE {name}: ranks identical {identical}; losses {r0['losses']} vs {want['losses']} (max rel "
+            f"{row['loss_max_rel']:.3e}); first-step gradients of {len(unet)} U-Net tensors worst "
+            f"{row['grad_worst_over_tol']:.3f} of the tolerance at {row['grad_worst_tensor']}; the encoder "
+            f"{row['encoder_grad_rel_norm']:.3e} of its norm"
+            + (f", by tensor worst {row['by_norm_worst_over_tol']:.3f} of {ENCODER_GRAD_RTOL} of the norm at "
+               f"{row['by_norm_worst_tensor']}" if name == "frozen" else
+               f" (reported, as in phase 8); BN statistics max rel {row['bn_stat_max_rel']:.3e} (tolerance "
+               f"{STAT_TOL})")
+            + f"; ranks {ranks_s:.1f} s for both cases, one process {one_s:.1f} s {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"two gloo ranks differ from one process ({name}): {row}")
+        del want
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1182,7 +1598,8 @@ def main() -> int:
     # ---------------------------------------------------------------- 4. path
     def device_breakdown(run):
         """One run under torch.profiler: wall ms, the kernels' summed device
-        ms (one stream, so they do not overlap), and that sum by kind."""
+        ms (one stream, so they do not overlap), that sum by kind, and the
+        kernels of kind "other" that take the most device time."""
         from torch.profiler import ProfilerActivity, profile
 
         torch.cuda.synchronize()
@@ -1191,23 +1608,32 @@ def main() -> int:
             run()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-        by_kind = {}
+        by_kind, other = {}, {}
         for ev in prof.key_averages():
             us = getattr(ev, "self_device_time_total", None)
             if us is None:
                 us = ev.self_cuda_time_total
-            # kernels only: a CPU op's own device time repeats its kernels'
-            if us <= 0 or getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            # kernels only: a CPU op's own device time repeats its kernels',
+            # and a range the program marks on the device (AdamW's step) spans them
+            if (us <= 0 or getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA
+                    or getattr(ev, "is_user_annotation", False)):
                 continue
             name = ev.key
             kind = ("conv_gn_mish" if "gn_mish" in name else  # both port kernels
                     "memcpy/memset" if "Memcpy" in name or "Memset" in name else
-                    "cudnn/cublas" if any(s in name for s in ("cudnn", "xmma", "gemm", "conv", "sm90")) else
+                    # cuDNN's FFT convolutions and weight and data gradients too
+                    "cudnn/cublas" if any(s in name for s in ("cudnn", "xmma", "gemm", "conv", "sm90", "fft",
+                                                              "pointwise_mult_and_sum_complex", "wgrad",
+                                                              "dgrad")) else
                     "other")
             by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
+            if kind == "other":
+                other[name] = other.get(name, 0.0) + us / 1e3
         dev_ms = sum(by_kind.values())
+        top = sorted(other.items(), key=lambda kv: -kv[1])[:6]
         return {"wall_ms": wall, "device_ms": dev_ms, "busy_share": dev_ms / wall,
-                "by_kind": {k: round(v, 4) for k, v in sorted(by_kind.items())}}
+                "by_kind": {k: round(v, 4) for k, v in sorted(by_kind.items())},
+                "top_other": [(k[:90], round(v, 3)) for k, v in top]}
 
     launches = {"fused_residual_block": 0, "fused_conv1d_gn_mish": 0}
     plans = {}
@@ -1495,6 +1921,12 @@ def main() -> int:
     # ------------------------------------------------------------ 8. training
     report["training"] = training(load_cfg, calls, case, graph_ms, bound_ms, device_breakdown, launches, smi)
     phase_done(8)
+    # -------------------------------------------------------- 9. distillation
+    report["distillation"] = distillation(load_cfg, device_breakdown, launches, smi)
+    phase_done(9)
+    # ----------------------------------------------------- 10. data parallel
+    report["data_parallel"] = data_parallel(load_cfg, smi)
+    phase_done(10)
     report["phase_done_s"] = phase_s
 
     kernels_line = []

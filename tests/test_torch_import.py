@@ -54,7 +54,8 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "driving.leaderboard_stats", "driving.routes", "driving.evaluator",
                 "driving.evaluate_cli", "sim.suites", "interact", "data.png", "data.dataset",
                 "train.ema", "train.state", "train.checkpoint", "train.cli", "utils.meters",
-                "utils.tracker", "utils.profiling"):
+                "utils.tracker", "utils.profiling", "diffusion.distill", "distill", "parallel",
+                "parallel.distributed", "parallel.ddp", "parallel.check"):
         assert f"autonomous_driving_with_diffusion_model_tpu_torch.{sub}" in result["imported"]
     assert result["jax_side"] == []
     assert result["jax"] == []
