@@ -2,18 +2,18 @@
 ``driving/evaluate_cli.py``).
 
 Runs the port's diffusion agent closed-loop over a registered suite's routes
-(NoCrash/CoRL2017/LeaderBoard/Endless) and writes the leaderboard
+(NoCrash/CoRL2017/LeaderBoard/Endless) with the native CARLA env
+(``sim/carla_env.py``), full infraction counting, and writes the leaderboard
 ``_checkpoint`` JSON (resumable) through ``driving.evaluator``:
 
     python -m autonomous_driving_with_diffusion_model_tpu_torch.driving.evaluate_cli \
-        --env-id Endless-v0 --weather-group simple --fake-env \
+        --env-id NoCrash-v0 --carla-map Town01 --weather-group train_eval \
         --config configs/guidance/free_guidance.yaml \
         --checkpoint-json /tmp/eval/ckpt.json
 
-The planner runs on the card unless ``--device cpu`` is given. Only
-``--fake-env`` (the synthetic env) runs: the port has no CARLA env yet, and
-without the flag ``main`` raises (the CARLA-only ``--host``, ``--port`` and
-``--scenarios-json`` come with that env). Aggregate scores print via
+The planner runs on the card unless ``--device cpu`` is given. ``--host`` and
+``--port`` name the CARLA server; ``--fake-env`` swaps in the synthetic env
+(plumbing smoke without CARLA). Aggregate scores print via
 ``driving.statistics`` at the end.
 """
 
@@ -22,21 +22,25 @@ from __future__ import annotations
 import argparse
 import json
 
-__all__ = ["main", "build_routes", "console_main", "NO_CARLA_ENV"]
-
-NO_CARLA_ENV = (
-    "the port has no CARLA env yet (ROADMAP.md Queue 1: the CARLA env layer, the JAX "
-    "package's sim/); run with --fake-env, or use the JAX package's CLI for CARLA"
-)
+__all__ = ["main", "build_routes", "console_main"]
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--env-id", default="Endless-v0")
+    p.add_argument("--host", default="localhost")
+    p.add_argument("--port", default=2000, type=int)
     p.add_argument("--carla-map", default="Town01")
     p.add_argument("--weather-group", default="simple")
     p.add_argument("--route-description", default="lbc")
     p.add_argument("--routes-group", default=None)
+    p.add_argument(
+        "--scenarios-json", default=None,
+        help="published per-town scenario annotations (e.g. "
+             "all_towns_traffic_scenarios.json): the native env injects "
+             "adversarial scenarios at route trigger points "
+             "(sim/scenario_injection.py); also honored via ADM_SCENARIOS_JSON",
+    )
     p.add_argument("--config", default=None, help="agent config yaml")
     p.add_argument("--agent-ckpt", default=None, help="model checkpoint (.pth)")
     p.add_argument("--checkpoint-json", required=True, help="_checkpoint output path")
@@ -79,13 +83,10 @@ def build_routes(env_id: str, tasks) -> list:
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if not args.fake_env:
-        raise NotImplementedError(NO_CARLA_ENV)
 
     from ..sim.suites import build_suite_tasks
     from ..utils.config import create_cfg, merge_possible_with_base
     from .evaluator import RouteEvaluator
-    from .fake_env import FakeDrivingEnv
     from .interact_agent import InteractAgent
     from .plan import DiffusionPlanner
 
@@ -103,11 +104,42 @@ def main(argv=None) -> dict:
         weather_group=args.weather_group,
         route_description=args.route_description,
         routes_group=args.routes_group,
+        scenarios_json=args.scenarios_json,
     )
     routes = build_routes(args.env_id, tasks)
 
-    def env_factory(route):
-        return FakeDrivingEnv(seed=route["index"])
+    if args.fake_env:
+        from .fake_env import FakeDrivingEnv
+
+        def env_factory(route):
+            return FakeDrivingEnv(seed=route["index"])
+
+        counters_fn = None
+        route_length_fn = None
+        env_kind = "fake"
+    else:
+        from ..sim.carla_env import CarlaDrivingEnv
+
+        env = CarlaDrivingEnv(
+            host=args.host,
+            port=args.port,
+            town=args.carla_map,
+            eval_mode=True,
+            tasks=tasks,
+        )
+
+        def env_factory(route):
+            # align the env's task rotation with the (resume-skipped) route
+            env._task_idx = route["index"] - 1
+            return env
+
+        def counters_fn(e):
+            return e.counters
+
+        def route_length_fn(e):
+            return e._route_length_m()
+
+        env_kind = "carla"
 
     planner = DiffusionPlanner(cfg, device=args.device)  # built once across all routes
 
@@ -120,8 +152,10 @@ def main(argv=None) -> dict:
         routes=routes,
         checkpoint_path=args.checkpoint_json,
         max_steps_per_route=args.max_steps,
+        counters_fn=counters_fn,
         step_timeout=args.step_timeout,
-        env_kind="fake",
+        route_length_fn=route_length_fn,
+        env_kind=env_kind,
     )
     data = evaluator.run(resume=not args.no_resume)
 

@@ -15,8 +15,7 @@ The scenario-description data files (routes.xml + actors.json per suite /
 route-description / town) are the published benchmark definitions; point
 ``description_root`` at a checkout of them (defaults to the directory named
 by ``ADM_SCENARIO_DESCRIPTIONS``). Parsing is carla-free: waypoints become
-``TransformSpec``s. The CARLA env that consumes these tasks is not ported
-yet: the port's CLIs run them on ``driving.fake_env`` only.
+``TransformSpec``s, which ``sim/carla_env.py`` turns into CARLA transforms.
 """
 
 from __future__ import annotations

@@ -75,11 +75,25 @@ Phases, each of which fails the run (nonzero exit, no result line):
    process's step at 32 on the same global batch and draws, BatchNorm
    frozen and train: the ranks identical, the loss and first-step gradients
    within phase 8's tolerances, the BatchNorm statistics of the global
-   batch. Each subprocess has a timeout.
+   batch. Each subprocess has a timeout;
+11. the CARLA env layer, over ``tests/mock_carla.py`` installed as
+   ``carla`` (a client API over a one-road town): per config an
+   ``InteractAgent`` on the card drives ``sim/carla_env.py:CarlaDrivingEnv``
+   through a route with a red light, 3 walkers and a scenario vehicle (tick
+   p50/p90 and the env's step time over 20 ticks, in turns with 20 ticks of
+   the same planner on ``FakeDrivingEnv``; launches per tick, one
+   profiled tick, the counters and the stats so far; under CFG a CPU agent
+   shadows 10 ticks from the same observations, plans within PLAN_TOL and raw
+   controls within CONTROL_TOL); ``evaluate_cli`` without ``--fake-env``,
+   which must write one "carla" record whose route length is the env's; the
+   collector writing 8 samples from the env under the expert with the port's
+   PNG writer, ``data/validate.py`` reading them clean, and one training step
+   at B = 8 from them with a finite loss.
 
 The last two lines of standard output are the card (nvidia-smi) and the
 kernels as JSON, then ``{"ok": true, "device": ...}``. Per-shape numbers and
-phase 6's results (under ``agents``) go to chiprun_out/chip_smoke.json.
+phase 6's results (under ``agents``) and phase 11's (under ``carla``) go to
+chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -178,6 +192,9 @@ SCORER_PARAM_RTOL = 1e-3
 SCORER_MSE_RTOL = 1e-3
 DDP_WORLD = 2
 SUBPROCESS_TIMEOUT_S = 300
+SHADOW_TICKS = 10  # phase 11: CFG ticks a CPU agent shadows
+EVAL_STEPS = 20  # phase 11: evaluate_cli's steps on the native env
+COLLECT_SAMPLES = 8  # phase 11: samples collected, and the training batch
 REPLACES = {
     "fused_residual_block": "autonomous_driving_with_diffusion_model_tpu/ops/pallas_kernels.py:106",
     "fused_conv1d_gn_mish": "autonomous_driving_with_diffusion_model_tpu/ops/pallas_kernels.py:206",
@@ -1490,6 +1507,308 @@ def data_parallel(load_cfg, smi, dev="cuda", extra_opts=()) -> dict:
     return out
 
 
+def carla_task(spec):
+    """tests/test_integration_episode.py's task (``spec``: the port's
+    ``TransformSpec``): a fixed route from x = 5 to 100 through a red light
+    at x = 57 (the caller places it), 3 walkers and a scenario vehicle on its
+    own route ahead."""
+    return {
+        "weather": "ClearNoon", "route_id": 0, "num_zombie_vehicles": 0, "num_zombie_walkers": 3,
+        "ego_route": [spec(x=5.0, y=0.0), spec(x=100.0, y=0.0)], "endless": False, "target_speed": 6.0,
+        "scenario_actors": {"adv": [spec(x=110.0, y=0.0), spec(x=140.0, y=0.0)]},
+        "scenario_actor_configs": {"adv": {"model": "vehicle.*", "agent_entry_point": "basic_agent:BasicAgent",
+                                           "agent_kwargs": {"target_speed": 4.0}}},
+    }
+
+
+def carla(load_cfg, device_breakdown, launches, smi, dev="cuda", extra_opts=()) -> dict:
+    """Phase 11: the CARLA env layer on the card, over ``tests/mock_carla.py``
+    installed as ``carla``. Per config an ``InteractAgent`` on the card
+    drives ``CarlaDrivingEnv`` through the integration task, in turns with
+    the same planner on ``FakeDrivingEnv`` (carla, fake, fake, carla; 10
+    ticks each after a warm one): tick and env ``step`` times, launches per
+    tick, one profiled tick, the counters and the episode's stats so far,
+    and the host's garbage collections during the ticks; under CFG a
+    CPU agent with the same weights and init noise shadows 10 more ticks from
+    the same observations (plans within PLAN_TOL, raw controls within
+    CONTROL_TOL). Then ``evaluate_cli`` without ``--fake-env`` (one Endless
+    route, 20 steps: a "carla" record whose route length is the env's), the
+    collector writing COLLECT_SAMPLES samples from the env under the expert,
+    the audit of them, and one training step at B = COLLECT_SAMPLES from them.
+    ``dev`` is the card and ``extra_opts`` none (the CPU and a smaller model
+    only to rehearse the phase)."""
+    import dataclasses
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import mock_carla
+
+    sys.modules["carla"] = mock_carla
+    from autonomous_driving_with_diffusion_model_tpu_torch.data import augment_batch, get_loader, normalize_images
+    from autonomous_driving_with_diffusion_model_tpu_torch.data.validate import validate_dataset
+    from autonomous_driving_with_diffusion_model_tpu_torch.diffusion import make_schedule_from_cfg
+    from autonomous_driving_with_diffusion_model_tpu_torch.driving import (
+        DiffusionPlanner,
+        FakeDrivingEnv,
+        InteractAgent,
+        evaluate_cli,
+    )
+    from autonomous_driving_with_diffusion_model_tpu_torch.driving.scoring import episode_stats
+    from autonomous_driving_with_diffusion_model_tpu_torch.models import build_model
+    from autonomous_driving_with_diffusion_model_tpu_torch.ops import kernels
+    from autonomous_driving_with_diffusion_model_tpu_torch.sim import DataCollector, carla_env
+    from autonomous_driving_with_diffusion_model_tpu_torch.sim.suites import TransformSpec
+    from autonomous_driving_with_diffusion_model_tpu_torch.train import cli, create_train_state, make_train_step
+
+    dev = torch.device(dev)
+
+    def load(path):
+        cfg = load_cfg(path)
+        if extra_opts:
+            cfg.merge_from_list(list(extra_opts))
+        return cfg
+
+    def steps_of(cfg):
+        return len(cfg.TPU.SAMPLE_TIMESTEPS) or cfg.EVAL.SAMPLE_STEPS
+
+    def counted(run):
+        """run() with every launch count set to 0 just before and read just
+        after; the counts also go to the kernels line."""
+        kernels.reset_launch_counts()
+        result = run()
+        torch.cuda.synchronize()
+        got = {k: getattr(kernels, k).launches for k in launches}
+        for k in launches:
+            launches[k] += got[k]
+        if not all(got.values()):
+            raise AssertionError(f"a kernel of the path was not launched: {got}")
+        return result, got
+
+    def pct(xs, q):
+        return float(np.percentile(xs, q))
+
+    def make_env():
+        mock_carla._Vehicle._next_id = 1
+        env = carla_env.CarlaDrivingEnv(seed=0, tasks=[carla_task(TransformSpec)])
+        env.world.actors.append(mock_carla.TrafficLight(x=57.0, state="Red"))
+        return env
+
+    def stats_so_far(env):
+        return episode_stats(env.counters, route_length_m=env._route_length_m(), route_completed_m=env.completed_m,
+                             is_route_completed=False, endless=env._endless, timeout=False,
+                             episode_length=env.steps, total_reward=env.episode_reward)
+
+    out = {"configs": {}}
+    t_phase = time.perf_counter()
+    for path in CONFIGS:
+        cfg = load(path)
+        n_fwd = steps_of(cfg)
+        per_tick = {"fused_residual_block": 16 * n_fwd, "fused_conv1d_gn_mish": n_fwd}
+        gpu = DiffusionPlanner(cfg, seed=0, device=dev)
+        env = make_env()
+        agent = InteractAgent(cfg, env, planner=gpu)
+        state = env.reset()
+        # the same agent's planner on FakeDrivingEnv at 900x256 (phase 6's env), in
+        # turns with the native env (carla, fake, fake, carla), so that what the
+        # env layer adds to a tick is read against a tick without it in this call
+        fake = FakeDrivingEnv(image_hw=(256, 900), seed=0)
+        fake_agent = InteractAgent(cfg, fake, planner=gpu)
+        states = {"carla": state, "fake": fake.reset()}
+        sides = {"carla": (agent, env), "fake": (fake_agent, fake)}
+        tick_ms, env_ms = {"carla": [], "fake": []}, {"carla": [], "fake": []}
+        resets, runs, half = 0, [], LATENCY_TICKS // 2
+
+        def run_ticks(mode):
+            nonlocal resets
+            a, e = sides[mode]
+            s = states[mode]
+            for i in range(half + 1):
+                t0 = time.perf_counter()
+                control = a.compute_control(s)
+                t1 = time.perf_counter()
+                s, _, done, _ = e.step({0: control})
+                t2 = time.perf_counter()
+                if i:  # the first tick of each run is a warm one
+                    tick_ms[mode].append((t2 - t0) * 1e3)
+                    env_ms[mode].append((t2 - t1) * 1e3)
+                if not np.isfinite(control).all():
+                    raise AssertionError(f"{path}: non-finite control {control}")
+                if done:  # a random-weight planner may end an episode early
+                    s = e.reset()
+                    resets += mode == "carla"
+            states[mode] = s
+
+        host_objects = len(gc.get_objects())
+        gc_before = [g["collections"] for g in gc.get_stats()]
+        for mode in ("carla", "fake", "fake", "carla"):
+            _, got = counted(lambda: run_ticks(mode))
+            want = {k: v * (half + 1) for k, v in per_tick.items()}
+            if got != want:
+                raise AssertionError(f"{path} on {mode}: launches {got} != {want}")
+            runs.append(dict(mode=mode, tick_ms_p50=pct(tick_ms[mode][-half:], 50), launches=got))
+        gc_runs = [g["collections"] - b for g, b in zip(gc.get_stats(), gc_before)]
+        state = states["carla"]
+        busy = device_breakdown(lambda: env.step({0: agent.compute_control(state)})[0])
+        state = env.last_obs
+        row = {"steps": n_fwd, "launches_per_tick": per_tick, "runs": runs,
+               "tick_ms_p50": pct(tick_ms["carla"], 50), "tick_ms_p90": pct(tick_ms["carla"], 90),
+               "tick_ms": tick_ms["carla"], "env_step_ms_p50": pct(env_ms["carla"], 50),
+               "env_step_ms_p90": pct(env_ms["carla"], 90), "env_step_ms": env_ms["carla"],
+               "fake_tick_ms_p50": pct(tick_ms["fake"], 50), "fake_tick_ms_p90": pct(tick_ms["fake"], 90),
+               "fake_tick_ms": tick_ms["fake"], "fake_env_step_ms_p50": pct(env_ms["fake"], 50),
+               "episode_resets": resets, "profiled_tick": busy, "host_objects_tracked": host_objects,
+               "gc_collections_during_ticks": gc_runs}
+        log(f"carla {path}: tick p50 {row['tick_ms_p50']:.2f} ms, p90 {row['tick_ms_p90']:.2f} ms over "
+            f"{2 * half} ticks of CarlaDrivingEnv (mock_carla, 900x256), the env's step p50 "
+            f"{row['env_step_ms_p50']:.2f} ms, p90 {row['env_step_ms_p90']:.2f} ms of them; in turns with "
+            f"FakeDrivingEnv 900x256: tick p50 {row['fake_tick_ms_p50']:.2f} ms, p90 {row['fake_tick_ms_p90']:.2f} "
+            f"ms, its step p50 {row['fake_env_step_ms_p50']:.2f} ms (run p50s "
+            + ", ".join(f"{r['mode']} {r['tick_ms_p50']:.2f}" for r in runs)
+            + f"; each run after one warm tick); launches per tick {per_tick}; profiled tick "
+            f"{busy['wall_ms']:.2f} ms, device busy {busy['device_ms']:.2f} ms ({busy['busy_share']:.3f}); "
+            f"episode resets {resets}; {host_objects} objects tracked by the collector, collections per "
+            f"generation during the ticks {gc_runs}; on {smi}")
+        del fake, fake_agent
+
+        if path == CONFIGS[1]:  # the CFG shadow: a CPU agent plans from the same observations
+            cpu = DiffusionPlanner(cfg, seed=0, device="cpu")
+            cpu.init_trajs = gpu.init_trajs.cpu()
+            frames = {"gpu": [], "cpu": []}
+            gpu_agent = InteractAgent(cfg, env, planner=gpu, on_frame=lambda s, t, c: frames["gpu"].append((t, c)))
+            shadow = InteractAgent(cfg, None, planner=cpu, on_frame=lambda s, t, c: frames["cpu"].append((t, c)))
+            row["shadow"] = []
+            for tick in range(SHADOW_TICKS):
+                _, got = counted(lambda: gpu_agent.compute_control(state))
+                if got != per_tick:
+                    raise AssertionError(f"{path} shadow tick {tick}: launches {got} != {per_tick}")
+                shadow.compute_control(state)
+                (tg, cg), (tc, cc) = frames["gpu"][tick], frames["cpu"][tick]
+                plan_diff = float(np.abs(tg - tc).max())
+                raw_diff = float(np.abs(tg[0, 0, -3:] - tc[0, 0, -3:]).max())
+                branch = not near_threshold(tc[0, 0, -3:], CONTROL_TOL)
+                ok = (np.allclose(tg, tc, **PLAN_TOL) and raw_diff <= CONTROL_TOL
+                      and (not branch or (np.array_equal(cg == 0, cc == 0)
+                                          and np.abs(cg - cc).max() <= CONTROL_TOL)))
+                row["shadow"].append(dict(tick=tick, plan_max_abs_m=plan_diff, raw_control_max_abs=raw_diff,
+                                          controls_compared=branch, control_gpu=cg.tolist(),
+                                          control_cpu=cc.tolist()))
+                log(f"carla {path} shadow tick {tick}: GPU vs CPU plan max_abs_diff {plan_diff:.3e} m, raw "
+                    f"controls {raw_diff:.3e}; controls {[round(float(v), 4) for v in cg]} "
+                    f"({'compared' if branch else 'raw near a threshold: branch not compared'}) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{path} shadow tick {tick}: the CPU agent's plan differs")
+                state, _, done, _ = env.step({0: cg})
+                if done:
+                    raise AssertionError(f"{path}: the episode ended during the shadow ticks")
+            del cpu, shadow, gpu_agent
+        row["counters"] = dataclasses.asdict(env.counters)
+        row["episode_stat"] = {k: float(v) for k, v in stats_so_far(env).items()}
+        log(f"carla {path}: after {env.steps} steps counters {row['counters']}; episode_stat so far "
+            f"{ {k: round(v, 4) for k, v in row['episode_stat'].items()} }")
+        env.close()
+        out["configs"][path] = row
+        del gpu, agent
+
+    # 11.2 the evaluation CLI on the native env
+    ckpt = os.path.join(REPO, "chiprun_out", "eval_carla_ckpt.json")
+    os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+    if os.path.exists(ckpt):
+        os.remove(ckpt)  # a resumed run would skip the route
+    traced = []
+    native = carla_env.CarlaDrivingEnv
+
+    class Traced(native):
+        def reset(self):
+            obs = super().reset()
+            traced.append(self._route_length_m())
+            return obs
+
+    argv = ["--env-id", "Endless-v0", "--weather-group", "simple", "--max-steps", str(EVAL_STEPS),
+            "--checkpoint-json", ckpt]
+    if dev.type != "cuda":
+        argv += ["--device", str(dev)]
+    if extra_opts:
+        argv += ["--opts", *extra_opts]
+    mock_carla._Vehicle._next_id = 1
+    carla_env.CarlaDrivingEnv = Traced
+    t0 = time.perf_counter()
+    try:
+        data, got = counted(lambda: evaluate_cli.main(argv))
+    finally:
+        carla_env.CarlaDrivingEnv = native
+    records = data["_checkpoint"]["records"]
+    n_fwd = steps_of(load(CONFIGS[0]))
+    ok = (len(records) == 1 and records[0]["meta"]["env_kind"] == "carla" and records[0]["num_steps"] == EVAL_STEPS
+          and records[0]["status"] == "Completed" and len(traced) == 1 and traced[0] > 0
+          and records[0]["meta"]["route_length"] == traced[0]
+          and got == {"fused_residual_block": 16 * n_fwd * EVAL_STEPS, "fused_conv1d_gn_mish": n_fwd * EVAL_STEPS})
+    out["evaluate_cli"] = dict(record=records[0] if records else None, launches=got, traced_length_m=traced,
+                               seconds=time.perf_counter() - t0)
+    log(f"carla evaluate_cli (no --fake-env): {len(records)} record(s): "
+        + "; ".join(f"{r['route_id']} {r['status']} num_steps {r['num_steps']} meta {r['meta']} scores "
+                    f"{r['scores']}" for r in records)
+        + f"; the env's traced length {traced}; launches {got}; {out['evaluate_cli']['seconds']:.1f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"evaluate_cli on the CARLA env: {records}, traced {traced}, launches {got}")
+
+    # 11.3 collection under the expert, the audit, one training step from the samples
+    root = os.path.join(REPO, "build", "phase11_data")
+    shutil.rmtree(root, ignore_errors=True)
+    mock_carla._Vehicle._next_id = 1
+    env = carla_env.CarlaDrivingEnv(seed=2, num_zombie_vehicles=2)
+    t0 = time.perf_counter()
+    saved = DataCollector(env, root, total_to_save=COLLECT_SAMPLES, save_every_n_frame=1,
+                          buffer_frames=2).run(max_env_steps=20 * COLLECT_SAMPLES)
+    collect_s = time.perf_counter() - t0
+    env.close()
+    audit = validate_dataset(root)
+    ok = (saved == COLLECT_SAMPLES and audit["ok"] and audit["num_valid_samples"] == COLLECT_SAMPLES
+          and audit["image_hw"] == (256, 900))
+    out["collect"] = dict(saved=saved, seconds=collect_s, audit=audit)
+    log(f"carla collect: {saved} samples from CarlaDrivingEnv under the expert in {collect_s:.2f} s (PNGs by "
+        f"data/png.py); validate_dataset ok {audit['ok']}, valid {audit['num_valid_samples']}, image_hw "
+        f"{audit['image_hw']}, red-light fraction {audit.get('red_light_fraction')}, action means "
+        f"{audit.get('action_means')} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"collection: saved {saved}, audit {audit}")
+    cfg = load(CONFIGS[0])
+    cfg.merge_from_list(["TRAIN.ROOT", root, "TRAIN.BATCH_SIZE", str(COLLECT_SAMPLES)])
+    batch = next(iter(get_loader(cfg)))
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    st = create_train_state(build_model(cfg, device=dev, seed=0), cfg)
+    step = make_train_step(make_schedule_from_cfg(cfg, dev), cfg)
+    aug, gen = cli.iteration_generators(0, dev)
+    batch["image"] = normalize_images(augment_batch(batch["image"], aug, 0))
+    step_ms = []
+    for i in range(2):  # the first step includes cuDNN's first choice of algorithms
+        t0 = time.perf_counter()
+        if i == 0:
+            loss, got = counted(lambda: float(step(st, batch, generator=gen)["loss"]))
+        else:
+            second = float(step(st, batch, generator=gen)["loss"])
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    ok = (bool(np.isfinite(loss)) and bool(np.isfinite(second))
+          and got == {"fused_residual_block": 16, "fused_conv1d_gn_mish": 1})
+    out["train_step"] = dict(batch=COLLECT_SAMPLES, loss=loss, second_loss=second, launches=got, step_ms=step_ms)
+    log(f"carla train step on the collected samples, B = {COLLECT_SAMPLES}: loss {loss:.6f} (second step "
+        f"{second:.6f}), launches {got}, first step {step_ms[0]:.1f} ms (cuDNN's first choices included), second "
+        f"{step_ms[1]:.1f} ms; on {smi} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"training step on the collected data: loss {loss}, launches {got}")
+    jax_side = sorted(m for m in sys.modules if m.split(".")[0] == "autonomous_driving_with_diffusion_model_tpu")
+    if jax_side:
+        raise AssertionError(f"phase 11 imported the JAX package: {jax_side}")
+    sys.modules.pop("carla", None)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1927,6 +2246,9 @@ def main() -> int:
     # ----------------------------------------------------- 10. data parallel
     report["data_parallel"] = data_parallel(load_cfg, smi)
     phase_done(10)
+    # ------------------------------------------------------ 11. the CARLA env
+    report["carla"] = carla(load_cfg, device_breakdown, launches, smi)
+    phase_done(11)
     report["phase_done_s"] = phase_s
 
     kernels_line = []

@@ -5,6 +5,7 @@ the same inputs, and the agents (``InteractAgent``, the leaderboard
 planner's init noise, tick by tick."""
 
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -392,9 +393,10 @@ def _tiny_opts():
 
 def test_interact_cli_flag_plumbing(monkeypatch, tmp_path):
     """The port's interact CLI hands --pipelined / --save-bev-path to the
-    agent and --device / --seed to the planner; it has no CARLA env, so it
-    refuses the reference's CARLA-only flags."""
-    from autonomous_driving_with_diffusion_model_tpu_torch import interact
+    agent and --device / --seed to the planner; without --fake-env it starts
+    the server and hands --env-factory and --town to ``sim.create_env``, and
+    --plot-on-world to the agent, as the root ``interact.py`` does."""
+    from autonomous_driving_with_diffusion_model_tpu_torch import interact, sim
 
     captured = {}
 
@@ -419,9 +421,30 @@ def test_interact_cli_flag_plumbing(monkeypatch, tmp_path):
                           "--opts", *_tiny_opts()]) == 1
     assert captured == {"planner": (4, "cpu"), "bev_save_path": bev, "plot_on_world": False,
                         "pipelined": True, "max_steps": 1, "closed": True}
-    for flag in (["--plot-on-world"], ["--env-factory", "carla_native"], ["--town", "Town01"]):
-        with pytest.raises(SystemExit):
-            interact.parse_args(["--fake-env", *flag])
+    import mock_carla
+
+    monkeypatch.setitem(sys.modules, "carla", mock_carla)
+    made = []
+
+    class Server:
+        def stop(self):
+            made.append("stopped")
+
+    monkeypatch.setattr(sim, "create_server", lambda config, off_screen=False: made.append(
+        ("server", dict(config), off_screen)) or Server())
+    monkeypatch.setattr(sim, "create_env", lambda config, seed=0: made.append(
+        ("env", dict(config), seed)) or "the env")
+    for flag, config, plot in (
+        (["--plot-on-world"], {"factory": "carla_native", "port": 2000, "town": None}, True),
+        (["--env-factory", "NoCrash-v1"], {"factory": "NoCrash-v1", "port": 2000, "town": None}, False),
+        (["--town", "Town02"], {"factory": "carla_native", "port": 2000, "town": "Town02"}, False),
+    ):
+        made.clear()
+        captured.clear()
+        assert interact.main([*flag, "--max-steps", "2", "--seed", "3", "--device", "cpu",
+                              "--opts", *_tiny_opts()]) == 2
+        assert made == [("server", config, False), ("env", config, 3), "stopped"]
+        assert captured["plot_on_world"] is plot and captured["planner"] == (3, "cpu")
 
 
 @pytest.mark.parametrize("pipelined", [False, True])
@@ -455,14 +478,37 @@ def test_entry_point_needs_a_card_by_default(monkeypatch, tmp_path, entry):
 
 
 @pytest.mark.parametrize("cli", ["evaluate_cli", "interact"])
-def test_cli_without_fake_env_names_the_missing_carla_env(tmp_path, cli):
-    from autonomous_driving_with_diffusion_model_tpu_torch import interact
-    from autonomous_driving_with_diffusion_model_tpu_torch.driving import evaluate_cli
+def test_cli_without_fake_env_names_the_missing_carla_env(monkeypatch, tmp_path, cli):
+    """Without --fake-env each CLI drives the port's CARLA env
+    (``sim/carla_env.py``, here over ``tests/mock_carla.py``) for one short
+    route: the evaluator's record says "carla", and interact's server comes
+    from ``create_server`` (stubbed: no CarlaUE4.sh here) and its env from
+    ``create_env``'s ``carla_native`` factory. No refusal is left."""
+    import mock_carla
 
-    run = {
-        "evaluate_cli": lambda: evaluate_cli.main(["--device", "cpu", "--checkpoint-json",
-                                                   str(tmp_path / "c.json")]),
-        "interact": lambda: interact.main(["--device", "cpu"]),
-    }[cli]
-    with pytest.raises(NotImplementedError, match="CARLA env layer"):
-        run()
+    from autonomous_driving_with_diffusion_model_tpu_torch import interact, sim
+    from autonomous_driving_with_diffusion_model_tpu_torch.driving import evaluate_cli
+    from autonomous_driving_with_diffusion_model_tpu_torch.sim import carla_env
+
+    monkeypatch.setitem(sys.modules, "carla", mock_carla)
+    envs = []
+
+    class Recorded(carla_env.CarlaDrivingEnv):
+        def reset(self):
+            envs.append(self)
+            return super().reset()
+
+    monkeypatch.setattr(carla_env, "CarlaDrivingEnv", Recorded)
+    if cli == "evaluate_cli":
+        data = evaluate_cli.main(["--device", "cpu", "--checkpoint-json", str(tmp_path / "c.json"),
+                                  "--max-steps", "3", "--opts", *_tiny_opts()])
+        (record,) = data["_checkpoint"]["records"]
+        assert record["meta"]["env_kind"] == "carla" and record["num_steps"] == 3
+        assert record["meta"]["route_length"] == envs[0]._route_length_m()
+    else:
+        stopped = []
+        monkeypatch.setattr(sim, "create_server", lambda config, off_screen=False: type(
+            "Server", (), {"stop": lambda self: stopped.append(True)})())
+        assert interact.main(["--device", "cpu", "--max-steps", "3", "--opts", *_tiny_opts()]) == 3
+        assert stopped == [True]
+    assert len(envs) == 1 and envs[0].steps == 3

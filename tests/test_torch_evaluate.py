@@ -247,7 +247,37 @@ def test_evaluate_cli_console_main_returns_zero(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--scenarios-json", "--host", "--port"])
-def test_evaluate_cli_refuses_carla_only_flags(flag):
-    """The port has no CARLA env, so it takes none of the flags only that env reads."""
-    with pytest.raises(SystemExit):
-        tcli.parse_args(["--fake-env", "--checkpoint-json", "c.json", flag, "x"])
+def test_evaluate_cli_refuses_carla_only_flags(monkeypatch, tmp_path, flag):
+    """The CARLA-only flags reach what reads them: --host and --port the
+    ``CarlaDrivingEnv`` the CLI builds (``eval_mode``, the suite's tasks),
+    --scenarios-json ``build_suite_tasks`` and through it every task; the
+    run drives that env over ``tests/mock_carla.py``. (The port refused
+    these flags while it had no CARLA env.)"""
+    import sys
+
+    import mock_carla
+
+    from autonomous_driving_with_diffusion_model_tpu_torch.sim import carla_env
+
+    monkeypatch.setitem(sys.modules, "carla", mock_carla)
+    value = {"--scenarios-json": str(tmp_path / "s.json"), "--host": "carla-host", "--port": "2012"}[flag]
+    (tmp_path / "s.json").write_text("{}")
+    built, suites = [], []
+    real_tasks = tsuites.build_suite_tasks
+    monkeypatch.setattr(tsuites, "build_suite_tasks", lambda env_id, **kw: suites.append(kw) or real_tasks(env_id, **kw))
+
+    class Recorded(carla_env.CarlaDrivingEnv):
+        def __init__(self, **kwargs):
+            built.append(kwargs)
+            super().__init__(**kwargs)
+
+    monkeypatch.setattr(carla_env, "CarlaDrivingEnv", Recorded)
+    data = tcli.main(["--env-id", "Endless-v0", "--device", "cpu", "--checkpoint-json", str(tmp_path / "c.json"),
+                      "--max-steps", "2", flag, value, "--opts", *TINY])
+    (kwargs,) = built
+    assert kwargs["eval_mode"] is True and kwargs["town"] == "Town01"
+    assert [t["weather"] for t in kwargs["tasks"]] == [t["weather"] for t in real_tasks("Endless-v0")]
+    assert kwargs["host"] == (value if flag == "--host" else "localhost")
+    assert kwargs["port"] == (int(value) if flag == "--port" else 2000)
+    assert suites[0]["scenarios_json"] == (value if flag == "--scenarios-json" else None)
+    assert data["_checkpoint"]["records"][0]["meta"]["env_kind"] == "carla"

@@ -2,8 +2,10 @@
 of ``autonomous_driving_with_diffusion_model_tpu_torch`` and ``chip_smoke``
 import in a fresh interpreter where ``import jax`` and ``import flax`` fail;
 the leaderboard agent, loaded by file path as the harness loads it, ticks
-with neither them nor ``cv2`` and ``PIL``; and the PNG reader and the train
-CLI read and train with neither."""
+with neither them nor ``cv2`` and ``PIL``; the PNG reader and the train
+CLI read and train with neither; and the simulator layer imports with no
+``carla``, ``cv2``, ``PIL`` or ``h5py``, and collects and audits a dataset
+from its CARLA env (over ``tests/mock_carla.py``) without ``cv2`` and ``PIL``."""
 
 import json
 import os
@@ -55,7 +57,12 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "driving.evaluate_cli", "sim.suites", "interact", "data.png", "data.dataset",
                 "train.ema", "train.state", "train.checkpoint", "train.cli", "utils.meters",
                 "utils.tracker", "utils.profiling", "diffusion.distill", "distill", "parallel",
-                "parallel.distributed", "parallel.ddp", "parallel.check"):
+                "parallel.distributed", "parallel.ddp", "parallel.check", "data.validate",
+                "sim.server_utils", "sim.weather", "sim.criteria", "sim.obs", "sim.reward",
+                "sim.terminal", "sim.traffic_lights", "sim.expert", "sim.route_planner",
+                "sim.scenario_actors", "sim.scenario_injection", "sim.birdview", "sim.map_raster",
+                "sim.carla_env", "sim.create_agent", "sim.obs_handler", "sim.noiser", "sim.collector",
+                "sim.collect_loop", "sim.collect_cli"):
         assert f"autonomous_driving_with_diffusion_model_tpu_torch.{sub}" in result["imported"]
     assert result["jax_side"] == []
     assert result["jax"] == []
@@ -153,3 +160,48 @@ def test_png_and_train_cli_need_no_cv2_or_pil(tmp_path):
     assert out.returncode == 0, out.stderr
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result == {"same": True, "step": 1, "blocked": [], "jax_side": []}
+
+
+# The simulator layer: importing it needs none of carla (imported inside
+# the functions that talk to a server), cv2, PIL or h5py (the birdview and
+# the map rasterizer import them when they run); with cv2 and PIL blocked,
+# the collector writes 2 samples from CarlaDrivingEnv over the mock, the
+# audit reads them clean, and the port's dataset loads them.
+_SIM_PROBE = r"""
+import json, os, sys
+for name in ("jax", "flax", "cv2", "PIL", "h5py", "carla"):
+    sys.modules[name] = None
+sys.path.insert(0, REPO)
+import autonomous_driving_with_diffusion_model_tpu_torch.sim as sim
+import autonomous_driving_with_diffusion_model_tpu_torch.data.validate as validate
+mods = [m for m in sys.modules if sys.modules[m] is not None]
+imported = {"blocked": sorted(m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "flax", "cv2", "PIL", "h5py", "carla")),
+            "jax_side": sorted(m for m in mods if m.split(".")[0] == "autonomous_driving_with_diffusion_model_tpu")}
+sys.path.insert(0, os.path.join(REPO, "tests"))
+import mock_carla
+sys.modules["carla"] = mock_carla
+from autonomous_driving_with_diffusion_model_tpu_torch.sim.carla_env import CarlaDrivingEnv
+env = CarlaDrivingEnv(seed=2)
+root = os.path.join(TMP, "data")
+saved = sim.DataCollector(env, root, total_to_save=2, save_every_n_frame=1, buffer_frames=2).run(max_env_steps=200)
+env.close()
+report = validate.validate_dataset(root)
+from autonomous_driving_with_diffusion_model_tpu_torch.data import TrajDataset
+item = TrajDataset(root)[1]
+mods = [m for m in sys.modules if sys.modules[m] is not None]
+print(json.dumps({"imported": imported, "saved": saved, "ok": report["ok"], "hw": report["image_hw"],
+                  "trajs": list(item["trajs"].shape),
+                  "blocked": sorted(m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "flax", "cv2", "PIL", "h5py")),
+                  "jax_side": sorted(m for m in mods if m.split(".")[0] == "autonomous_driving_with_diffusion_model_tpu")}))
+"""
+
+
+def test_sim_imports_without_carla_and_collects_without_cv2_or_pil(tmp_path):
+    code = _SIM_PROBE.replace("REPO", repr(REPO)).replace("TMP", repr(str(tmp_path)))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=str(tmp_path),
+                         env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result == {"imported": {"blocked": [], "jax_side": []}, "saved": 2, "ok": True, "hw": [256, 900],
+                      "trajs": [16, 7], "blocked": [], "jax_side": []}
