@@ -88,12 +88,25 @@ Phases, each of which fails the run (nonzero exit, no result line):
    which must write one "carla" record whose route length is the env's; the
    collector writing 8 samples from the env under the expert with the port's
    PNG writer, ``data/validate.py`` reading them clean, and one training step
-   at B = 8 from them with a finite loss.
+   at B = 8 from them with a finite loss;
+12. the learnability harness (``learnability.py``) at full width, bfloat16,
+   BatchNorm frozen: its synthetic dataset (120 frames by the port's PNG
+   writer, 24 held-out samples); one bf16 training step at B = 2 on the
+   card against the CPU's fp32 and bf16 steps from the same weights, batch
+   and draws (the card's loss and gradients within 2x the CPU's own
+   bf16-vs-fp32 gap: the first card check of bf16 training through the
+   kernels' ``Recompute``); its ``train`` (the train CLI) at B = 64 for 20
+   iterations (the CLI's meter: step p50, samples/s; peak memory; 16 / 1
+   launches per step; one profiled step); its ``evaluate`` from that
+   checkpoint at 40 straight and 60 curved ticks (160 / 10 launches per
+   DDIM-10 plan, the 24 held-out plans within BF16_PLAN_TOL of a CPU
+   planner's); its ``distill`` 8 -> 4 -> 2 at 3 iterations a stage and the
+   2-step student's plans.
 
 The last two lines of standard output are the card (nvidia-smi) and the
 kernels as JSON, then ``{"ok": true, "device": ...}``. Per-shape numbers and
-phase 6's results (under ``agents``) and phase 11's (under ``carla``) go to
-chiprun_out/chip_smoke.json.
+phase 6's results (under ``agents``), phase 11's (under ``carla``) and phase
+12's (under ``learnability``) go to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -195,6 +208,20 @@ SUBPROCESS_TIMEOUT_S = 300
 SHADOW_TICKS = 10  # phase 11: CFG ticks a CPU agent shadows
 EVAL_STEPS = 20  # phase 11: evaluate_cli's steps on the native env
 COLLECT_SAMPLES = 8  # phase 11: samples collected, and the training batch
+# phase 12, the learnability harness at full width: the train CLI's
+# iterations at LEARN_BATCH, the closed loops' ticks (straight, curved),
+# the distill chain 8 -> 4 -> 2 at 3 iterations a stage
+LEARN_ITERS = 20
+LEARN_BATCH = 64
+LEARN_TICKS = (40, 60)
+LEARN_DISTILL = dict(start=8, stages=2, iters=3)
+# the bf16 step on the card against the CPU's (phase 12): its loss and
+# gradients within 2x the CPU's own bf16-vs-fp32 gap of the fp32 step, plus
+# one bf16 ulp of a loss near 0.5 and 1e-3 of the gradient's norm, the
+# bound tests/test_torch_train_variants.py holds the CPU's bf16 step to
+BF16_STEP_GAP = 2.0
+BF16_LOSS_SLACK = 2e-3
+BF16_GRAD_SLACK = 1e-3
 REPLACES = {
     "fused_residual_block": "autonomous_driving_with_diffusion_model_tpu/ops/pallas_kernels.py:106",
     "fused_conv1d_gn_mish": "autonomous_driving_with_diffusion_model_tpu/ops/pallas_kernels.py:206",
@@ -236,6 +263,24 @@ def near_threshold(raw, tol: float) -> bool:
     return min(abs(brake - 0.05), abs(brake - 0.5), abs(throttle - brake)) <= tol
 
 
+def counted(launches, run):
+    """run() with every launch count set to 0 just before and read just
+    after; the counts are added to ``launches``, which gathers them for the
+    kernels line. Fails if a kernel of the path was not launched."""
+    import torch
+
+    from autonomous_driving_with_diffusion_model_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    result = run()
+    torch.cuda.synchronize()
+    got = {k: getattr(kernels, k).launches for k in launches}
+    for k in launches:
+        launches[k] += got[k]
+    if not all(got.values()):
+        raise AssertionError(f"a kernel of the path was not launched: {got}")
+    return result, got
+
 def card_rates(name: str):
     """(bytes/s, float32 FLOP/s, dense bf16 FLOP/s) from the data sheet of
     the named part."""
@@ -263,20 +308,6 @@ def agents(load_cfg, case, device_breakdown, launches, max_err, smi) -> dict:
         evaluate_cli,
     )
     from autonomous_driving_with_diffusion_model_tpu_torch.models import ResidualTemporalMapBlock
-    from autonomous_driving_with_diffusion_model_tpu_torch.ops import kernels
-
-    def counted(run):
-        """run() with every launch count set to 0 just before and read just
-        after; the counts also go to the kernels line."""
-        kernels.reset_launch_counts()
-        out = run()
-        torch.cuda.synchronize()
-        got = {k: getattr(kernels, k).launches for k in launches}
-        for k in launches:
-            launches[k] += got[k]
-        if not all(got.values()):
-            raise AssertionError(f"a kernel of the path was not launched: {got}")
-        return out, got
 
     def steps_of(cfg):
         return len(cfg.TPU.SAMPLE_TIMESTEPS) or cfg.EVAL.SAMPLE_STEPS
@@ -303,7 +334,7 @@ def agents(load_cfg, case, device_breakdown, launches, max_err, smi) -> dict:
         obs = {d: a.env.reset() for d, a in agent.items()}
         row["lockstep"] = []
         for tick in range(2 if n_fwd > 10 else 4):
-            _, got = counted(lambda: agent["gpu"].compute_control(obs["gpu"]))
+            _, got = counted(launches, lambda: agent["gpu"].compute_control(obs["gpu"]))
             if got != per_tick:
                 raise AssertionError(f"{path} tick {tick}: launches {got} != {per_tick}")
             agent["cpu"].compute_control(obs["cpu"])
@@ -356,7 +387,7 @@ def agents(load_cfg, case, device_breakdown, launches, max_err, smi) -> dict:
                 if pipelined:  # the last plan is still in flight: land it
                     agent._pending_plan[0].result()
 
-            _, got = counted(run_ticks)
+            _, got = counted(launches, run_ticks)
             agent.close()
             want = {k: v * (LATENCY_TICKS + 1) for k, v in per_tick.items()}
             if got != want:
@@ -429,7 +460,7 @@ def agents(load_cfg, case, device_breakdown, launches, max_err, smi) -> dict:
             pid.append(control.tolist())
             state = env.step({0: control})[0]
 
-    _, got = counted(pid_ticks)
+    _, got = counted(launches, pid_ticks)
     cpu = DiffusionPlanner(cfg, seed=0, device="cpu")
     cpu.init_trajs = planner.init_trajs.cpu()
     diff = float(np.abs(trajs[0] - cpu.plan(np.asarray(FakeDrivingEnv(image_hw=(256, 900), seed=0)
@@ -463,7 +494,7 @@ def agents(load_cfg, case, device_breakdown, launches, max_err, smi) -> dict:
         if step < agent.cfg.ENV.AGENT_WARMUP:
             c = agent.run_step(inputs, 0.05 * step)
         else:
-            c, got = counted(lambda: agent.run_step(inputs, 0.05 * step))
+            c, got = counted(launches, lambda: agent.run_step(inputs, 0.05 * step))
         lb.append(dict(step=step, control=[c.throttle, c.steer, c.brake],
                        launches=None if step < agent.cfg.ENV.AGENT_WARMUP else got))
     ok = (all(np.isfinite(r["control"]).all() for r in lb)
@@ -482,7 +513,7 @@ def agents(load_cfg, case, device_breakdown, launches, max_err, smi) -> dict:
     if os.path.exists(ckpt):
         os.remove(ckpt)  # a resumed run would skip the route
     t0 = time.perf_counter()
-    data, got = counted(lambda: evaluate_cli.main(
+    data, got = counted(launches, lambda: evaluate_cli.main(
         ["--env-id", "Endless-v0", "--weather-group", "simple", "--fake-env", "--max-steps", "15",
          "--checkpoint-json", ckpt]))
     records = data["_checkpoint"]["records"]
@@ -1559,7 +1590,6 @@ def carla(load_cfg, device_breakdown, launches, smi, dev="cuda", extra_opts=()) 
     )
     from autonomous_driving_with_diffusion_model_tpu_torch.driving.scoring import episode_stats
     from autonomous_driving_with_diffusion_model_tpu_torch.models import build_model
-    from autonomous_driving_with_diffusion_model_tpu_torch.ops import kernels
     from autonomous_driving_with_diffusion_model_tpu_torch.sim import DataCollector, carla_env
     from autonomous_driving_with_diffusion_model_tpu_torch.sim.suites import TransformSpec
     from autonomous_driving_with_diffusion_model_tpu_torch.train import cli, create_train_state, make_train_step
@@ -1574,19 +1604,6 @@ def carla(load_cfg, device_breakdown, launches, smi, dev="cuda", extra_opts=()) 
 
     def steps_of(cfg):
         return len(cfg.TPU.SAMPLE_TIMESTEPS) or cfg.EVAL.SAMPLE_STEPS
-
-    def counted(run):
-        """run() with every launch count set to 0 just before and read just
-        after; the counts also go to the kernels line."""
-        kernels.reset_launch_counts()
-        result = run()
-        torch.cuda.synchronize()
-        got = {k: getattr(kernels, k).launches for k in launches}
-        for k in launches:
-            launches[k] += got[k]
-        if not all(got.values()):
-            raise AssertionError(f"a kernel of the path was not launched: {got}")
-        return result, got
 
     def pct(xs, q):
         return float(np.percentile(xs, q))
@@ -1645,7 +1662,7 @@ def carla(load_cfg, device_breakdown, launches, smi, dev="cuda", extra_opts=()) 
         host_objects = len(gc.get_objects())
         gc_before = [g["collections"] for g in gc.get_stats()]
         for mode in ("carla", "fake", "fake", "carla"):
-            _, got = counted(lambda: run_ticks(mode))
+            _, got = counted(launches, lambda: run_ticks(mode))
             want = {k: v * (half + 1) for k, v in per_tick.items()}
             if got != want:
                 raise AssertionError(f"{path} on {mode}: launches {got} != {want}")
@@ -1682,7 +1699,7 @@ def carla(load_cfg, device_breakdown, launches, smi, dev="cuda", extra_opts=()) 
             shadow = InteractAgent(cfg, None, planner=cpu, on_frame=lambda s, t, c: frames["cpu"].append((t, c)))
             row["shadow"] = []
             for tick in range(SHADOW_TICKS):
-                _, got = counted(lambda: gpu_agent.compute_control(state))
+                _, got = counted(launches, lambda: gpu_agent.compute_control(state))
                 if got != per_tick:
                     raise AssertionError(f"{path} shadow tick {tick}: launches {got} != {per_tick}")
                 shadow.compute_control(state)
@@ -1738,7 +1755,7 @@ def carla(load_cfg, device_breakdown, launches, smi, dev="cuda", extra_opts=()) 
     carla_env.CarlaDrivingEnv = Traced
     t0 = time.perf_counter()
     try:
-        data, got = counted(lambda: evaluate_cli.main(argv))
+        data, got = counted(launches, lambda: evaluate_cli.main(argv))
     finally:
         carla_env.CarlaDrivingEnv = native
     records = data["_checkpoint"]["records"]
@@ -1789,7 +1806,7 @@ def carla(load_cfg, device_breakdown, launches, smi, dev="cuda", extra_opts=()) 
     for i in range(2):  # the first step includes cuDNN's first choice of algorithms
         t0 = time.perf_counter()
         if i == 0:
-            loss, got = counted(lambda: float(step(st, batch, generator=gen)["loss"]))
+            loss, got = counted(launches, lambda: float(step(st, batch, generator=gen)["loss"]))
         else:
             second = float(step(st, batch, generator=gen)["loss"])
         step_ms.append((time.perf_counter() - t0) * 1e3)
@@ -1805,6 +1822,238 @@ def carla(load_cfg, device_breakdown, launches, smi, dev="cuda", extra_opts=()) 
     if jax_side:
         raise AssertionError(f"phase 11 imported the JAX package: {jax_side}")
     sys.modules.pop("carla", None)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def learnability(device_breakdown, launches, smi, dev="cuda", quick=False) -> dict:
+    """Phase 12: the learnability harness (``learnability.py``) at full
+    width, ResNet-34 at 900x256, ``MODEL.DIM`` 64, bfloat16, BatchNorm
+    frozen: (a) its dataset (120 training frames with the port's PNG writer,
+    24 held-out samples); (b) one bf16 training step at B = 2 on the card
+    against the CPU's fp32 and bf16 steps from the same weights, batch and
+    draws; (c) its ``train`` (the train CLI) at B = LEARN_BATCH for
+    LEARN_ITERS iterations: the meter's step p50, samples/s, peak memory,
+    launches per step, and one profiled step outside the CLI; (d) its
+    ``evaluate`` from that checkpoint at LEARN_TICKS ticks (launches per
+    plan; the held-out plans against a CPU planner's); (e) its ``distill``,
+    8 -> 4 -> 2 steps, and the 2-step student's plans. ``dev`` is the card
+    and ``quick`` False (the CPU and the tiny model only to rehearse it)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from autonomous_driving_with_diffusion_model_tpu_torch import learnability as lb
+    from autonomous_driving_with_diffusion_model_tpu_torch.data import (
+        TrajDataset,
+        augment_batch,
+        get_loader,
+        maybe_device_resident,
+        normalize_images,
+    )
+    from autonomous_driving_with_diffusion_model_tpu_torch.diffusion import make_schedule_from_cfg
+    from autonomous_driving_with_diffusion_model_tpu_torch.driving import DiffusionPlanner
+    from autonomous_driving_with_diffusion_model_tpu_torch.models import build_model
+    from autonomous_driving_with_diffusion_model_tpu_torch.train import (
+        StepDraws,
+        cli,
+        create_train_state,
+        make_train_step,
+    )
+    from autonomous_driving_with_diffusion_model_tpu_torch.utils.config import create_cfg
+
+    dev = torch.device(dev)
+    hw = (64, 96) if quick else (256, 900)
+    out = {}
+    t_phase = time.perf_counter()
+    work = os.path.join(REPO, "build", "phase12")
+    shutil.rmtree(work, ignore_errors=True)
+    root, run_dir = os.path.join(work, "data"), os.path.join(work, "run")
+
+    def per_forward(n):
+        return {"fused_residual_block": 16 * n, "fused_conv1d_gn_mish": n}
+
+    plans = []  # the denoising steps of each plan the planners begin
+    plan_begin = DiffusionPlanner.plan_begin
+
+    def counting_begin(self, *a, **kw):
+        plans.append(self._sample.num_steps)
+        return plan_begin(self, *a, **kw)
+
+    # 12.a the dataset
+    t0 = time.perf_counter()
+    samples = lb.write_dataset(root, 40, seed=0, hw=hw)
+    heldout = lb.heldout_samples(8)
+    out["dataset"] = dict(n_train=len(samples), n_heldout=len(heldout), seconds=time.perf_counter() - t0)
+    log(f"learnability data: {len(samples)} training frames of {hw[1]}x{hw[0]} written by data/png.py in "
+        f"{out['dataset']['seconds']:.1f} s; {len(heldout)} held-out samples")
+
+    # 12.b one bf16 step at B = 2 on the card against the CPU's fp32 and
+    # bf16 steps: the same weights, batch (two training frames) and draws
+    base = lb.train_opts(root, run_dir, hw=hw, max_iter=LEARN_ITERS, batch=LEARN_BATCH, quick=quick, log_interval=1)
+
+    def config(*opts):
+        cfg = create_cfg()
+        cfg.merge_from_list(base + list(opts))
+        return cfg
+
+    ds = TrajDataset(root)
+    items = [ds[0], ds[len(ds) - 1]]  # a left and a right curve
+    batch = {"image": normalize_images(torch.from_numpy(np.stack([it["image"] for it in items]))),
+             "trajs": torch.from_numpy(np.stack([it["trajs"] for it in items])),
+             "target": torch.from_numpy(np.stack([it["target"] for it in items]))}
+    rng = np.random.default_rng(12)
+    B = len(items)
+    draws = StepDraws(torch.from_numpy(rng.integers(0, config().TRAIN.TIME_STEPS, B)),
+                      torch.from_numpy(rng.standard_normal((B, 16, 7)).astype(np.float32)), torch.tensor([True]))
+
+    def one_step(dtype, d):
+        t0 = time.perf_counter()
+        cfg = config("TPU.COMPUTE_DTYPE", dtype)
+        st = create_train_state(build_model(cfg, device=d, seed=0), cfg)
+        m = make_train_step(make_schedule_from_cfg(cfg, d), cfg)(st, {k: v.to(d) for k, v in batch.items()}, draws)
+        return dict(loss=float(m["loss"]), seconds=time.perf_counter() - t0,
+                    grads={n: p.grad.detach().float().cpu() for n, p in st.model.named_parameters()})
+
+    f32 = one_step("float32", torch.device("cpu"))
+    b16 = one_step("bfloat16", torch.device("cpu"))
+    card, got = counted(launches, lambda: one_step("bfloat16", dev))
+    norm = sum(float(v.square().sum()) for v in f32["grads"].values()) ** 0.5
+
+    def grad_gap(g):
+        return sum(float((g[n] - f32["grads"][n]).square().sum()) for n in g) ** 0.5 / norm
+
+    row = dict(batch=B, losses=dict(cpu_fp32=f32["loss"], cpu_bf16=b16["loss"], card_bf16=card["loss"]),
+               cpu_loss_gap=abs(b16["loss"] - f32["loss"]), card_loss_gap=abs(card["loss"] - f32["loss"]),
+               cpu_grad_gap=grad_gap(b16["grads"]), card_grad_gap=grad_gap(card["grads"]),
+               card_vs_cpu_bf16_grad=sum(float((card["grads"][n] - b16["grads"][n]).square().sum())
+                                         for n in card["grads"]) ** 0.5 / norm,
+               launches=got, seconds=dict(cpu_fp32=f32["seconds"], cpu_bf16=b16["seconds"], card=card["seconds"]))
+    row["loss_bound"] = BF16_STEP_GAP * row["cpu_loss_gap"] + BF16_LOSS_SLACK
+    row["grad_bound"] = BF16_STEP_GAP * row["cpu_grad_gap"] + BF16_GRAD_SLACK
+    ok = (row["card_loss_gap"] <= row["loss_bound"] and row["card_grad_gap"] <= row["grad_bound"]
+          and got == per_forward(1) and np.isfinite(card["loss"])
+          and all(bool(torch.isfinite(g).all()) for g in card["grads"].values()))
+    out["bf16_step"] = row
+    log(f"learnability bf16 step, B={B} at {hw[1]}x{hw[0]}: losses CPU fp32 {f32['loss']:.6f}, CPU bf16 "
+        f"{b16['loss']:.6f}, card bf16 {card['loss']:.6f}: the card's gap to fp32 {row['card_loss_gap']:.3e} "
+        f"(bound {row['loss_bound']:.3e} = {BF16_STEP_GAP} x the CPU's {row['cpu_loss_gap']:.3e} + "
+        f"{BF16_LOSS_SLACK}); gradients' distance to fp32 over its norm, card {row['card_grad_gap']:.3e} (bound "
+        f"{row['grad_bound']:.3e} = {BF16_STEP_GAP} x the CPU's {row['cpu_grad_gap']:.3e} + {BF16_GRAD_SLACK}), "
+        f"card vs CPU bf16 {row['card_vs_cpu_bf16_grad']:.3e}; launches {got}; CPU fp32 {f32['seconds']:.1f} s, "
+        f"CPU bf16 {b16['seconds']:.1f} s, card {card['seconds']:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the card's bf16 step is outside the bound: {row}")
+    del f32, b16, card
+
+    # 12.c the train CLI through learnability.train: its meter, peak memory,
+    # launches per step; then one profiled step outside the CLI
+    torch.cuda.reset_peak_memory_stats()
+    trained, got = counted(launches, lambda: lb.train(root, run_dir, hw=hw, max_iter=LEARN_ITERS,
+                                                      batch=LEARN_BATCH, quick=quick, device=dev, log_interval=1))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    ckpt = trained["checkpoint"]
+    cfg = config()
+    loader = maybe_device_resident(get_loader(cfg), cfg, dev)
+    st = create_train_state(build_model(cfg, device=dev, seed=0), cfg)
+    step = make_train_step(make_schedule_from_cfg(cfg, dev), cfg)
+    data = iter(loader)
+
+    def one(it):
+        nonlocal data
+        try:
+            b = next(data)
+        except StopIteration:
+            data = iter(loader)
+            b = next(data)
+        b = {k: torch.as_tensor(v).to(dev, non_blocking=True) for k, v in b.items()}  # as the CLI does
+        aug, g = cli.iteration_generators(it, dev)
+        b["image"] = normalize_images(augment_batch(b["image"], aug, it * cfg.TRAIN.BATCH_SIZE))
+        return step(st, b, generator=g)
+
+    for it in range(2):
+        one(it)
+    busy = device_breakdown(lambda: one(2))
+    del st, loader, data
+    meter = trained["meter_s"]
+    ok = (got == {k: v * LEARN_ITERS for k, v in per_forward(1).items()} and os.path.exists(ckpt)
+          and len(meter) == LEARN_ITERS and np.isfinite(trained["step_s_p50"]))
+    out["train"] = dict(batch=LEARN_BATCH, iters=LEARN_ITERS, step_ms_p50=trained["step_s_p50"] * 1e3,
+                        meter_ms=[v * 1e3 for v in meter], samples_per_s=trained["samples_per_s"], peak_mib=peak,
+                        launches=got, launches_per_step={k: v / LEARN_ITERS for k, v in got.items()},
+                        cli_seconds=trained["cli_seconds"], profile=busy)
+    log(f"learnability train CLI: B={LEARN_BATCH} at {hw[1]}x{hw[0]}, bf16, BN frozen, {LEARN_ITERS} iterations "
+        f"in {trained['cli_seconds']:.1f} s; its meter's step p50 {trained['step_s_p50'] * 1e3:.2f} ms over "
+        f"iterations 2-{LEARN_ITERS} ({trained['samples_per_s']:.1f} samples/s), peak {peak:.1f} MiB, launches "
+        f"per step {out['train']['launches_per_step']}; one profiled step {busy['wall_ms']:.2f} ms, device busy "
+        f"{busy['device_ms']:.2f} ms ({busy['busy_share']:.3f}), by kind {busy['by_kind']}; on {smi} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"learnability train: launches {got}, checkpoint {ckpt}, meter {meter}")
+
+    # 12.d evaluate from that checkpoint: 160 / 10 launches per DDIM-10 plan;
+    # the held-out plans against a CPU planner's on the same checkpoint
+    DiffusionPlanner.plan_begin = counting_begin
+    try:
+        plans.clear()
+        t0 = time.perf_counter()
+        res, got = counted(launches, lambda: lb.evaluate(ckpt, heldout, hw, quick=quick, device=dev,
+                                                         cl_steps=LEARN_TICKS[0], cv_steps=LEARN_TICKS[1]))
+        eval_s = time.perf_counter() - t0
+        n_plans = len(plans)
+        ok = (set(plans) == {10} and got == per_forward(10 * n_plans)
+              and all(np.isfinite(v) for v in res.values() if isinstance(v, float)))
+    finally:
+        DiffusionPlanner.plan_begin = plan_begin
+    cfg = lb.make_cfg(hw=hw, quick=quick)
+    gpu = DiffusionPlanner(cfg, checkpoint=ckpt, device=dev)
+    cpu = DiffusionPlanner(cfg, checkpoint=ckpt, device="cpu")
+    cpu.init_trajs = gpu.init_trajs.cpu()
+    diffs = []
+    for s in heldout:
+        frame = lb.heldout_frame(s, hw)
+        a, b = gpu.plan(frame), cpu.plan(frame)
+        diffs.append(float(np.abs(a - b).max()))
+        ok = ok and np.allclose(a, b, **BF16_PLAN_TOL) and np.isfinite(a).all()
+    del gpu, cpu
+    out["evaluate"] = dict(result=res, plans=n_plans, launches=got, launches_per_plan=per_forward(10),
+                           gpu_vs_cpu_heldout_max_abs_m=max(diffs), seconds=eval_s)
+    log(f"learnability evaluate ({LEARN_ITERS}-iteration checkpoint, {LEARN_TICKS[0]} straight and "
+        f"{LEARN_TICKS[1]} curved ticks): {n_plans} plans of DDIM-10 bf16, launches {got} ({per_forward(10)} per "
+        f"plan), {eval_s:.1f} s; the {len(heldout)} held-out plans GPU vs CPU max_abs_diff {max(diffs):.3e} m "
+        f"(BF16_PLAN_TOL {BF16_PLAN_TOL}); keys {json.dumps(res)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"learnability evaluate: plans {sorted(set(plans))}, launches {got}, diffs {diffs}")
+
+    # 12.e distill 8 -> 4 -> 2 and plan with the 2-step student (and the
+    # teacher at 8 and 2 steps)
+    DiffusionPlanner.plan_begin = counting_begin
+    try:
+        plans.clear()
+        t0 = time.perf_counter()
+        dres, got = counted(launches, lambda: lb.distill(
+            ckpt, root, heldout, hw, quick=quick, device=dev, batch=LEARN_BATCH, workdir=work, cl_steps=10,
+            cv_steps=10, eval_ks=(2,), **LEARN_DISTILL))
+        distill_s = time.perf_counter() - t0
+    finally:
+        DiffusionPlanner.plan_begin = plan_begin
+    # a distill step: the teacher's two forwards without a gradient, the student's one with
+    fwd = 3 * LEARN_DISTILL["iters"] * LEARN_DISTILL["stages"] + sum(plans)
+    student = dres["students"].get("2", {})
+    ok = (got == per_forward(fwd) and dres["stage_steps"] == [4, 2] and set(plans) == {8, 2}
+          and all(np.isfinite(v) for v in student.values()) and len(student) == 5)
+    out["distill"] = dict(result=dres, plans=len(plans), plan_steps=sum(plans), launches=got, seconds=distill_s)
+    log(f"learnability distill: {LEARN_DISTILL}, stages {dres['stage_steps']} in {dres['seconds']:.1f} s; the "
+        f"2-step student {student}, the teacher at 8 {dres['teacher'].get('8')} and at 2 {dres['teacher'].get('2')}; "
+        f"{len(plans)} plans ({sum(plans)} denoising steps), launches {got} (expected {per_forward(fwd)}: 3 "
+        f"forwards a distill step, 1 a denoising step) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"learnability distill: launches {got}, plans {plans}, result {dres}")
+    shutil.rmtree(work, ignore_errors=True)
+    jax_side = sorted(m for m in sys.modules if m.split(".")[0] == "autonomous_driving_with_diffusion_model_tpu")
+    if jax_side:
+        raise AssertionError(f"phase 12 imported the JAX package: {jax_side}")
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -2249,6 +2498,9 @@ def main() -> int:
     # ------------------------------------------------------ 11. the CARLA env
     report["carla"] = carla(load_cfg, device_breakdown, launches, smi)
     phase_done(11)
+    # ----------------------------------------------- 12. the learnability harness
+    report["learnability"] = learnability(device_breakdown, launches, smi)
+    phase_done(12)
     report["phase_done_s"] = phase_s
 
     kernels_line = []

@@ -28,7 +28,8 @@ for name in names:
 import chip_smoke
 jax_side = sorted(m for m in sys.modules
                   if m == "autonomous_driving_with_diffusion_model_tpu"
-                  or m.startswith("autonomous_driving_with_diffusion_model_tpu."))
+                  or m.startswith("autonomous_driving_with_diffusion_model_tpu.")
+                  or m == "learnability")
 print(json.dumps({"imported": names, "jax_side": jax_side,
                   "jax": [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")
                           and sys.modules[m] is not None]}))
@@ -62,7 +63,7 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "sim.terminal", "sim.traffic_lights", "sim.expert", "sim.route_planner",
                 "sim.scenario_actors", "sim.scenario_injection", "sim.birdview", "sim.map_raster",
                 "sim.carla_env", "sim.create_agent", "sim.obs_handler", "sim.noiser", "sim.collector",
-                "sim.collect_loop", "sim.collect_cli"):
+                "sim.collect_loop", "sim.collect_cli", "learnability", "entry"):
         assert f"autonomous_driving_with_diffusion_model_tpu_torch.{sub}" in result["imported"]
     assert result["jax_side"] == []
     assert result["jax"] == []
@@ -205,3 +206,35 @@ def test_sim_imports_without_carla_and_collects_without_cv2_or_pil(tmp_path):
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result == {"imported": {"blocked": [], "jax_side": []}, "saved": 2, "ok": True, "hw": [256, 900],
                       "trajs": [16, 7], "blocked": [], "jax_side": []}
+
+
+# The learnability harness and the entry points: with jax, flax, cv2 and PIL
+# blocked they import, the harness writes its dataset (data/png.py) and the
+# port's dataset reads it back; neither reaches the root learnability.py.
+_LEARNABILITY_PROBE = r"""
+import json, os, sys
+for name in ("jax", "flax", "cv2", "PIL"):
+    sys.modules[name] = None
+sys.path.insert(0, REPO)
+from autonomous_driving_with_diffusion_model_tpu_torch import entry, learnability
+from autonomous_driving_with_diffusion_model_tpu_torch.data import TrajDataset
+from autonomous_driving_with_diffusion_model_tpu_torch.utils import profiling
+samples = learnability.write_dataset(os.path.join(TMP, "d"), 1, 0, (32, 48))
+item = TrajDataset(os.path.join(TMP, "d"))[2]
+mods = [m for m in sys.modules if sys.modules[m] is not None]
+print(json.dumps({"n": len(samples), "same": bool((item["trajs"] == samples[2]["traj"]).all()),
+                  "image": list(item["image"].shape),
+                  "blocked": sorted(m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "flax", "cv2", "PIL")),
+                  "jax_side": sorted(m for m in mods if m.split(".")[0] in
+                                     ("autonomous_driving_with_diffusion_model_tpu", "learnability"))}))
+"""
+
+
+def test_learnability_and_entry_need_no_jax_cv2_or_pil(tmp_path):
+    code = _LEARNABILITY_PROBE.replace("REPO", repr(REPO)).replace("TMP", repr(str(tmp_path)))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=str(tmp_path),
+                         env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result == {"n": 3, "same": True, "image": [32, 48, 3], "blocked": [], "jax_side": []}
