@@ -21,6 +21,8 @@ agree in distribution, not in values.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -32,11 +34,18 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 OPS = ("blur", "noise", "coarse_dropout", "dropout", "add", "multiply", "contrast")
 
 
+@functools.lru_cache(maxsize=None)
+def _imagenet_stats(device: torch.device):
+    """(mean, std) as float32 tensors on ``device``, made once: a copy from
+    the host cannot be captured in a CUDA graph (``driving/program.py``)."""
+    return (torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device),
+            torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device))
+
+
 def normalize_images(images: torch.Tensor) -> torch.Tensor:
     """[0, 255] (uint8 or float) NHWC -> ImageNet-normalized float32
     (reference: train.py:156-161)."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=images.device)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=images.device)
+    mean, std = _imagenet_stats(images.device)
     return (images.to(torch.float32) / 255.0 - mean) / std
 
 

@@ -3,11 +3,15 @@ package's ``driving/plan.py``; reference: interact.py:54-168,
 e2e_driving/diffusion_agent.py:45-232).
 
 One plan normalizes the uint8 frame on the device, encodes it once, denoises
-K hypotheses in one batch, scores them and returns the best. ``plan_begin``
-queues all of it on the current CUDA stream and returns device tensors
-without waiting; ``plan_fetch`` waits. Weights come from a seed, or from a
-reference ``.pth`` (``state_dict`` + EMA shadow overwrite) or the port's own
-checkpoint (its EMA shadow), as the distill CLI writes for other encoders.
+K hypotheses in one batch, scores them and returns the best. On the card
+that whole plan is one CUDA graph per input shape (``driving/program.py``,
+the counterpart of the JAX planner's ``jax.jit(_plan)``): ``plan_begin``
+copies the inputs into the graph's buffers, queues its replay on the current
+CUDA stream and returns device tensors without waiting; ``plan_fetch``
+waits. ``_plan`` is the eager body the graph captures. Weights come from a
+seed, or from a reference ``.pth`` (``state_dict`` + EMA shadow overwrite)
+or the port's own checkpoint (its EMA shadow), as the distill CLI writes for
+other encoders.
 
 Random numbers come from the planner's CPU generator, so the GPU and the CPU
 planner of one seed draw the same: the init trajectories, and the step noise
@@ -36,6 +40,7 @@ from ..models.temporal_unet import build_model
 from ..train.checkpoint import load_eval_state_dict
 from ..utils.constants import MAGIC_NUM, GuidanceType
 from ..utils.device import resolve_device
+from .program import PlanProgram
 
 __all__ = ["DiffusionPlanner", "process_next_waypoint", "agent_to_world", "way_point_to_pixel"]
 
@@ -118,6 +123,9 @@ class DiffusionPlanner:
                     "(a .npz written by models.scorer.save_scorer)"
                 )
             self._scorer_net = HypothesisScorer.from_params(*load_scorer(path)).to(self.device)
+        # the plan as one program; its key follows the weights of these modules
+        nets = [self.model] + ([self._scorer_net] if self._scorer == "learned" else [])
+        self._program = PlanProgram(nets, self.device, getattr(torch, str(cfg.TPU.COMPUTE_DTYPE)))
 
     def _draw(self, shape):
         """(init trajectories, step noise or None) from the CPU generator."""
@@ -129,6 +137,8 @@ class DiffusionPlanner:
     @torch.no_grad()
     def _plan(self, init_trajs: torch.Tensor, rgb_u8: torch.Tensor, target: torch.Tensor,
               step_noise: Optional[torch.Tensor]):
+        """The plan's body, eagerly: the program ``plan_begin`` runs, and the
+        plain version it is held against."""
         image = normalize_images(rgb_u8)[None]  # (1, H, W, 3)
         K = init_trajs.shape[0]
         if self._hoisted:
@@ -165,18 +175,15 @@ class DiffusionPlanner:
         return trajs.cpu().numpy(), int(best)
 
     def plan_begin(self, rgb_u8: np.ndarray, target: Optional[np.ndarray] = None):
-        """Queue a plan without waiting: returns device tensors (trajs, best)."""
+        """Queue a plan without waiting: returns device tensors (trajs, best),
+        copies that a later plan does not overwrite."""
         if self._fixed_noise:
             init, noise = self.init_trajs, self.step_noise
         else:
             init, noise = self._draw(self.init_trajs.shape)
         tgt = np.zeros((1, 2), np.float32) if target is None else np.asarray(target, np.float32).reshape(1, 2)
-        return self._plan(
-            init.to(self.device, torch.float32),
-            torch.from_numpy(np.ascontiguousarray(rgb_u8)).to(self.device),
-            torch.from_numpy(tgt).to(self.device),
-            None if noise is None else noise.to(self.device, torch.float32),
-        )
+        return self._program(self._plan, init, torch.from_numpy(np.ascontiguousarray(rgb_u8, np.uint8)),
+                             torch.from_numpy(tgt), noise)
 
     def plan_fetch(self, handle) -> np.ndarray:
         """Wait on a ``plan_begin`` handle; the (1, horizon, 7) trajectory ``plan`` returns."""

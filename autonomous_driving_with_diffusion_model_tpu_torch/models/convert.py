@@ -18,6 +18,11 @@ Beyond the JAX package's ``.pth`` mapping, which covers ResNet-34 only, the
 whole ResNet family and the ``tiny`` test encoder map too, so
 :func:`from_jax_variables` carries any JAX encoder; a ``.pth`` stays
 ResNet-34 only, as there.
+
+:func:`import_torchvision_backbone` starts the encoder from a torchvision
+ResNet-34 ``state_dict`` (``TRAIN.PRETRAINED_BACKBONE``, the reference's
+``resnet34(pretrained=True)``), as JAX ``models/torch_convert.py:330-405``
+does.
 """
 
 from __future__ import annotations
@@ -29,7 +34,8 @@ import torch
 
 from ..utils.constants import GuidanceType
 
-__all__ = ["build_mapping", "from_jax_variables", "apply_ema_shadow_params", "load_torch_checkpoint"]
+__all__ = ["build_mapping", "from_jax_variables", "apply_ema_shadow_params", "load_torch_checkpoint",
+           "import_torchvision_backbone", "load_torchvision_backbone"]
 
 T_NONE = "none"  # identical layout
 T_CONV1D = "conv1d"  # torch (O, I, K)    <- flax (K, I, O)
@@ -279,3 +285,53 @@ def load_torch_checkpoint(path: str, cfg, use_ema: bool = True) -> Dict[str, tor
     if use_ema and isinstance(ckpt, dict) and "ema_state_dict" in ckpt:
         state_dict = apply_ema_shadow_params(state_dict, ckpt["ema_state_dict"]["shadow_params"], cfg)
     return state_dict
+
+
+def import_torchvision_backbone(state_dict: Dict[str, Any], tv_state_dict: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """The model's ``state_dict`` with its encoder from a torchvision ResNet-34
+    ``state_dict`` (keys ``conv1.weight``, ``layer1.0.bn1.running_mean``, ...;
+    torch tensors or numpy arrays), as the reference's fresh training run
+    starts (modeling/temporal.py:83-84):
+
+    * every encoder conv weight, BatchNorm parameter and running statistic
+      comes from ``tv_state_dict``, bit for bit;
+    * torchvision's 1000-way ``fc`` is dropped: the fresh (time_dim, 512)
+      head stays;
+    * every other entry is left as it is, ``num_batches_tracked`` included
+      (JAX keeps no such counter).
+
+    A missing key raises ``KeyError``, a shape that differs ``ValueError``
+    naming the key, and an encoder other than ResNet-34 ``ValueError``.
+    Returns a new dict; the inputs are not changed."""
+    perception = cfg.MODEL.get("PERCEPTION", "resnet34")
+    if perception != "resnet34":
+        raise ValueError(
+            f"TRAIN.PRETRAINED_BACKBONE requires MODEL.PERCEPTION=resnet34 (a torchvision resnet34 "
+            f"state_dict), got {perception}"
+        )
+    params_map, stats_map = _resnet_mapping("resnet34")
+    out = dict(state_dict)
+    for torch_key, _, _ in params_map + stats_map:
+        if torch_key.startswith("perception.fc."):
+            continue  # the fresh time_dim head, not ImageNet's 1000-way fc
+        key = torch_key[len("perception."):]
+        if key not in tv_state_dict:
+            raise KeyError(f"Missing key in torchvision state_dict: {key}")
+        arr = _tensor(tv_state_dict[key])
+        have = out[torch_key]
+        if tuple(arr.shape) != tuple(have.shape):
+            raise ValueError(f"{key}: torchvision shape {tuple(arr.shape)} != model {tuple(have.shape)}")
+        out[torch_key] = arr.to(have.dtype)
+    return out
+
+
+def load_torchvision_backbone(path: str, state_dict: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """:func:`import_torchvision_backbone` from a ``.pth`` file: a bare
+    ``state_dict``, a dict holding one under ``state_dict``, or a saved
+    module (what ``torchvision.models.resnet34(pretrained=True)`` gives)."""
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    if hasattr(sd, "state_dict"):  # a whole module was saved
+        sd = sd.state_dict()
+    return import_torchvision_backbone(state_dict, sd, cfg)

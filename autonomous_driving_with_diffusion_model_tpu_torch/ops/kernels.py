@@ -43,7 +43,7 @@ training differentiates. Hand-written backward kernels are open work.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -61,6 +61,8 @@ __all__ = [
     "residual_block_plain",
     "Recompute",
     "reset_launch_counts",
+    "launch_counts",
+    "add_launch_counts",
 ]
 
 SOURCE = "conv_gn_mish.cu"  # the residual block's template
@@ -463,3 +465,15 @@ fused_residual_block.launches = 0
 def reset_launch_counts() -> None:
     fused_conv1d_gn_mish.launches = 0
     fused_residual_block.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    """Each wrapper's launch count, by the wrapper's name."""
+    return {f.__name__: f.launches for f in (fused_conv1d_gn_mish, fused_residual_block)}
+
+
+def add_launch_counts(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (by wrapper name) to the launch counts: the launches
+    of a replayed CUDA graph, which calls no wrapper."""
+    for f in (fused_conv1d_gn_mish, fused_residual_block):
+        f.launches += counts.get(f.__name__, 0)

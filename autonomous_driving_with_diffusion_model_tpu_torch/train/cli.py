@@ -185,6 +185,7 @@ def _train(args, cfg, dev, log):
     from ..data.dataset import DeviceResidentLoader
     from ..diffusion import make_schedule_from_cfg
     from ..models import build_model
+    from ..models.convert import load_torchvision_backbone
     from ..parallel import data_parallel_size, is_main_process, process_count, process_index, wrap_ddp
     from ..utils.meters import AverageMeter, MetricMeter
     from ..utils.profiling import trace
@@ -192,11 +193,12 @@ def _train(args, cfg, dev, log):
     from .checkpoint import resume
     from .state import create_train_state, make_train_step
 
-    if cfg.TRAIN.PRETRAINED_BACKBONE:
-        raise NotImplementedError(
-            "TRAIN.PRETRAINED_BACKBONE: starting the encoder from a torchvision ImageNet .pth is not "
-            "ported yet; the port trains from the seeded random weights")
     model = build_model(cfg, device=dev, seed=ROOT_SEED)
+    if cfg.TRAIN.PRETRAINED_BACKBONE:
+        # the reference always starts from the torchvision ImageNet resnet34
+        # (modeling/temporal.py:83); here from a file, as root train.py:168-181
+        log.info("Initializing perception from ImageNet backbone %s...", cfg.TRAIN.PRETRAINED_BACKBONE)
+        model.load_state_dict(load_torchvision_backbone(cfg.TRAIN.PRETRAINED_BACKBONE, model.state_dict(), cfg))
     schedule = make_schedule_from_cfg(cfg, dev)
     state = create_train_state(model, cfg)
     if cfg.TRAIN.RESUME is not None:

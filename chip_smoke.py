@@ -11,7 +11,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    planner's U-Net gives them, batch 1 and 2, float32 and bfloat16;
 4. the path: ``DiffusionPlanner`` on the card at full width (ResNet-34 at
    900x256, MODEL.DIM 64, random weights from a seed) for the default,
-   classifier-free and classifier guidance configs. Launch counts show the
+   classifier-free and classifier guidance configs. Every plan of the
+   planner on the card, here and in phases 6, 7, 9, 11 and 12, replays the
+   CUDA graph of its key (``driving/program.py``). Launch counts show the
    kernels on the path; the first plan is held against the same planner on
    the CPU; plan latency p50 and peak memory are printed;
 5. kernel time by CUDA events beside the plain version's, the bound and the
@@ -70,7 +72,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    sets of K = 8) on the card against the CPU from the same weights, and
    the time of the default 3000-step fit;
 10. data parallelism: the train CLI under ``torchrun --nproc_per_node 1``
-   on NCCL (3 iterations, rank 0's ``final.pth``); two ranks on the one card
+   on NCCL (3 iterations, rank 0's ``final.pth``), its encoder started
+   from a torchvision ResNet-34 ``.pth`` the phase writes
+   (``TRAIN.PRETRAINED_BACKBONE``), and one iteration of the CLI in this
+   process from it, after which the encoder on the card is the file's; two ranks on the one card
    over gloo at TRAIN.BATCH_SIZE 16 each (``parallel/check.py``) against this
    process's step at 32 on the same global batch and draws, BatchNorm
    frozen and train: the ranks identical, the loss and first-step gradients
@@ -101,12 +106,21 @@ Phases, each of which fails the run (nonzero exit, no result line):
    checkpoint at 40 straight and 60 curved ticks (160 / 10 launches per
    DDIM-10 plan, the 24 held-out plans within BF16_PLAN_TOL of a CPU
    planner's); its ``distill`` 8 -> 4 -> 2 at 3 iterations a stage and the
-   2-step student's plans.
+   2-step student's plans;
+13. the compiled plan: for phase 4's three configs, phase 7's planner paths
+   and HOIST_PERCEPTION off, the CUDA graph's plan against the eager body it
+   captures (1e-5 m in float32, bit-identical expected; the bf16 bound in
+   bfloat16), the first plan's launch counts (one replay) and the counts
+   the capture recorded, the warm and capture seconds, eager and graph plan
+   p50 in turns, the peak memory of each, and one profiled replay (busy
+   share; its kernels counted by the profiler against the recorded counts);
+   then a capture on a worker thread replayed on the main thread.
 
 The last two lines of standard output are the card (nvidia-smi) and the
 kernels as JSON, then ``{"ok": true, "device": ...}``. Per-shape numbers and
-phase 6's results (under ``agents``), phase 11's (under ``carla``) and phase
-12's (under ``learnability``) go to chiprun_out/chip_smoke.json.
+phase 6's results (under ``agents``), phase 11's (under ``carla``), phase
+12's (under ``learnability``) and phase 13's (under ``compiled_plan``) go
+to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -144,6 +158,18 @@ BF16_PLAN_TOL = dict(atol=1.0, rtol=0.0)
 # GPU vs CPU encode of a ResNet at 900x256, over the CPU feature's largest
 # value: up to 155 fp32 convolutions that cuDNN sums in other orders
 ENCODE_TOL = 1e-3
+# the graph's plan against the eager body's on the card, in meters: the
+# same kernels on the same inputs in the same order, so float32 plans are
+# expected bit-identical; 1e-5 m bounds them (bfloat16: plan_tol's bound)
+GRAPH_TOL = 1e-5
+PLAN_REPS = 5  # phase 13: eager and graph plans, in turns
+# phase 13: profiles of one replay taken at most, until one counts the
+# port's kernels as the capture recorded them. The profiler loses some
+# kernel records of the largest graph's replay (HOIST_PERCEPTION off at
+# K = 8), a different share in each profile, with CUPTI reporting none
+# dropped. A replay launches the same nodes every time, so a profile that
+# counts fewer is retaken; one that counts more fails at once
+PROFILE_TRIES = 8
 INPAINT_KNOWN = 4  # the waypoints an inpainting path pins, from the first
 # denoising steps of an inpainting path: the default config's 100 cut to 10,
 # which keeps the whole script near half its time limit
@@ -289,6 +315,51 @@ def card_rates(name: str):
     if "NVL" in name:
         return 3.9e12, 60e12, 835e12
     return 3.35e12, 67e12, 989e12  # H100 SXM
+
+
+def device_breakdown(run) -> dict:
+    """One run under torch.profiler: wall ms, the kernels' summed device
+    ms (one stream, so they do not overlap), that sum by kind, the kernels
+    of kind "other" that take the most device time, and the port's two
+    kernels as many times as the profiler saw them run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_kind, other = {}, {}
+    port = {"conv_gn_mish_kernel": 0, "conv1d_gn_mish_kernel": 0}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        # kernels only: a CPU op's own device time repeats its kernels',
+        # and a range the program marks on the device (AdamW's step) spans them
+        if (us <= 0 or getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", False)):
+            continue
+        name = ev.key
+        kind = ("conv_gn_mish" if "gn_mish" in name else  # both port kernels
+                "memcpy/memset" if "Memcpy" in name or "Memset" in name else
+                # cuDNN's FFT convolutions and weight and data gradients too
+                "cudnn/cublas" if any(s in name for s in ("cudnn", "xmma", "gemm", "conv", "sm90", "fft",
+                                                          "pointwise_mult_and_sum_complex", "wgrad",
+                                                          "dgrad")) else
+                "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
+        if kind == "conv_gn_mish":
+            port["conv1d_gn_mish_kernel" if "conv1d_gn_mish" in name else "conv_gn_mish_kernel"] += ev.count
+        if kind == "other":
+            other[name] = other.get(name, 0.0) + us / 1e3
+    dev_ms = sum(by_kind.values())
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_ms": wall, "device_ms": dev_ms, "busy_share": dev_ms / wall,
+            "by_kind": {k: round(v, 4) for k, v in sorted(by_kind.items())},
+            "top_other": [(k[:90], round(v, 3)) for k, v in top], "port_kernel_launches": port}
 
 
 def agents(load_cfg, case, device_breakdown, launches, max_err, smi) -> dict:
@@ -530,6 +601,34 @@ def agents(load_cfg, case, device_breakdown, launches, max_err, smi) -> dict:
     return out
 
 
+def serving_paths(scorer_npz):
+    """Phase 7's planner paths beside phase 4's three configs: (name, config,
+    options). ``scorer_npz``: the learned scorer's file, written by the
+    phase that plans with it."""
+    bf16 = {"TPU.COMPUTE_DTYPE": "bfloat16"}
+    return [
+        ("ddpm100", CONFIGS[0], {"EVAL.SCHEDULER": "ddpm"}),
+        ("dpm10_bf16", CONFIGS[0], {"EVAL.SCHEDULER": "dpm", "EVAL.SAMPLE_STEPS": 10, **bf16}),
+        ("bf16_default", CONFIGS[0], bf16),
+        ("bf16_free_guidance", CONFIGS[1], bf16),
+        ("bf16_classifier_guidance", CONFIGS[2], bf16),
+        ("learned_scorer_k8", CONFIGS[1], {"TPU.NUM_HYPOTHESES": 8, "TPU.HYPOTHESIS_SCORER": "learned",
+                                           "TPU.SCORER_CHECKPOINT": scorer_npz}),
+        ("resnet50", CONFIGS[1], {"MODEL.PERCEPTION": "resnet50"}),
+    ]
+
+
+def plan_tol(cfg) -> dict:
+    """GPU vs CPU plan tolerance of a config: PLAN_TOL, or BF16_PLAN_TOL (x
+    1 + 2 FREE_SCALE under dual-batch CFG) for a bfloat16 model."""
+    if cfg.TPU.COMPUTE_DTYPE != "bfloat16":
+        return PLAN_TOL
+    tol = dict(BF16_PLAN_TOL)
+    if cfg.GUIDANCE.USE_COND == "FREE_GUIDANCE" and cfg.GUIDANCE.FREE_SCALE != 1.0:
+        tol["atol"] *= 1.0 + 2.0 * abs(cfg.GUIDANCE.FREE_SCALE)
+    return tol
+
+
 def serving(load_cfg, device_breakdown, launches, smi, dev="cuda") -> dict:
     """Phase 7: the rest of the serving path at full width. Each path's
     first plan runs with the launch counts set to 0 just before and read
@@ -601,27 +700,14 @@ def serving(load_cfg, device_breakdown, launches, smi, dev="cuda") -> dict:
     frames = np.random.default_rng(7).integers(0, 256, (4, h, w, 3), dtype=np.uint8)
     scorer_npz = os.path.join(REPO, "chiprun_out", "phase7_scorer.npz")
     os.makedirs(os.path.dirname(scorer_npz), exist_ok=True)
-    bf16 = {"TPU.COMPUTE_DTYPE": "bfloat16"}
-    paths = [
-        ("ddpm100", CONFIGS[0], {"EVAL.SCHEDULER": "ddpm"}),
-        ("dpm10_bf16", CONFIGS[0], {"EVAL.SCHEDULER": "dpm", "EVAL.SAMPLE_STEPS": 10, **bf16}),
-        ("bf16_default", CONFIGS[0], bf16),
-        ("bf16_free_guidance", CONFIGS[1], bf16),
-        ("bf16_classifier_guidance", CONFIGS[2], bf16),
-        ("learned_scorer_k8", CONFIGS[1], {"TPU.NUM_HYPOTHESES": 8, "TPU.HYPOTHESIS_SCORER": "learned",
-                                           "TPU.SCORER_CHECKPOINT": scorer_npz}),
-        ("resnet50", CONFIGS[1], {"MODEL.PERCEPTION": "resnet50"}),
-    ]
-    for name, path, opts in paths:
+    for name, path, opts in serving_paths(scorer_npz):
         cfg = configured(path, opts)
         if name == "learned_scorer_k8":
             save_scorer(scorer_npz, init_scorer(0, cfg.MODEL.HORIZON, cfg.MODEL.TRANSITION_DIM))
         n_fwd = len(cfg.TPU.SAMPLE_TIMESTEPS) or cfg.EVAL.SAMPLE_STEPS
         t_path, base = time.perf_counter(), torch.cuda.memory_allocated()
         is_bf16 = cfg.TPU.COMPUTE_DTYPE == "bfloat16"
-        tol = dict(BF16_PLAN_TOL) if is_bf16 else PLAN_TOL
-        if is_bf16 and cfg.GUIDANCE.USE_COND == "FREE_GUIDANCE" and cfg.GUIDANCE.FREE_SCALE != 1.0:
-            tol["atol"] *= 1.0 + 2.0 * abs(cfg.GUIDANCE.FREE_SCALE)
+        tol = plan_tol(cfg)
         gpu = DiffusionPlanner(cfg, seed=0, device=dev)
         tgt = target if gpu.use_guidance_type.name != "NO_GUIDANCE" else None
         (first, best), got = count(lambda: gpu.plan_hypotheses(frames[0], tgt), n_fwd, name)
@@ -1418,7 +1504,10 @@ def distillation(load_cfg, device_breakdown, launches, smi, dev="cuda", extra_op
 
 def data_parallel(load_cfg, smi, dev="cuda", extra_opts=()) -> dict:
     """Phase 10: data-parallel training on the one card. (a) the train CLI
-    under torchrun on one NCCL rank; (b) two gloo ranks on the card at
+    under torchrun on one NCCL rank, its encoder started from a
+    torchvision ResNet-34 ``.pth`` the phase writes, and one iteration of
+    the CLI in this process from the same file (the encoder on the card
+    the file's); (b) two gloo ranks on the card at
     TRAIN.BATCH_SIZE 16 each against this process's step at 32 on the same
     global batch and draws, BatchNorm frozen and train. Every subprocess has
     a timeout; a failure fails the phase. ``dev`` is the card and
@@ -1429,7 +1518,9 @@ def data_parallel(load_cfg, smi, dev="cuda", extra_opts=()) -> dict:
 
     import torch
 
+    from autonomous_driving_with_diffusion_model_tpu_torch.models import PERCEPTION_BUILDERS, init_parameters
     from autonomous_driving_with_diffusion_model_tpu_torch.parallel.check import case_config, run_case
+    from autonomous_driving_with_diffusion_model_tpu_torch.train import cli
 
     out = {}
     cuda = torch.device(dev).type == "cuda"
@@ -1439,7 +1530,18 @@ def data_parallel(load_cfg, smi, dev="cuda", extra_opts=()) -> dict:
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
 
-    # 10.1 NCCL: torchrun, one rank, the train CLI for 3 iterations
+    # a torchvision-layout ResNet-34 .pth for TRAIN.PRETRAINED_BACKBONE: a
+    # 1000-way fc, running statistics from one train-mode forward
+    net = init_parameters(PERCEPTION_BUILDERS["resnet34"](num_classes=1000),
+                          torch.Generator().manual_seed(3)).to(dev).train()
+    with torch.no_grad():
+        net(torch.randn(2, 64, 96, 3, generator=torch.Generator().manual_seed(3)).to(dev))
+    backbone = os.path.join(work, "resnet34_torchvision.pth")
+    tv = {k: v.cpu() for k, v in net.state_dict().items()}
+    torch.save(tv, backbone)
+    del net
+
+    # 10.1 NCCL: torchrun, one rank, the train CLI for 3 iterations from the backbone
     root = os.path.join(REPO, "build", "phase8_data")
     project = os.path.join(work, "nccl")
     t0 = time.perf_counter()
@@ -1447,7 +1549,8 @@ def data_parallel(load_cfg, smi, dev="cuda", extra_opts=()) -> dict:
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1", "-m",
          f"{PKG}.train", "--config", os.path.join(REPO, CONFIGS[0]), "--max-iter", "3",
          *([] if cuda else ["--device", "cpu"]), "--opts", "TRAIN.ROOT", root, "PROJECT_DIR", project,
-         "TRAIN.SAMPLE_INTERVAL", "0", "TRAIN.LOG_INTERVAL", "1", *extra_opts],
+         "TRAIN.SAMPLE_INTERVAL", "0", "TRAIN.LOG_INTERVAL", "1", "TRAIN.PRETRAINED_BACKBONE", backbone,
+         *extra_opts],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=SUBPROCESS_TIMEOUT_S)
     nccl_s = time.perf_counter() - t0
     train_log = ""
@@ -1457,13 +1560,35 @@ def data_parallel(load_cfg, smi, dev="cuda", extra_opts=()) -> dict:
     checkpoints = os.path.join(project, "checkpoints")
     written = sorted(os.listdir(checkpoints)) if os.path.isdir(checkpoints) else []
     ok = (proc.returncode == 0 and written == ["final.pth"] and "Data-parallel: 1 rank(s)" in train_log
-          and ("(nccl)" if cuda else "(gloo)") in train_log and "iter: [3/3]" in train_log)
+          and ("(nccl)" if cuda else "(gloo)") in train_log and "iter: [3/3]" in train_log
+          and f"Initializing perception from ImageNet backbone {backbone}" in train_log)
     out["nccl"] = dict(rc=proc.returncode, written=written, seconds=nccl_s)
-    log(f"DDP NCCL: torchrun --nproc_per_node 1 train CLI, 3 iterations: rc {proc.returncode}, wrote {written}, "
-        f"{nccl_s:.1f} s; log: {[l.split('| ')[-1] for l in train_log.splitlines() if 'Data-parallel' in l]} "
+    log(f"DDP NCCL: torchrun --nproc_per_node 1 train CLI, 3 iterations from a torchvision backbone: rc "
+        f"{proc.returncode}, wrote {written}, {nccl_s:.1f} s; log: "
+        f"{[l.split('| ')[-1] for l in train_log.splitlines() if 'Data-parallel' in l or 'backbone' in l]} "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"DDP NCCL run: {out['nccl']}\n{proc.stderr[-4000:]}")
+
+    # 10.1b the train CLI in this process, one iteration from the backbone: the
+    # first step's LR is 0 and BatchNorm frozen, so the encoder on the card
+    # after it is the file's, bit for bit; the fc head the model's own
+    state = cli.main(cli.parse_args(
+        ["--config", os.path.join(REPO, CONFIGS[0]), "--max-iter", "1", "--device", str(dev), "--opts",
+         "TRAIN.ROOT", root, "PROJECT_DIR", os.path.join(work, "backbone"), "TRAIN.SAMPLE_INTERVAL", "0",
+         "TRAIN.PRETRAINED_BACKBONE", backbone, *extra_opts]))
+    enc = state.model.perception.state_dict()
+    compared = [k for k in tv if not k.startswith("fc.") and not k.endswith("num_batches_tracked")]
+    differ = [k for k in compared
+              if enc[k].device.type != torch.device(dev).type or not torch.equal(enc[k].cpu(), tv[k])]
+    ok = not differ and state.step == 1 and enc["fc.weight"].shape[0] != 1000
+    out["backbone"] = dict(tensors_compared=len(compared), differ=differ, fc_shape=list(enc["fc.weight"].shape))
+    log(f"TRAIN.PRETRAINED_BACKBONE: after one iteration of the train CLI the encoder's {len(compared)} weights "
+        f"and running statistics on the card equal the file's: {not differ}; the fc head "
+        f"{tuple(enc['fc.weight'].shape)} is the model's own {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"pretrained backbone: {out['backbone']}")
+    del state, enc
 
     # 10.2 two gloo ranks on the card against one process on the global batch
     B = int(load_cfg(CONFIGS[0]).TRAIN.BATCH_SIZE) // DDP_WORLD
@@ -2058,6 +2183,144 @@ def learnability(device_breakdown, launches, smi, dev="cuda", quick=False) -> di
     return out
 
 
+def compiled_plan(load_cfg, device_breakdown, launches, smi, dev="cuda") -> dict:
+    """Phase 13: the plan as one program (``driving/program.py``, a CUDA
+    graph per key) for phase 4's three configs, phase 7's planner paths and
+    HOIST_PERCEPTION off. Per path, on one frame: the graph's plan against
+    the eager body ``_plan`` on the same inputs (GRAPH_TOL in float32,
+    plan_tol's bf16 bound in bfloat16; whether bit-identical); the first
+    plan's launch counts (its one replay: 16 / 1 per forward) and the
+    counts the capture recorded; the warm run's and the capture's seconds;
+    eager and graph plan p50 in turns over PLAN_REPS plans; the peak MiB of
+    the eager body and of the graph's first plan (its build included),
+    above what the path held before; one profiled replay's busy share and
+    its kernels as the profiler counts them (two launches per residual
+    block, one per head) against the recorded counts, a profile that lost
+    records retaken up to PROFILE_TRIES times. Then a capture on a
+    worker thread (a pipelined agent's) replayed on the main thread.
+    ``launches`` gathers the first plans' counts into the kernels line;
+    ``dev`` is the card (the CPU only to rehearse the phase: no graph
+    there)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from autonomous_driving_with_diffusion_model_tpu_torch.driving import DiffusionPlanner
+    from autonomous_driving_with_diffusion_model_tpu_torch.models import init_scorer, save_scorer
+    from autonomous_driving_with_diffusion_model_tpu_torch.ops import kernels
+
+    out = {"paths": {}}
+    cfg0 = load_cfg(CONFIGS[0])
+    frames = np.random.default_rng(13).integers(
+        0, 256, (4, cfg0.TRAIN.IMAGE_HEIGHT, cfg0.TRAIN.IMAGE_WIDTH, 3), dtype=np.uint8)
+    target = np.array([0.3, 0.1], np.float32)
+    scorer_npz = os.path.join(REPO, "chiprun_out", "phase13_scorer.npz")
+    os.makedirs(os.path.dirname(scorer_npz), exist_ok=True)
+    paths = [("default", CONFIGS[0], {}), ("free_guidance", CONFIGS[1], {}),
+             ("classifier_guidance", CONFIGS[2], {})] + serving_paths(scorer_npz)
+    # HOIST_PERCEPTION off: the encoder in every step, at batch 2 under CFG,
+    # and at batch 8 over DDIM-100 (800 encodes a plan: the largest graph)
+    paths += [("hoist_off_free_guidance", CONFIGS[1], {"TPU.HOIST_PERCEPTION": False}),
+              ("hoist_off_k8", CONFIGS[0], {"TPU.HOIST_PERCEPTION": False, "TPU.NUM_HYPOTHESES": 8})]
+    mib = lambda b: b / 2**20
+    for name, path, opts in paths:
+        t_path = time.perf_counter()
+        cfg = load_cfg(path)
+        cfg.merge_from_list([str(v) for kv in opts.items() for v in kv])
+        if cfg.TPU.HYPOTHESIS_SCORER == "learned":
+            save_scorer(scorer_npz, init_scorer(0, cfg.MODEL.HORIZON, cfg.MODEL.TRANSITION_DIM))
+        n_fwd = len(cfg.TPU.SAMPLE_TIMESTEPS) or cfg.EVAL.SAMPLE_STEPS
+        want = {"fused_residual_block": 16 * n_fwd, "fused_conv1d_gn_mish": n_fwd}
+        gpu = DiffusionPlanner(cfg, seed=0, device=dev)
+        tgt = target if gpu.use_guidance_type.name != "NO_GUIDANCE" else None
+        tgt_t = torch.from_numpy(target[None] if tgt is not None else np.zeros((1, 2), np.float32)).to(dev)
+
+        def eager(f):
+            trajs, best = gpu._plan(gpu.init_trajs, torch.from_numpy(f).to(dev), tgt_t, gpu.step_noise)
+            return trajs.cpu().numpy(), int(best)
+
+        def graph(f):
+            return gpu.plan_hypotheses(f, tgt)
+
+        eager(frames[1])  # what the body builds at its first call
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ref, ref_best = eager(frames[0])
+        eager_peak = mib(torch.cuda.max_memory_allocated() - base)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        got, best = graph(frames[0])  # the build and the first replay
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        for k in launches:
+            launches[k] += counts[k]
+        graph_peak = mib(torch.cuda.max_memory_allocated() - base)
+        program = gpu._program.programs.get(gpu._program.key)
+        is_bf16 = cfg.TPU.COMPUTE_DTYPE == "bfloat16"
+        tol = plan_tol(cfg)["atol"] if is_bf16 else GRAPH_TOL
+        diff = float(np.abs(got - ref).max())
+        ok = (program is not None and diff <= tol and counts == want and np.isfinite(got).all()
+              and (program.graph is not None) == (torch.device(dev).type == "cuda")
+              and (program.launches == want or torch.device(dev).type != "cuda"))
+        e_ms, g_ms = [], []
+        for i in range(PLAN_REPS):
+            for run, ms in ((eager, e_ms), (graph, g_ms)):
+                t0 = time.perf_counter()
+                run(frames[i % len(frames)])  # ends in a copy to the host
+                ms.append((time.perf_counter() - t0) * 1e3)
+        recorded = {"conv_gn_mish_kernel": 2 * want["fused_residual_block"],
+                    "conv1d_gn_mish_kernel": want["fused_conv1d_gn_mish"]}
+        attempts = []
+        for _ in range(PROFILE_TRIES):
+            busy = device_breakdown(lambda: graph(frames[2]))
+            profiled = busy["port_kernel_launches"]
+            attempts.append(profiled)
+            if profiled == recorded or any(profiled[k] > recorded[k] for k in recorded):
+                break
+        ok = ok and profiled == recorded
+        row = dict(steps=n_fwd, hypotheses=gpu.num_hypotheses, dtype=str(cfg.TPU.COMPUTE_DTYPE),
+                   first_plan_launches=counts, recorded_launches=None if program is None else program.launches,
+                   graph_vs_eager_max_abs_m=diff, bit_identical=bool(np.array_equal(got, ref)), tolerance_m=tol,
+                   best=best, eager_best=ref_best,
+                   warm_s=None if program is None else program.warm_s,
+                   capture_s=None if program is None else program.capture_s,
+                   eager_ms_p50=float(np.median(e_ms)), graph_ms_p50=float(np.median(g_ms)),
+                   eager_ms=e_ms, graph_ms=g_ms, eager_peak_mib=eager_peak, graph_peak_mib=graph_peak,
+                   profile=busy, profiler_launches=profiled, expected_profiler_launches=recorded,
+                   profile_attempts=attempts,
+                   seconds=time.perf_counter() - t_path)
+        out["paths"][name] = row
+        log(f"compiled plan {name}: graph vs eager max_abs {diff:.3e} m (tolerance {tol}, bit-identical "
+            f"{row['bit_identical']}), best {best} / eager {ref_best}; first plan launches {counts} (expected "
+            f"{want}), recorded {row['recorded_launches']}; warm {row['warm_s'] or 0:.2f} s, capture "
+            f"{row['capture_s'] or 0:.2f} s; plan p50 eager {row['eager_ms_p50']:.2f} ms, graph "
+            f"{row['graph_ms_p50']:.2f} ms over {PLAN_REPS} each in turns ({n_fwd} steps); peak above the path's "
+            f"base: eager {eager_peak:.1f} MiB, graph's first plan {graph_peak:.1f} MiB; profiled replay "
+            f"{busy['device_ms']:.2f} of {busy['wall_ms']:.2f} ms busy ({busy['busy_share']:.3f}), by kind "
+            f"{busy['by_kind']}, port kernels counted {profiled} (expected {recorded}; profile "
+            f"{len(attempts)} of at most {PROFILE_TRIES}, the earlier ones counted {attempts[:-1]}); path "
+            f"{row['seconds']:.1f} s; on {smi} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"compiled plan {name}: {row}")
+        del gpu, program
+
+    # a pipelined agent's worker thread captures; the main thread replays
+    cfg = load_cfg(CONFIGS[2])
+    gpu = DiffusionPlanner(cfg, seed=0, device=dev)
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        worker = pool.submit(gpu.plan_hypotheses, frames[0], target).result()[0]
+    main_thread = gpu.plan_hypotheses(frames[0], target)[0]
+    same = bool(np.array_equal(worker, main_thread))
+    out["worker_thread_capture"] = dict(bit_identical=same, programs=len(gpu._program.programs))
+    log(f"compiled plan: captured on a worker thread, replayed on the main thread ({CONFIGS[2]}): "
+        f"bit-identical {same}, programs {len(gpu._program.programs)} {'ok' if same else 'FAIL'}")
+    if not same or len(gpu._program.programs) != 1:
+        raise AssertionError(f"worker-thread capture: {out['worker_thread_capture']}")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2164,45 +2427,6 @@ def main() -> int:
 
     phase_done(3)
     # ---------------------------------------------------------------- 4. path
-    def device_breakdown(run):
-        """One run under torch.profiler: wall ms, the kernels' summed device
-        ms (one stream, so they do not overlap), that sum by kind, and the
-        kernels of kind "other" that take the most device time."""
-        from torch.profiler import ProfilerActivity, profile
-
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        by_kind, other = {}, {}
-        for ev in prof.key_averages():
-            us = getattr(ev, "self_device_time_total", None)
-            if us is None:
-                us = ev.self_cuda_time_total
-            # kernels only: a CPU op's own device time repeats its kernels',
-            # and a range the program marks on the device (AdamW's step) spans them
-            if (us <= 0 or getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA
-                    or getattr(ev, "is_user_annotation", False)):
-                continue
-            name = ev.key
-            kind = ("conv_gn_mish" if "gn_mish" in name else  # both port kernels
-                    "memcpy/memset" if "Memcpy" in name or "Memset" in name else
-                    # cuDNN's FFT convolutions and weight and data gradients too
-                    "cudnn/cublas" if any(s in name for s in ("cudnn", "xmma", "gemm", "conv", "sm90", "fft",
-                                                              "pointwise_mult_and_sum_complex", "wgrad",
-                                                              "dgrad")) else
-                    "other")
-            by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
-            if kind == "other":
-                other[name] = other.get(name, 0.0) + us / 1e3
-        dev_ms = sum(by_kind.values())
-        top = sorted(other.items(), key=lambda kv: -kv[1])[:6]
-        return {"wall_ms": wall, "device_ms": dev_ms, "busy_share": dev_ms / wall,
-                "by_kind": {k: round(v, 4) for k, v in sorted(by_kind.items())},
-                "top_other": [(k[:90], round(v, 3)) for k, v in top]}
-
     launches = {"fused_residual_block": 0, "fused_conv1d_gn_mish": 0}
     plans = {}
     frames = np.random.default_rng(1).integers(0, 256, (4, 256, 900, 3), dtype=np.uint8)
@@ -2501,6 +2725,9 @@ def main() -> int:
     # ----------------------------------------------- 12. the learnability harness
     report["learnability"] = learnability(device_breakdown, launches, smi)
     phase_done(12)
+    # ------------------------------------------------- 13. the compiled plan
+    report["compiled_plan"] = compiled_plan(load_cfg, device_breakdown, launches, smi)
+    phase_done(13)
     report["phase_done_s"] = phase_s
 
     kernels_line = []

@@ -3,7 +3,7 @@ on the CPU at a tiny size: two iterations on a dataset under ``tmp_path``,
 a resumed run to 4 from their checkpoint, the port's own
 checkpoint for a non-ResNet-34 encoder, per-iteration draws that depend on
 the iteration alone, ``--generate-only``, the CLI as a module, and its
-refusal of an ImageNet backbone."""
+start from an ImageNet backbone."""
 
 import os
 import subprocess
@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from autonomous_driving_with_diffusion_model_tpu_torch.data import write_png
+from autonomous_driving_with_diffusion_model_tpu_torch.models import PERCEPTION_BUILDERS, init_parameters
 from autonomous_driving_with_diffusion_model_tpu_torch.train import cli
 
 # one intra-op thread per process: the suite runs in several worker
@@ -109,12 +110,27 @@ def test_other_encoders_save_the_ports_own_checkpoint(tmp_path):
 
 
 def test_pretrained_backbone_is_refused(tmp_path):
-    """Starting the encoder from a torchvision ImageNet ``.pth`` is not
-    ported: the CLI says so before it builds anything."""
+    """``TRAIN.PRETRAINED_BACKBONE``: the CLI starts the encoder from a
+    torchvision ResNet-34 ``.pth`` (a 1000-way fc, distinct running
+    statistics) and trains a step from it. The first step's LR is 0 and
+    BatchNorm is frozen, so the trained encoder is still the file's, bit for
+    bit, while the fc head is the model's own."""
     write_dataset(str(tmp_path / "data"))
-    with pytest.raises(NotImplementedError, match="PRETRAINED_BACKBONE"):
-        run("--max-iter", "1", "--opts", *opts(tmp_path, "a", **{"TRAIN.PRETRAINED_BACKBONE": "resnet34.pth"}))
-    assert not (tmp_path / "a" / "checkpoints" / "final.pth").exists()
+    net = init_parameters(PERCEPTION_BUILDERS["resnet34"](num_classes=1000), torch.Generator().manual_seed(7))
+    net.train()
+    with torch.no_grad():
+        net(torch.randn(2, *HW, 3, generator=torch.Generator().manual_seed(7)))
+    tv = {k: v.clone() for k, v in net.state_dict().items()}
+    torch.save(tv, tmp_path / "resnet34.pth")
+    state = run("--max-iter", "1", "--opts", *opts(tmp_path, "a", **{"TRAIN.PRETRAINED_BACKBONE":
+                                                                     str(tmp_path / "resnet34.pth")}))
+    assert state.step == 1 and (tmp_path / "a" / "checkpoints" / "final.pth").exists()
+    got = state.model.perception.state_dict()
+    for k, v in tv.items():
+        if k.startswith("fc.") or k.endswith("num_batches_tracked"):
+            continue
+        torch.testing.assert_close(got[k], v, atol=0, rtol=0, msg=k)
+    assert got["fc.weight"].shape == (8, 512)
 
 
 def test_draws_depend_on_the_iteration_alone():
