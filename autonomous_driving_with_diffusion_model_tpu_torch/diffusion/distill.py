@@ -49,6 +49,7 @@ from .steps import StepConfig, ddim_step_rows
 
 if TYPE_CHECKING:
     from ..train.ema import EmaState
+    from ..train.state import LrSchedule
 
 __all__ = [
     "DistillGrid",
@@ -132,7 +133,7 @@ class DistillState:
 
     student: TemporalMapUnet
     optimizer: torch.optim.AdamW
-    scheduler: torch.optim.lr_scheduler.LambdaLR
+    scheduler: "LrSchedule"
     ema: "EmaState"
     step: int = 0
 
@@ -176,7 +177,8 @@ def make_distill_step(
 
     ``init_state(teacher) -> DistillState``: the student a deep copy of the
     teacher module, a fresh AdamW. ``step(state, teacher, batch, draws=None,
-    generator=None) -> {"loss", "lr"}``: ``batch`` is the training dict
+    generator=None) -> {"loss", "lr"}`` (a ``DistillStep``, whose device
+    part ``train/program.py:DistillProgram`` captures): ``batch`` is the training dict
     {image (B, H, W, 3) normalized float, trajs (B, horizon, 7), target (B,
     2)} on the student's device; ``draws`` a :class:`DistillDraws`, or None
     to draw them from ``generator`` (with neither it refuses).
@@ -196,7 +198,7 @@ def make_distill_step(
             "guidance); its flagship config already plans in 2 steps"
         )
     # lazy: train/state.py imports diffusion.schedule, whose package imports this module
-    from ..train.ema import EmaConfig, ema_init, ema_update
+    from ..train.ema import EmaConfig, ema_apply, ema_begin, ema_end, ema_init
     from ..train.state import _nan_scrub_, make_optimizer
 
     ema_cfg = EmaConfig(decay=ema_decay, update_after_step=0, use_ema_warmup=True, inv_gamma=1.0,
@@ -226,60 +228,90 @@ def make_distill_step(
             return (out_u + free_scale * (out_c - out_u)).to(torch.float32)
         return teacher(x, time=t_f, img_feature=feat).to(torch.float32)
 
-    def step(state: DistillState, teacher: TemporalMapUnet, batch: Dict[str, torch.Tensor],
-             draws: Optional[DistillDraws] = None, generator: Optional[torch.Generator] = None) -> dict:
-        student = state.student
-        trajs = batch["trajs"].to(torch.float32)
-        image = batch["image"].to(torch.float32)
-        cond = batch["target"].to(torch.float32) if guided else None
-        B = trajs.shape[0]
-        if draws is None:
-            if generator is None:
-                raise ValueError("the distill step needs its draws: pass draws=DistillDraws(...) "
-                                 "or a torch.Generator")
-            draws = draw_distill(B, n_grid, trajs.shape[1:], generator)
-        i, noise = draws.i.to(dev, torch.long), draws.noise.to(dev, torch.float32)
-        t, m, s, sgl = ts[i], mids[i], prevs[i], single[i]
-        m_safe = m.clamp_min(0)
-        x_t = _anchor(add_noise(schedule, trajs, noise, t))
+    class DistillStep:
+        """``step(state, teacher, batch, draws=None, generator=None)``:
+        :meth:`draws` (host), :meth:`begin` (host: the EMA decay into its
+        scalar), :meth:`body` (device only: teacher composite, student
+        forward and backward, scrub, AdamW at the LR scalar, EMA) and
+        :meth:`end` (host: the counts and the next LR), which
+        ``train/program.py`` captures and replays."""
 
-        # the teacher's composite: both substeps always, the odd tail by ``single``
-        teacher.eval()
-        with torch.no_grad():
-            tfeat = teacher.encode_image(image)
-            out1 = fwd_teacher(teacher, x_t, tfeat, t, cond)
-            x_m = _anchor(ddim_step_rows(schedule, step_cfg, out1, t, m_safe, x_t))
-            out2 = fwd_teacher(teacher, x_m, tfeat, m_safe, cond)
-            x_s_two = ddim_step_rows(schedule, step_cfg, out2, m_safe, s, x_m)
-            x_s_one = ddim_step_rows(schedule, step_cfg, out1, t, s, x_t)
-            x_s = _anchor(torch.where(sgl[:, None, None], x_s_one, x_s_two))
-            z = _anchor(implied_x0_target(schedule, x_t, x_s, t, s).clamp(-1.0, 1.0))
+        def __call__(self, state: DistillState, teacher: TemporalMapUnet, batch: Dict[str, torch.Tensor],
+                     draws: Optional[DistillDraws] = None, generator: Optional[torch.Generator] = None) -> dict:
+            draws = self.draws(batch, draws, generator)
+            lr_now = self.begin(state)
+            loss = self.body(state, teacher, batch, draws)
+            self.end(state)
+            return {"loss": loss, "lr": lr_now}
 
-        # the student: one forward (a single conditional pass under CFG)
-        student.eval()
-        params = list(student.parameters())
-        for p in params:
-            p.grad = None
-        sfeat = student.encode_image(image)
-        pred = student(x_t, time=t.to(torch.float32), cond=cond, img_feature=sfeat).to(torch.float32)
-        err2 = (pred - z) ** 2
-        if snr_weight:
-            a_t = schedule.alpha_prod(t)
-            w = torch.clamp_min(a_t / (1.0 - a_t), 1.0)
-            err2 = err2 * w.reshape((-1,) + (1,) * (err2.ndim - 1))
-        loss = torch.mean(err2)
-        loss.backward()
-        grads = []
-        for p in params:
-            if p.grad is None:  # as JAX's zero gradient: the weight still decays
-                p.grad = torch.zeros_like(p)
-            grads.append(p.grad)
-        _nan_scrub_(grads)
-        lr_now = state.scheduler.get_last_lr()[0]
-        state.optimizer.step()
-        state.scheduler.step()
-        ema_update(ema_cfg, state.ema, params)
-        state.step += 1
-        return {"loss": loss.detach(), "lr": lr_now}
+        def draws(self, batch, draws: Optional[DistillDraws] = None,
+                  generator: Optional[torch.Generator] = None) -> DistillDraws:
+            """The step's draws (from ``generator`` where ``draws`` is None) on
+            the device: grid indices as int64, noise as float32."""
+            trajs = batch["trajs"]
+            if draws is None:
+                if generator is None:
+                    raise ValueError("the distill step needs its draws: pass draws=DistillDraws(...) "
+                                     "or a torch.Generator")
+                draws = draw_distill(trajs.shape[0], n_grid, trajs.shape[1:], generator)
+            return DistillDraws(draws.i.to(dev, torch.long), draws.noise.to(dev, torch.float32))
 
+        def begin(self, state: DistillState) -> float:
+            ema_begin(ema_cfg, state.ema)
+            return state.scheduler.get_last_lr()[0]
+
+        def end(self, state: DistillState) -> None:
+            state.scheduler.step()
+            ema_end(state.ema)
+            state.step += 1
+
+        def body(self, state: DistillState, teacher: TemporalMapUnet, batch: Dict[str, torch.Tensor],
+                 draws: DistillDraws) -> torch.Tensor:
+            student = state.student
+            trajs = batch["trajs"].to(torch.float32)
+            image = batch["image"].to(torch.float32)
+            cond = batch["target"].to(torch.float32) if guided else None
+            i, noise = draws
+            t, m, s, sgl = ts[i], mids[i], prevs[i], single[i]
+            m_safe = m.clamp_min(0)
+            x_t = _anchor(add_noise(schedule, trajs, noise, t))
+
+            # the teacher's composite: both substeps always, the odd tail by ``single``
+            teacher.eval()
+            with torch.no_grad():
+                tfeat = teacher.encode_image(image)
+                out1 = fwd_teacher(teacher, x_t, tfeat, t, cond)
+                x_m = _anchor(ddim_step_rows(schedule, step_cfg, out1, t, m_safe, x_t))
+                out2 = fwd_teacher(teacher, x_m, tfeat, m_safe, cond)
+                x_s_two = ddim_step_rows(schedule, step_cfg, out2, m_safe, s, x_m)
+                x_s_one = ddim_step_rows(schedule, step_cfg, out1, t, s, x_t)
+                x_s = _anchor(torch.where(sgl[:, None, None], x_s_one, x_s_two))
+                z = _anchor(implied_x0_target(schedule, x_t, x_s, t, s).clamp(-1.0, 1.0))
+
+            # the student: one forward (a single conditional pass under CFG)
+            student.eval()
+            params = list(student.parameters())
+            for p in params:
+                p.grad = None
+            sfeat = student.encode_image(image)
+            pred = student(x_t, time=t.to(torch.float32), cond=cond, img_feature=sfeat).to(torch.float32)
+            err2 = (pred - z) ** 2
+            if snr_weight:
+                a_t = schedule.alpha_prod(t)
+                w = torch.clamp_min(a_t / (1.0 - a_t), 1.0)
+                err2 = err2 * w.reshape((-1,) + (1,) * (err2.ndim - 1))
+            loss = torch.mean(err2)
+            loss.backward()
+            grads = []
+            for p in params:
+                if p.grad is None:  # as JAX's zero gradient: the weight still decays
+                    p.grad = torch.zeros_like(p)
+                grads.append(p.grad)
+            _nan_scrub_(grads)
+            state.optimizer.step()
+            ema_apply(state.ema, params)
+            return loss.detach()
+
+    step = DistillStep()
+    step.use_cond = use_cond
     return init_state, step

@@ -16,7 +16,8 @@ given. Each stage writes ``student_{n}.pth`` (the port's own
 ``student_{n}.pt`` for encoders other than ResNet-34): the student's EMA as
 both the parameters and the EMA shadow, fresh AdamW moments, ``iter`` the
 stage's iterations. ``distill.json`` records each stage's grid; the next
-stage distills from the deployed (EMA) student. The frames come from
+stage distills from the deployed (EMA) student. Each stage's step is one
+CUDA graph on the card (``train/program.py:DistillProgram``). The frames come from
 ``get_loader``, device-resident under ``TPU.DEVICE_DATA``, normalized,
 without augmentation.
 """
@@ -90,6 +91,7 @@ def main(args):
     from .diffusion import StepConfig, grid_chain, make_distill_step, make_schedule_from_cfg
     from .models import build_model
     from .train import load_eval_state_dict
+    from .train.program import DistillProgram
     from .utils.config import create_cfg, merge_possible_with_base
     from .utils.constants import GuidanceType
     from .utils.device import resolve_device
@@ -149,16 +151,17 @@ def main(args):
             decay_steps=args.iters,
         )
         state = init_state(teacher)
+        program = DistillProgram(step, dev)  # the stage's step: one CUDA graph replay an iteration on the card
         metrics = None
         for it in range(args.iters):
-            metrics = step(state, teacher, next_batch(), generator=iteration_generator(args.seed, it, dev))
+            metrics = program(state, teacher, next_batch(), generator=iteration_generator(args.seed, it, dev))
             if (it + 1) % max(1, args.iters // 5) == 0:
                 print(f"[distill] {n_steps}-step stage iter {it + 1}/{args.iters} "
                       f"loss {float(metrics['loss']):.5f}", flush=True)
         loss = float(metrics["loss"]) if metrics is not None else float("nan")
         teacher, out_path = export_student(state.student, state.ema, state.step, cfg, args.workdir,
                                            n_steps, args.lr)
-        del state
+        del state, program
         stage_info = {
             "num_steps": n_steps,
             "timesteps": [int(t) for t in g.ts],

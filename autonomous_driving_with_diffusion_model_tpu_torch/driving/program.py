@@ -23,8 +23,9 @@ with no Python between its ~10,000 launches:
   and buffer of the planner's modules. A capture bakes in the pointers of
   the cached kernel packs, so weights that change after a capture
   (``load_state_dict``, an EMA copy) drop every program of the old weights
-  and the next plan captures anew: an old graph is never replayed. The key
-  counts the weights by their generation (0, 1, ...);
+  and the next plan captures anew: an old graph is never replayed (a
+  training program's replay bumps the ``_version`` of what it writes). The
+  key counts the weights by their generation (0, 1, ...);
 * a capture that fails raises ``RuntimeError`` naming the key. Nothing falls
   back to the eager loop; the eager body stays callable as the planner's
   ``_plan``, the plain version the graph is held against;

@@ -767,7 +767,8 @@ def evaluate(ckpt, heldout, hw, *, use_cond="NO_GUIDANCE", quick=False, device=N
 
 
 def distill(ckpt, data_root, heldout, hw, *, use_cond="NO_GUIDANCE", quick=False, device=None, batch=64,
-            start=50, iters=800, stages=6, workdir, cl_steps=120, cv_steps=None, eval_ks=(4, 2, 1)) -> dict:
+            start=50, iters=800, stages=6, workdir, cl_steps=120, cv_steps=None, eval_ks=(4, 2, 1),
+            seed=0) -> dict:
     """Progressively distill ``ckpt`` through the port's distill CLI (in
     this process; the DDIM grid halved ``stages`` times from ``start``),
     then benchmark the few-step students against the teacher run at the
@@ -792,7 +793,7 @@ def distill(ckpt, data_root, heldout, hw, *, use_cond="NO_GUIDANCE", quick=False
     if quick:
         dopts += ["MODEL.DIM", "8", "MODEL.PERCEPTION", "tiny"]
     argv = ["--checkpoint", ckpt, "--workdir", dworkdir, "--start-steps", str(start), "--stages", str(stages),
-            "--iters", str(iters)]
+            "--iters", str(iters), "--seed", str(seed)]
     if device is not None:
         argv += ["--device", str(device)]
     argv += ["--opts", *dopts]
@@ -843,6 +844,7 @@ def distill(ckpt, data_root, heldout, hw, *, use_cond="NO_GUIDANCE", quick=False
         "teacher": teacher_at,
         "students": students,
         "seconds": round(time.time() - t0d, 1),
+        "seed": seed,
         "gates": gates,
         "pass": bool(quick) or bool(measured and all(gates.values())),
     }
@@ -887,6 +889,9 @@ def parse_args(argv=None):
     ap.add_argument("--distill-start", type=int, default=50, help="teacher grid size the halving chain starts from")
     ap.add_argument("--distill-iters", type=int, default=800, help="distillation iterations per stage")
     ap.add_argument("--distill-out", default="DISTILL_torch.json")
+    ap.add_argument("--distill-seed", type=int, default=0,
+                    help="the distill CLI's --seed: its batches' order and its draws (with --skip-train, "
+                    "another distillation of the same teacher)")
     ap.add_argument(
         "--bn-mode", default="frozen", choices=["train", "frozen"],
         help="TPU.BN_MODE for the training run: 'frozen' keeps the encoder's BatchNorm in eval mode, "
@@ -941,7 +946,8 @@ def main(argv=None) -> dict:
     if args.distill:
         distill_info = distill(ckpt, data_root, heldout, hw, use_cond=args.use_cond, quick=quick, device=device,
                                batch=batch, start=8 if quick else args.distill_start,
-                               iters=6 if quick else args.distill_iters, workdir=args.workdir)
+                               iters=6 if quick else args.distill_iters, workdir=args.workdir,
+                               seed=args.distill_seed)
         distill_info["device"] = card
         with open(args.distill_out, "w") as f:
             json.dump(distill_info, f, indent=2)

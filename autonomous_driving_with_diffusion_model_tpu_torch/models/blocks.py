@@ -16,6 +16,9 @@ changed (``load_state_dict``, ``.to()``, an in-place update such as an
 optimizer step), never per call. Under autograd (training) the pack is built
 afresh on each call and differentiably, so the gradient reaches the
 parameters through it; the kernels' gradient is ``ops/kernels.py:Recompute``.
+A CUDA graph's replay writes weights without bumping their ``_version``:
+the training programs (``train/program.py``) bump it after every replay
+(``torch.autograd.graph.increment_version``), so the cached packs follow.
 
 Parameters stay float32 in every model. A bfloat16 model (JAX
 ``TPU.COMPUTE_DTYPE``) computes in bfloat16: activations are bfloat16, and
@@ -30,7 +33,7 @@ the bfloat16 rounding of the block's output (``tests/test_torch_bf16.py``).
 from __future__ import annotations
 
 import math
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -52,6 +55,7 @@ __all__ = [
     "TransformerEncoderLayer",
     "TrajPredict",
     "dropout",
+    "DropoutDraws",
 ]
 
 
@@ -264,12 +268,51 @@ def dropout(x: torch.Tensor, rate: float, training: bool, generator=None) -> tor
     """Inverted dropout (flax ``nn.Dropout``): each element kept with
     probability 1 - rate and scaled by 1 / (1 - rate), in training only. The
     mask is drawn from ``generator`` (None: the default generator) on the
-    generator's device."""
+    generator's device, or taken from a :class:`DropoutDraws`."""
     if not training or rate == 0.0:
         return x
-    dev = x.device if generator is None else generator.device
-    keep = torch.rand(x.shape, generator=generator, device=dev) >= rate
+    if isinstance(generator, DropoutDraws):
+        u = generator.rand(x.shape)
+    else:
+        dev = x.device if generator is None else generator.device
+        u = torch.rand(x.shape, generator=generator, device=dev)
+    keep = u >= rate
     return x * keep.to(x.device, x.dtype) / (1.0 - rate)
+
+
+class DropoutDraws:
+    """The uniform draws of a forward's dropout masks, in the order it takes
+    them: drawn from ``generator`` at first use and kept (``draws``), or
+    given beforehand, so that a captured step reads them from fixed buffers.
+    ``get_state`` / ``set_state`` move the cursor, as a generator's state
+    moves, so a recompute (``TPU.REMAT``) takes the first pass's draws
+    again."""
+
+    def __init__(self, generator: Optional[torch.Generator] = None, draws=()):
+        self.generator = generator
+        self.draws = list(draws)
+        self.pos = 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.draws[0].device if self.draws else self.generator.device
+
+    def rand(self, shape) -> torch.Tensor:
+        if self.pos == len(self.draws):
+            if self.generator is None:
+                raise RuntimeError(f"dropout draw {self.pos} of shape {tuple(shape)} was not given")
+            self.draws.append(torch.rand(shape, generator=self.generator, device=self.generator.device))
+        u = self.draws[self.pos]
+        if tuple(u.shape) != tuple(shape):
+            raise RuntimeError(f"dropout draw {self.pos} has shape {tuple(u.shape)}, the forward takes {tuple(shape)}")
+        self.pos += 1
+        return u
+
+    def get_state(self) -> int:
+        return self.pos
+
+    def set_state(self, pos: int) -> None:
+        self.pos = pos
 
 
 class TransformerEncoderLayer(nn.Module):

@@ -107,6 +107,28 @@ def score_trajs(params: Dict, trajs: torch.Tensor, target, hidden: Tuple[int, ..
         return net(trajs, torch.as_tensor(target, device=trajs.device))
 
 
+def scorer_step(net: "HypothesisScorer", tr_t: torch.Tensor, tr_g: torch.Tensor, tr_y: torch.Tensor, *,
+                lr: float, weight_decay: float):
+    """``step() -> loss``: one full-batch AdamW step of the fit on
+    the training rows, with optax ``adamw``'s defaults (b1 0.9, b2 0.999,
+    eps 1e-8), ``fused`` on every device, so that the card and the CPU run one
+    update's arithmetic (the fused kernel's); on a card, where
+    ``train_scorer`` captures the step once and replays it
+    (``train/program.py:replay_steps``), also ``capturable``: its step count
+    lives on the device."""
+    optimizer = torch.optim.AdamW(net.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                  weight_decay=weight_decay, capturable=tr_t.device.type == "cuda", fused=True)
+
+    def step() -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        loss = torch.mean((net(tr_t, tr_g) - tr_y) ** 2)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
 def train_scorer(
     trajs: np.ndarray,
     targets: np.ndarray,
@@ -131,11 +153,13 @@ def train_scorer(
     in validation, since one episode's consecutive rows are near-duplicates.
     Outcomes are standardized on the training rows; ``steps`` full-batch
     AdamW updates with optax ``adamw``'s defaults (b1 0.9, b2 0.999, eps
-    1e-8) at ``weight_decay`` and a constant ``lr``. ``params``: the initial
+    1e-8) at ``weight_decay`` and a constant ``lr``: on a card one CUDA
+    graph of the step replayed (:func:`scorer_step`). ``params``: the initial
     flax-layout tree (None: :func:`init_scorer` of ``seed``). Runs on
     ``device`` (None: the card). Returns (params as numpy, metrics: val MSE,
     top-1 regret of the scorer's pick and of a random pick, the held-out
     ``val_indices``)."""
+    from ..train.program import replay_steps
     from ..utils.device import resolve_device
 
     dev = resolve_device(device)
@@ -163,16 +187,10 @@ def train_scorer(
     if params is None:
         params = init_scorer(seed, trajs.shape[2], trajs.shape[3], hidden)
     net = HypothesisScorer.from_params(params, hidden).to(dev)
-    optimizer = torch.optim.AdamW(net.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                  weight_decay=weight_decay)
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    tr_t, tr_g, tr_y = put(trajs[tr_idx]), put(targets[tr_idx]), put(y[tr_idx])
-    loss = torch.full((), float("nan"))
-    for _ in range(steps):
-        optimizer.zero_grad(set_to_none=True)
-        loss = torch.mean((net(tr_t, tr_g) - tr_y) ** 2)
-        loss.backward()
-        optimizer.step()
+    step = scorer_step(net, put(trajs[tr_idx]), put(targets[tr_idx]), put(y[tr_idx]), lr=lr,
+                          weight_decay=weight_decay)
+    loss, _ = replay_steps(step, steps, dev, list(net.parameters()))
     params = net.params()
 
     def regret(pick_idx: np.ndarray, idx: np.ndarray) -> float:

@@ -62,13 +62,23 @@ def wrap_ddp(state, cfg) -> None:
     weights broadcast to every rank). Every ``TRAIN.USE_COND`` variant
     gives every parameter a gradient, so the reducer needs no search for
     unused ones. The BatchNorm statistics are global already, so DDP does
-    not broadcast the buffers."""
+    not broadcast the buffers. On a card the wrapper is built on a side
+    stream, as a CUDA graph that holds its backward needs
+    (``train/program.py``)."""
+    from contextlib import nullcontext
+
     from ..train.state import StepForward
 
     dev = local_device(state.model.device)
-    state.ddp = DistributedDataParallel(
-        StepForward(state.model, bool(cfg.TPU.REMAT)),
-        device_ids=[dev.index] if dev.type == "cuda" else None,
-        broadcast_buffers=False,
-    )
+    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    if side is not None:
+        side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side) if side is not None else nullcontext():
+        state.ddp = DistributedDataParallel(
+            StepForward(state.model, bool(cfg.TPU.REMAT)),
+            device_ids=[dev.index] if dev.type == "cuda" else None,
+            broadcast_buffers=False,
+        )
+    if side is not None:
+        torch.cuda.current_stream(dev).wait_stream(side)
     state.rank, state.world = process_index(), process_count()

@@ -66,8 +66,14 @@ def initialize_distributed(
     cuda = torch.device(device).type == "cuda"
     if cuda:
         torch.cuda.set_device(local_rank)
+    backend = backend or ("nccl" if cuda else "gloo")
+    if backend == "nccl":
+        # the train program captures DDP's all-reduce in a CUDA graph, which
+        # NCCL's asynchronous error handling does not allow; without it the
+        # watchdog does not abort the ranks that wait on one that failed
+        os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "0")
     dist.init_process_group(
-        backend=backend or ("nccl" if cuda else "gloo"),
+        backend=backend,
         init_method=f"tcp://{master_addr}:{master_port}",
         rank=rank,
         world_size=world_size,

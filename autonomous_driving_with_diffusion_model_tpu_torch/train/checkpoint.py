@@ -23,7 +23,7 @@ from typing import Optional
 import torch
 
 from ..models.convert import apply_ema_shadow_params, build_mapping, load_torch_checkpoint
-from .state import BETAS, EPS, WEIGHT_DECAY, TrainState
+from .state import BETAS, EPS, WEIGHT_DECAY, TrainState, place_step_counts
 
 __all__ = ["export_torch_checkpoint", "import_torch_checkpoint", "save_checkpoint", "load_checkpoint",
            "resume", "load_eval_state_dict", "FORMAT"]
@@ -51,14 +51,10 @@ def _params(state: TrainState, cfg):
 
 
 def _set_epoch(state: TrainState, epoch: int) -> None:
-    """Put the LR schedule at ``epoch`` optimizer steps taken."""
-    sched = state.scheduler
-    sched.last_epoch = epoch
-    sched._step_count = epoch + 1
-    lrs = [base * lam(epoch) for base, lam in zip(sched.base_lrs, sched.lr_lambdas)]
-    for group, lr in zip(state.optimizer.param_groups, lrs):
-        group["lr"] = lr
-    sched._last_lr = lrs
+    """Put the LR schedule at ``epoch`` optimizer steps taken, and the
+    AdamW step counts where the optimizer keeps them."""
+    place_step_counts(state.optimizer)
+    state.scheduler.set_epoch(epoch)
 
 
 def export_torch_checkpoint(state: TrainState, cfg, path: str, base_lr: Optional[float] = None) -> None:
@@ -152,7 +148,11 @@ def _load(ckpt: dict, state: TrainState, path: str) -> TrainState:
     if ckpt.get("format") != FORMAT:
         raise ValueError(f"{path} is not a checkpoint of this port's trainer")
     state.model.load_state_dict(ckpt["model"], strict=True)
+    # the file's moments and counts; the LR scalar and the device policy stay this optimizer's
+    kept = [(g["lr"], g["capturable"]) for g in state.optimizer.param_groups]
     state.optimizer.load_state_dict(ckpt["optimizer"])
+    for g, (lr, capturable) in zip(state.optimizer.param_groups, kept):
+        g["lr"], g["capturable"] = lr, capturable
     for s, v in zip(state.ema.shadow_params, ckpt["ema"]["shadow_params"], strict=True):
         s.copy_(v)
     state.ema.optimization_step = int(ckpt["ema"]["optimization_step"])

@@ -17,7 +17,8 @@ rank 0; every rank holds the same weights and EMA.
 It trains on the card unless ``--device cpu`` is given. The frames are
 decoded on the host (``data/png.py``) and, with ``TPU.DEVICE_DATA``, kept on
 the device; augmentation and normalization run on the device, then the
-train step (``train/state.py``). Every ``TRAIN.SAVE_INTERVAL`` iterations
+train step (``train/state.py``), one CUDA graph replay per iteration on the
+card (``train/program.py``). Every ``TRAIN.SAVE_INTERVAL`` iterations
 and at the end it saves ``checkpoints/checkpoint_{it}.pth`` /
 ``final.pth`` in the reference layout (ResNet-34), or the port's own
 ``.pt`` for other encoders. ``TRAIN.RESUME`` resumes from either.
@@ -191,6 +192,7 @@ def _train(args, cfg, dev, log):
     from ..utils.profiling import trace
     from ..utils.tracker import Tracker
     from .checkpoint import resume
+    from .program import TrainProgram
     from .state import create_train_state, make_train_step
 
     model = build_model(cfg, device=dev, seed=ROOT_SEED)
@@ -218,7 +220,8 @@ def _train(args, cfg, dev, log):
         wrap_ddp(state, cfg)  # every rank starts from rank 0's weights
         log.info("Data-parallel: %d rank(s) of TRAIN.BATCH_SIZE %d (%s)", state.world, cfg.TRAIN.BATCH_SIZE,
                  dist.get_backend())
-    train_step = make_train_step(schedule, cfg)
+    # the step as one program: a CUDA graph replayed per iteration on the card
+    train_step = TrainProgram(make_train_step(schedule, cfg), dev)
     loader = maybe_device_resident(
         get_loader(cfg, train=True, shard_index=process_index(), shard_count=process_count()), cfg, dev)
     if isinstance(loader, DeviceResidentLoader):
@@ -232,6 +235,7 @@ def _train(args, cfg, dev, log):
     data_iter = iter(loader)
     start = time.time()
     profiler = None
+    logged_graph = None
     while cur_iter < max_iter:
         # a steady-state window, past the warm-up iterations
         if args.profile_dir and main_process and cur_iter == 10 and profiler is None:
@@ -255,6 +259,11 @@ def _train(args, cfg, dev, log):
         metrics = train_step(state, batch, generator=step_gen)
         image_iteration += cfg.TRAIN.BATCH_SIZE
         cur_iter += 1
+        captured = train_step.captured()
+        if captured is not None and captured is not logged_graph and main_process:
+            logged_graph = captured
+            log.info("Train step captured as a CUDA graph after %d eager step(s): warm %.2f s, capture %.2f s",
+                     captured.warm_steps, captured.warm_s, captured.capture_s)
 
         if cur_iter % cfg.TRAIN.LOG_INTERVAL == 0 and main_process:
             loss = float(metrics["loss"])  # waits for the step

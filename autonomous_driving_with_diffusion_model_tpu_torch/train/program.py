@@ -1,0 +1,371 @@
+"""The training-side steps as one program each on the card (the
+counterparts of the JAX package's jitted steps: the train step,
+``train.py:204`` ``jax.jit(make_train_step(...), donate_argnums=(0,))``; the
+distill step, ``distill.py:161`` ``jax.jit(step, donate_argnums=(0,))``; the
+scorer fit, ``models/scorer.py:178`` ``@jax.jit`` over a ``lax.scan`` of its
+steps). Built like the plan's program (``driving/program.py``).
+
+:class:`TrainProgram` and :class:`DistillProgram` hold fixed input buffers
+(the batch and the step's draws) and one CUDA graph per key. A step copies
+its inputs into the buffers; the host parts of the step (the draws, the EMA
+decay written into its device scalar, the counts and the next LR afterwards,
+``train/state.py:TrainStep``) run around the device part, its ``body``:
+
+* the key's first step runs the unchanged eager body on a side stream (a
+  real step: it builds the kernel packs, the kernels' library, cuDNN's
+  plans, AdamW's moments), then the body is captured with
+  ``torch.cuda.graph`` (the capture runs nothing) and every later step of
+  the key replays it. Under DistributedDataParallel on NCCL the first 11
+  steps run eagerly (DDP's reducer settles its buckets in its first
+  iterations) and the capture holds the gradients' all-reduce;
+* the draws are made on the host side of the step, in the eager step's
+  order (t, noise, keep, then the dropout masks' uniforms, each into its
+  buffer), so a replay computes what the eager step computes bit for bit;
+  the dropout masks reach the forward through ``models/blocks.py:
+  DropoutDraws``, whose cursor gives a ``TPU.REMAT`` recompute the first
+  pass's masks;
+* the key is the batch's shapes and dtypes, G (``GRADIENT_ACCUMULATION_
+  STEPS``), the compute dtype, ``BN_MODE``, ``REMAT``, ``USE_COND``, the
+  ranks and the state's generation: ``data_ptr`` and ``_version`` of every
+  parameter, buffer, AdamW moment and count and EMA shadow (of the teacher's
+  weights too, for distillation), which eager code moves when it writes
+  them (a resume, a ``load_state_dict``) and a replay does not. A new
+  generation drops the old graphs, so one is never replayed on tensors it
+  was not captured on;
+* a replay writes the weights without a ``_version`` bump, so the program
+  bumps the ``_version`` of every tensor the graph writes after each replay
+  (``torch.autograd.graph.increment_version``): the kernel packs' caches
+  (``models/blocks.py:_packed``) and the plan program's key read it, so a
+  plan or a sample after graph steps packs and captures the new weights;
+* a capture that fails raises ``RuntimeError`` naming the key. Nothing falls
+  back to the eager step; the eager step stays callable (``TrainStep``,
+  ``DistillStep``), the plain version a graph is held against;
+* the kernels' launch counts (``ops/kernels.py``) count the eager steps'
+  launches as they happen; the capture's are taken back out and added on
+  every replay, so a step counts its launches once however it ran.
+
+:func:`replay_steps` runs a step of no inputs (the scorer's full-batch
+AdamW step) ``steps`` times as one eager step, one capture and ``steps - 1``
+replays.
+
+On the CPU the same objects run the step on the same buffers: only the
+capture and the replay are CUDA's.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from ..models.blocks import DropoutDraws
+from ..ops import kernels
+from .state import StepDraws, TrainState, TrainStep
+
+__all__ = ["TrainProgram", "DistillProgram", "replay_steps", "DDP_WARM_STEPS"]
+
+DDP_WARM_STEPS = 11  # eager DDP iterations before a capture (PyTorch's CUDA graphs notes)
+
+
+def _tensors_key(tensors) -> Tuple:
+    return tuple((t.data_ptr(), t._version) for t in tensors)
+
+
+def _optimizer_tensors(optimizer: torch.optim.Optimizer) -> List[torch.Tensor]:
+    return [v for st in optimizer.state.values() for v in st.values() if isinstance(v, torch.Tensor)]
+
+
+class _Captured:
+    """One key's buffers, and on the card its graph, its output (the loss),
+    the dropout uniforms' buffers, the launches it captured, the eager steps
+    it runs before the capture and those still to run, what it must keep
+    alive, and the
+    seconds of its last eager step and of its capture (host clock, each
+    ending in a synchronize)."""
+
+    def __init__(self, inputs: Dict[str, torch.Tensor], warm_steps: int):
+        self.inputs = inputs
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.loss: Optional[torch.Tensor] = None
+        self.uniforms: List[torch.Tensor] = []
+        self.launches: Dict[str, int] = {}
+        self.warm_steps = self.warm_left = warm_steps
+        self.keep: list = []
+        self.warm_s = self.capture_s = 0.0
+
+
+def _fill(bufs: Dict[str, torch.Tensor], srcs: Dict[str, torch.Tensor]) -> None:
+    for name, src in srcs.items():
+        bufs[name].copy_(src)
+
+
+def _buffers(srcs: Dict[str, torch.Tensor], device) -> Dict[str, torch.Tensor]:
+    return {name: torch.empty(src.shape, dtype=src.dtype, device=device) for name, src in srcs.items()}
+
+
+def _capture(body: Callable[[], torch.Tensor], device, stream, what: str):
+    """(graph, its output, the launches it recorded, seconds): ``body``
+    captured on ``stream``; the launch counts end as they began. Raises
+    ``RuntimeError`` naming ``what`` if the capture fails."""
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    before = kernels.launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+            out = body()
+    except RuntimeError as e:
+        raise RuntimeError(f"capturing {what} as a CUDA graph failed: {e}") from e
+    finally:
+        after = kernels.launch_counts()
+        kernels.add_launch_counts({k: before[k] - after[k] for k in before})
+    torch.cuda.synchronize(device)
+    return graph, out, {k: after[k] - before[k] for k in before}, time.perf_counter() - t0
+
+
+class _StepProgram:
+    """What the train and distill programs share: the keyed buffers, the
+    side stream and the generation of the state they were captured on."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.programs: Dict[Tuple, _Captured] = {}
+        self.key: Optional[Tuple] = None  # the key of the last step
+        self._state: Optional[Tuple] = None
+        self._generation = -1
+        self._stream: Optional[torch.cuda.Stream] = None
+
+    def _program(self, state_key: Tuple, key_of: Callable[[int], Tuple], inputs: Dict[str, torch.Tensor],
+                 warm_steps: int) -> Tuple[_Captured, bool]:
+        if state_key != self._state:
+            self.programs.clear()  # their graphs hold the old tensors
+            self._state, self._generation = state_key, self._generation + 1
+        self.key = key = key_of(self._generation)
+        prog = self.programs.get(key)
+        if prog is None:
+            prog = self.programs[key] = _Captured(_buffers(inputs, self.device), warm_steps)
+        _fill(prog.inputs, inputs)
+        return prog, prog.graph is None and self.device.type == "cuda"
+
+    def _eager(self, prog: _Captured, run: Callable[[], dict]) -> dict:
+        """One eager step on the side stream (the warm run before a capture)."""
+        t0 = time.perf_counter()
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        current = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(current)
+        with torch.cuda.stream(self._stream):
+            out = run()
+        current.wait_stream(self._stream)
+        torch.cuda.synchronize(self.device)
+        prog.warm_s = time.perf_counter() - t0
+        prog.warm_left -= 1
+        return out
+
+    def captured(self) -> Optional[_Captured]:
+        """The last step's key's program, once it holds a graph."""
+        prog = self.programs.get(self.key)
+        return prog if prog is not None and prog.graph is not None else None
+
+    def _capture_into(self, prog: _Captured, body: Callable[[], torch.Tensor], what: str) -> None:
+        """Capture ``body`` into ``prog``; a failed capture drops the key
+        and raises."""
+        try:
+            prog.graph, prog.loss, prog.launches, prog.capture_s = _capture(body, self.device, self._stream, what)
+        except RuntimeError:
+            del self.programs[self.key]
+            raise
+
+    def _replay(self, prog: _Captured, writes: List[torch.Tensor]) -> torch.Tensor:
+        """Replay ``prog``'s graph, which writes ``writes`` in place."""
+        prog.graph.replay()
+        kernels.add_launch_counts(prog.launches)
+        torch.autograd.graph.increment_version(writes)
+        return prog.loss.clone()
+
+
+class TrainProgram(_StepProgram):
+    """``program(state, batch, draws=None, generator=None) -> metrics``: the
+    train step ``step`` (a :class:`~.state.TrainStep`) on fixed buffers, as
+    the step takes them; a CUDA graph per key on the card. The metrics are
+    the step's: the loss a copy on the device, the LR and the EMA decay
+    host floats."""
+
+    def __init__(self, step: TrainStep, device):
+        super().__init__(device)
+        self.step = step
+
+    @staticmethod
+    def writes(state: TrainState) -> List[torch.Tensor]:
+        """What a step writes: the parameters, buffers, AdamW's state and the
+        EMA shadows."""
+        m = state.model
+        return [*m.parameters(), *m.buffers(), *_optimizer_tensors(state.optimizer), *state.ema.shadow_params]
+
+    def state_key(self, state: TrainState) -> Tuple:
+        return _tensors_key(self.writes(state))
+
+    def __call__(self, state: TrainState, batch: Dict[str, torch.Tensor], draws: Optional[StepDraws] = None,
+                 generator: Optional[torch.Generator] = None) -> dict:
+        step = self.step
+        draws = step.local_draws(state, batch["trajs"].shape[0], draws, generator)
+        inputs = {**{f"batch.{k}": v for k, v in sorted(batch.items())},
+                  "t": draws.t, "noise": draws.noise, "keep": draws.keep}
+        key_of = lambda generation: (
+            tuple((k, tuple(v.shape), v.dtype) for k, v in inputs.items()), step.groups,
+            state.model.compute_dtype, step.bn_mode, step.remat, step.use_cond.name, state.world, generation)
+        ddp_nccl = state.ddp is not None and self.device.type == "cuda"
+        prog, build = self._program(self.state_key(state), key_of, inputs, DDP_WARM_STEPS if ddp_nccl else 1)
+        bufs = prog.inputs
+        batch_b = {k[len("batch."):]: v for k, v in bufs.items() if k.startswith("batch.")}
+        if prog.graph is not None:
+            gen = _generator(draws.dropout, self.device)
+            for u in prog.uniforms:  # after t, noise and keep, as the eager step draws them
+                u.copy_(torch.rand(u.shape, generator=gen, device=gen.device))
+            lr, decay = step.begin(state)
+            loss = self._replay(prog, self.writes(state))
+            step.end(state)
+        elif not build:  # the CPU: the step on the buffers
+            lr, decay = step.begin(state)
+            loss = step.body(state, batch_b, StepDraws(bufs["t"], bufs["noise"], bufs["keep"], draws.dropout))
+            step.end(state)
+        else:
+            recorder = DropoutDraws(_generator(draws.dropout, self.device))
+
+            def run():
+                lr, decay = step.begin(state)
+                loss = step.body(state, batch_b, StepDraws(bufs["t"], bufs["noise"], bufs["keep"], recorder))
+                step.end(state)
+                return lr, decay, loss
+
+            lr, decay, loss = self._eager(prog, run)
+            if prog.warm_left <= 0:
+                prog.uniforms = [torch.empty_like(u) for u in recorder.draws]
+                body = lambda: step.body(state, batch_b, StepDraws(bufs["t"], bufs["noise"], bufs["keep"],
+                                                                   DropoutDraws(draws=prog.uniforms)))
+                self._capture_into(prog, body, f"the train step for {_describe(self.key)}")
+        self._state = self.state_key(state)
+        return {"loss": loss, "lr": lr, "ema_decay": decay}
+
+
+class DistillProgram(_StepProgram):
+    """``program(state, teacher, batch, draws=None, generator=None) ->
+    metrics``: the distill step ``step`` (``diffusion/distill.py``'s
+    ``DistillStep``) on fixed buffers; a CUDA graph per key on the card,
+    one per stage (a new student or teacher is a new generation)."""
+
+    def __init__(self, step, device):
+        super().__init__(device)
+        self.step = step
+
+    @staticmethod
+    def writes(state) -> List[torch.Tensor]:
+        """What a step writes: the student's parameters and buffers, AdamW's
+        state and the EMA shadows."""
+        return [*state.student.parameters(), *state.student.buffers(), *_optimizer_tensors(state.optimizer),
+                *state.ema.shadow_params]
+
+    def state_key(self, state, teacher) -> Tuple:
+        return _tensors_key([*self.writes(state), *teacher.parameters(), *teacher.buffers()])
+
+    def __call__(self, state, teacher, batch: Dict[str, torch.Tensor], draws=None,
+                 generator: Optional[torch.Generator] = None) -> dict:
+        step = self.step
+        draws = step.draws(batch, draws, generator)
+        inputs = {**{f"batch.{k}": v for k, v in sorted(batch.items())}, "i": draws.i, "noise": draws.noise}
+        key_of = lambda generation: (
+            tuple((k, tuple(v.shape), v.dtype) for k, v in inputs.items()), state.student.compute_dtype,
+            step.use_cond.name, generation)
+        prog, build = self._program(self.state_key(state, teacher), key_of, inputs, 1)
+        bufs = prog.inputs
+        batch_b = {k[len("batch."):]: v for k, v in bufs.items() if k.startswith("batch.")}
+        buf_draws = type(draws)(bufs["i"], bufs["noise"])
+        if prog.graph is not None:
+            lr = step.begin(state)
+            loss = self._replay(prog, self.writes(state))
+            step.end(state)
+        elif not build:
+            lr = step.begin(state)
+            loss = step.body(state, teacher, batch_b, buf_draws)
+            step.end(state)
+        else:
+            def run():
+                lr = step.begin(state)
+                loss = step.body(state, teacher, batch_b, buf_draws)
+                step.end(state)
+                return lr, loss
+
+            lr, loss = self._eager(prog, run)
+            self._capture_into(prog, lambda: step.body(state, teacher, batch_b, buf_draws),
+                               f"the distill step for {_describe_distill(self.key)}")
+            # the teacher's cached kernel packs the graph reads, alive whatever
+            # repacks the teacher later
+            prog.keep = [dict(m.__dict__.get("_kernel_params", {})) for m in teacher.modules()]
+        self._state = self.state_key(state, teacher)
+        return {"loss": loss, "lr": lr}
+
+
+def replay_steps(step: Callable[[], torch.Tensor], steps: int, device,
+                 writes: List[torch.Tensor]) -> Tuple[torch.Tensor, dict]:
+    """``steps`` calls of ``step`` (an optimizer step of no inputs that
+    returns its loss and writes ``writes`` in place), and the last one's
+    loss: on the card one eager call on a side stream, one capture and
+    ``steps - 1`` replays (the counterpart of a ``lax.scan`` of the steps
+    under ``jax.jit``), ``writes``' ``_version`` bumped after them; a loop on
+    the CPU. Also returns ``{"warm_s", "capture_s", "replays"}``."""
+    dev = torch.device(device)
+    info = {"warm_s": 0.0, "capture_s": 0.0, "replays": 0}
+    loss = torch.full((), math.nan)
+    if dev.type != "cuda":
+        for _ in range(steps):
+            loss = step()
+        return loss, info
+    if steps <= 0:
+        return loss, info
+    stream = torch.cuda.Stream(dev)
+    current = torch.cuda.current_stream(dev)
+    t0 = time.perf_counter()
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        loss = step()
+    current.wait_stream(stream)
+    torch.cuda.synchronize(dev)
+    info["warm_s"] = time.perf_counter() - t0
+    if steps == 1:
+        return loss, info
+    graph, out, launches, info["capture_s"] = _capture(step, dev, stream, "the fit's step")
+    for _ in range(steps - 1):
+        graph.replay()
+        kernels.add_launch_counts(launches)
+    info["replays"] = steps - 1
+    torch.autograd.graph.increment_version(writes)
+    return out.clone(), info
+
+
+def _generator(gen: Optional[torch.Generator], device) -> torch.Generator:
+    """``gen``, or where it is None the generator the eager step's dropout
+    then draws from: ``device``'s default."""
+    if gen is not None:
+        return gen
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.default_generators[device.index if device.index is not None
+                                             else torch.cuda.current_device()]
+    return torch.default_generator
+
+
+def _describe(key: Tuple) -> str:
+    """A train program's key in words."""
+    inputs, groups, dtype, bn_mode, remat, use_cond, world, generation = key
+    shapes = ", ".join(f"{k} {tuple(s)}" for k, s, _ in inputs)
+    return (f"the key ({shapes}; G {groups}, {str(dtype).replace('torch.', '')}, BN_MODE {bn_mode}, "
+            f"REMAT {remat}, {use_cond}, {world} rank(s), state generation {generation})")
+
+
+def _describe_distill(key: Tuple) -> str:
+    inputs, dtype, use_cond, generation = key
+    shapes = ", ".join(f"{k} {tuple(s)}" for k, s, _ in inputs)
+    return (f"the key ({shapes}; {str(dtype).replace('torch.', '')}, {use_cond}, "
+            f"state generation {generation})")

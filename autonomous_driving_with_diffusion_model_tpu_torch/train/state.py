@@ -16,10 +16,16 @@ The reference's training semantics:
 * the EMA updated after every optimizer step (train.py:260-261).
 
 The state is PyTorch's: the model (parameters and BatchNorm buffers), a
-``torch.optim.AdamW``, a ``LambdaLR`` and the EMA shadow, all updated in
+``torch.optim.AdamW``, its LR schedule and the EMA shadow, all updated in
 place by the step. The step takes its random draws explicitly
 (:class:`StepDraws`), or draws them from a ``torch.Generator`` it is given;
 with neither it refuses.
+
+A step (:class:`TrainStep`) is host work around device work: the draws
+and the EMA's decay are made on the host before it and the counts moved
+after it, while its ``body`` (forward, backward, scrub, AdamW, EMA) reads
+its LR and decay from device scalars and syncs nothing, so that
+``train/program.py`` captures the body as one CUDA graph and replays it.
 
 Data-parallel (``parallel/ddp.py:wrap_ddp``), each rank holds the same
 state, feeds its local batch through the ``DistributedDataParallel``
@@ -41,16 +47,17 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn as nn
-from torch.optim.lr_scheduler import LambdaLR
 from torch.utils.checkpoint import checkpoint
 
 from ..diffusion.schedule import DiffusionSchedule, add_noise
 from ..models.temporal_unet import BN_MODES, TemporalMapUnet
 from ..utils.constants import ANCHOR_DIMS, GuidanceType
-from .ema import EmaConfig, EmaState, ema_init, ema_update
+from .ema import EmaConfig, EmaState, ema_apply, ema_begin, ema_end, ema_init
 
 __all__ = [
     "TrainState",
+    "TrainStep",
+    "LrSchedule",
     "StepDraws",
     "StepForward",
     "create_train_state",
@@ -58,6 +65,7 @@ __all__ = [
     "make_lr_schedule",
     "make_optimizer",
     "make_train_step",
+    "place_step_counts",
     "ema_config",
 ]
 
@@ -95,23 +103,68 @@ def _cosine_schedule(lr: float, warmup_steps: int, decay_steps: int) -> Callable
     return schedule
 
 
+class LrSchedule:
+    """``LambdaLR``'s bookkeeping over the optimizer's device-scalar LR:
+    ``last_epoch`` counts the updates taken, and the LR of the next one,
+    ``fn(last_epoch)``, sits in every param group's ``lr`` tensor, written
+    from the host by :meth:`step` and :meth:`set_epoch`, never inside a
+    captured step, whose replays read the tensor."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer, fn: Callable[[int], float]):
+        self.optimizer = optimizer
+        self.fn = fn
+        self.set_epoch(0)
+
+    def set_epoch(self, epoch: int) -> None:
+        """Put the schedule at ``epoch`` updates taken."""
+        self.last_epoch = epoch
+        self._step_count = epoch + 1
+        lr = self.fn(epoch)
+        for group in self.optimizer.param_groups:
+            group["lr"].fill_(lr)
+        self._last_lr = [lr]
+
+    def step(self) -> None:
+        self.set_epoch(self.last_epoch + 1)
+
+    def get_last_lr(self):
+        return list(self._last_lr)
+
+
 def make_optimizer(params, lr: float, warmup_steps: int, decay_steps: int = 0):
-    """(AdamW, LambdaLR): the reference's AdamW contract (train.py:170-174),
+    """(AdamW, LrSchedule): the reference's AdamW contract (train.py:170-174),
     the single source of these hyperparameters.
 
     torch's AdamW decays the weight before the Adam step, ``p (1 - lr wd)``,
     with ``lr`` the update's LR: optax's ``adamw`` adds ``wd p`` to the Adam
-    direction and scales the sum by ``-lr``, the same update. The scheduler's
-    factor is the LR itself (the optimizer's base LR is 1): optax evaluates
-    the schedule at the update count before incrementing it, and ``LambdaLR``
-    sets the LR of update k to ``schedule(k)`` (k = 0 first) when it steps
-    after each update. ``decay_steps`` > 0 swaps the constant-after-warmup
-    schedule for a cosine decay to 0 over that many steps (JAX
-    ``make_optimizer``), which distillation uses."""
+    direction and scales the sum by ``-lr``, the same update. The LR is a
+    float32 scalar tensor on the parameters' device, which the schedule
+    writes before each update (optax evaluates the schedule at the update
+    count before incrementing it: update k, k = 0 first, has
+    ``schedule(k)``), so a captured step reads it at every replay; on a CUDA
+    device the optimizer is ``capturable`` (its step counts on the device
+    too). ``decay_steps`` > 0 swaps the constant-after-warmup schedule for a
+    cosine decay to 0 over that many steps (JAX ``make_optimizer``), which
+    distillation uses."""
+    params = list(params)
     schedule = (_cosine_schedule(lr, warmup_steps, decay_steps) if decay_steps > 0
                 else make_lr_schedule(lr, warmup_steps))
-    optimizer = torch.optim.AdamW(params, lr=1.0, betas=BETAS, eps=EPS, weight_decay=WEIGHT_DECAY)
-    return optimizer, LambdaLR(optimizer, schedule)
+    dev = params[0].device
+    optimizer = torch.optim.AdamW(params, lr=torch.zeros((), dtype=torch.float32, device=dev), betas=BETAS,
+                                  eps=EPS, weight_decay=WEIGHT_DECAY, capturable=dev.type == "cuda")
+    return optimizer, LrSchedule(optimizer, schedule)
+
+
+def place_step_counts(optimizer: torch.optim.Optimizer) -> None:
+    """Each parameter's AdamW ``step`` count as float32 on the parameter's
+    device where its group is ``capturable``, on the CPU elsewhere (after a
+    resume wrote them)."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            st = optimizer.state.get(p)
+            if st and "step" in st:
+                dev = p.device if group["capturable"] else torch.device("cpu")
+                st["step"] = st["step"].to(dev, torch.float32)
 
 
 def ema_config(cfg) -> EmaConfig:
@@ -122,14 +175,15 @@ def ema_config(cfg) -> EmaConfig:
 @dataclass
 class TrainState:
     """What a step updates, in place: the model's parameters and BatchNorm
-    buffers, the optimizer's moments and counts, the LR schedule, the EMA
-    shadow, and ``step``, the optimizer steps taken. Data-parallel, ``ddp``
-    is the DistributedDataParallel wrapper of the step's forward and
-    ``rank`` / ``world`` the process's place in the group."""
+    buffers, the optimizer's moments and counts, the LR schedule (and its
+    device scalar), the EMA shadow, and ``step``, the optimizer steps
+    taken. Data-parallel, ``ddp`` is the DistributedDataParallel wrapper of
+    the step's forward and ``rank`` / ``world`` the process's place in the
+    group."""
 
     model: TemporalMapUnet
     optimizer: torch.optim.AdamW
-    scheduler: LambdaLR
+    scheduler: LrSchedule
     ema: EmaState
     step: int = 0
     ddp: Optional[nn.Module] = None
@@ -157,7 +211,9 @@ class StepForward(nn.Module):
             return self.model(x, img=image, time=time, cond=cond, dropout_generator=gen)
 
         if self.remat:
-            return checkpoint(run, x, image, time, cond, use_reentrant=False)
+            # the forward draws from no global generator, so checkpoint keeps
+            # none (its CUDA RNG state cannot be read inside a capture)
+            return checkpoint(run, x, image, time, cond, use_reentrant=False, preserve_rng_state=False)
         return run(x, image, time, cond)
 
 
@@ -205,7 +261,7 @@ def _bn_buffers(model: nn.Module):
             for b in m.buffers()]
 
 
-def make_train_step(schedule: DiffusionSchedule, cfg) -> Callable:
+class TrainStep:
     """``step(state, batch, draws=None, generator=None) -> metrics``.
 
     ``batch``: ``image`` (B, H, W, 3) normalized float images (uint8 is cast
@@ -224,67 +280,101 @@ def make_train_step(schedule: DiffusionSchedule, cfg) -> Callable:
     statistics carried from one to the next); the gradients and the loss are
     averaged (JAX ``train/state.py:198-232``). ``TPU.REMAT`` runs the forward
     under ``torch.utils.checkpoint`` (non-reentrant): the backward recomputes
-    it with the same dropout masks, and the BatchNorm statistics move once."""
-    use_cond = GuidanceType[cfg.TRAIN.USE_COND]
-    pred_type = cfg.TRAIN.NOISE_SCHEDULER.PRED_TYPE
-    if pred_type not in ("epsilon", "sample"):
-        raise ValueError("Not supported prediction type.")
-    bn_mode = str(cfg.TPU.BN_MODE)
-    if bn_mode not in BN_MODES:
-        raise ValueError(f"TPU.BN_MODE must be 'train' or 'frozen', got {bn_mode!r}")
-    remat = bool(cfg.TPU.REMAT)
-    groups = max(int(cfg.TRAIN.GRADIENT_ACCUMULATION_STEPS), 1)
-    ema_cfg = ema_config(cfg)
+    it with the same dropout masks, and the BatchNorm statistics move once.
 
-    def micro_loss(forward, image, trajs, target, t, noise, keep, gen):
+    A call is :meth:`local_draws` (host: the draws, the rank's rows), then
+    :meth:`begin` (host: the EMA decay into its scalar), :meth:`body` (device
+    only) and :meth:`end` (host: the counts and the next LR)."""
+
+    def __init__(self, schedule: DiffusionSchedule, cfg):
+        self.schedule = schedule
+        self.cfg = cfg
+        self.use_cond = GuidanceType[cfg.TRAIN.USE_COND]
+        self.pred_type = cfg.TRAIN.NOISE_SCHEDULER.PRED_TYPE
+        if self.pred_type not in ("epsilon", "sample"):
+            raise ValueError("Not supported prediction type.")
+        self.bn_mode = str(cfg.TPU.BN_MODE)
+        if self.bn_mode not in BN_MODES:
+            raise ValueError(f"TPU.BN_MODE must be 'train' or 'frozen', got {self.bn_mode!r}")
+        self.remat = bool(cfg.TPU.REMAT)
+        self.groups = max(int(cfg.TRAIN.GRADIENT_ACCUMULATION_STEPS), 1)
+        self.ema_cfg = ema_config(cfg)
+
+    def __call__(self, state: TrainState, batch: Dict[str, torch.Tensor], draws: Optional[StepDraws] = None,
+                 generator: Optional[torch.Generator] = None) -> dict:
+        draws = self.local_draws(state, batch["trajs"].shape[0], draws, generator)
+        lr, decay = self.begin(state)
+        loss = self.body(state, batch, draws)
+        self.end(state)
+        return {"loss": loss, "lr": lr, "ema_decay": decay}
+
+    def micro_loss(self, forward, image, trajs, target, t, noise, keep, gen):
         trajs = trajs.to(torch.float32)
         if not torch.is_floating_point(image):
             image = image.to(torch.float32)
-        x = add_noise(schedule, trajs, noise, t)
+        x = add_noise(self.schedule, trajs, noise, t)
         x[..., 0, :ANCHOR_DIMS] = 0.0
         cond = None
-        if use_cond == GuidanceType.FREE_GUIDANCE:
+        if self.use_cond == GuidanceType.FREE_GUIDANCE:
             target = target.to(torch.float32)
             cond = torch.where(keep, target, torch.zeros_like(target))
         pred = forward(x, image, t.to(torch.float32), cond, gen)
-        want = noise if pred_type == "epsilon" else trajs
+        want = noise if self.pred_type == "epsilon" else trajs
         return torch.mean((pred.to(torch.float32) - want) ** 2)
 
-    def local_draws(state: TrainState, draws: StepDraws, B: int) -> StepDraws:
-        """The rank's rows of the global batch's draws; the dropout masks
-        from a generator of the rank's own, seeded alike on every rank."""
-        if draws.t.shape[0] != B * state.world:
-            raise ValueError(f"draws for {draws.t.shape[0]} rows, the global batch has {B * state.world}")
-        if state.world == 1:
-            return draws
-        from ..parallel.ddp import local_rows
-
-        rows = local_rows(B, state.rank, state.world, groups)
-        gen = draws.dropout
-        if gen is not None and use_cond == GuidanceType.CLASSIFIER_GUIDANCE:
-            seed = int(torch.randint(0, 2**62, (1,), generator=gen, device=gen.device))
-            gen = torch.Generator(device=gen.device).manual_seed(seed + state.rank)
-        return StepDraws(draws.t[rows.to(draws.t.device)], draws.noise[rows.to(draws.noise.device)],
-                         draws.keep, gen)
-
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor], draws: Optional[StepDraws] = None,
-                   generator: Optional[torch.Generator] = None) -> dict:
-        model = state.model
-        B = batch["trajs"].shape[0]
+    def local_draws(self, state: TrainState, B: int, draws: Optional[StepDraws] = None,
+                    generator: Optional[torch.Generator] = None) -> StepDraws:
+        """The step's draws (from ``generator`` where ``draws`` is None),
+        cut to the rank's rows of the global batch's, on the model's device;
+        under data parallelism the dropout masks from a generator of the
+        rank's own, seeded alike on every rank. Host work."""
         if draws is None:
             if generator is None:
                 raise ValueError("the train step needs its draws: pass draws=StepDraws(...) or a torch.Generator")
-            draws = draw_step(cfg, B * state.world, generator)
-        if B % groups:
-            raise ValueError(f"batch {B} does not split into {groups} micro-batches")
-        draws = local_draws(state, draws, B)
+            draws = draw_step(self.cfg, B * state.world, generator)
+        if B % self.groups:
+            raise ValueError(f"batch {B} does not split into {self.groups} micro-batches")
+        if draws.t.shape[0] != B * state.world:
+            raise ValueError(f"draws for {draws.t.shape[0]} rows, the global batch has {B * state.world}")
+        dev = state.model.device
+        gen = draws.dropout
+        if state.world == 1:
+            return StepDraws(*(a.to(dev) for a in draws[:3]), gen)
+        from ..parallel.ddp import local_rows
+
+        rows = local_rows(B, state.rank, state.world, self.groups)
+        if isinstance(gen, torch.Generator) and self.use_cond == GuidanceType.CLASSIFIER_GUIDANCE:
+            seed = int(torch.randint(0, 2**62, (1,), generator=gen, device=gen.device))
+            gen = torch.Generator(device=gen.device).manual_seed(seed + state.rank)
+        return StepDraws(draws.t[rows.to(draws.t.device)].to(dev), draws.noise[rows.to(draws.noise.device)].to(dev),
+                         draws.keep.to(dev), gen)
+
+    def begin(self, state: TrainState):
+        """(the update's LR, its EMA decay), the decay written into the
+        EMA's scalar (the LR's is the schedule's). Host work."""
+        return state.scheduler.get_last_lr()[0], ema_begin(self.ema_cfg, state.ema)
+
+    def end(self, state: TrainState) -> None:
+        """The counts of the update taken, and the next update's LR. Host
+        work."""
+        state.scheduler.step()
+        ema_end(state.ema)
+        state.step += 1
+
+    def body(self, state: TrainState, batch: Dict[str, torch.Tensor], draws: StepDraws) -> torch.Tensor:
+        """The update on the device, from the rank's ``draws``: forward,
+        backward, the scrub, AdamW at the LR scalar, the EMA at its scalar.
+        Returns the loss; syncs nothing."""
+        model = state.model
+        B = batch["trajs"].shape[0]
         dev = model.device
-        t, noise, keep = (a.to(dev) for a in draws[:3])
-        model.train(bn_mode=bn_mode)
-        forward = state.ddp if state.ddp is not None else StepForward(model, remat)
+        t, noise, keep = draws[:3]
+        model.train(bn_mode=self.bn_mode)
+        forward = state.ddp if state.ddp is not None else StepForward(model, self.remat)
         params = list(model.parameters())
         for p in params:
             p.grad = None
+        groups = self.groups
         mb = B // groups
         loss = torch.zeros((), dtype=torch.float32, device=dev)
         for i in range(groups):
@@ -292,11 +382,12 @@ def make_train_step(schedule: DiffusionSchedule, cfg) -> Callable:
             # DDP averages the gradients once, in the last micro-batch's backward
             sync = state.ddp.no_sync() if state.ddp is not None and i < groups - 1 else nullcontext()
             with sync:
-                loss_i = micro_loss(forward, batch["image"][rows], batch["trajs"][rows], batch["target"][rows],
-                                    t[rows], noise[rows], keep.reshape(-1)[i], draws.dropout)
-                moved = [b.clone() for b in _bn_buffers(model)] if remat else []
+                loss_i = self.micro_loss(forward, batch["image"][rows], batch["trajs"][rows],
+                                         batch["target"][rows], t[rows], noise[rows], keep.reshape(-1)[i],
+                                         draws.dropout)
+                moved = [b.clone() for b in _bn_buffers(model)] if self.remat else []
                 loss_i.backward()
-            for b, saved in zip(_bn_buffers(model) if remat else (), moved):
+            for b, saved in zip(_bn_buffers(model) if self.remat else (), moved):
                 b.copy_(saved)  # the recompute moved them a second time
             loss = loss + loss_i.detach()
         grads = []
@@ -311,12 +402,11 @@ def make_train_step(schedule: DiffusionSchedule, cfg) -> Callable:
             dist.all_reduce(loss)
             loss = loss / state.world
         _nan_scrub_(grads)
-        lr = state.scheduler.get_last_lr()[0]
         state.optimizer.step()
-        state.scheduler.step()
-        decay = ema_update(ema_cfg, state.ema, params)
-        state.step += 1
-        return {"loss": loss, "lr": lr, "ema_decay": decay}
+        ema_apply(state.ema, params)
+        return loss
 
-    return train_step
 
+def make_train_step(schedule: DiffusionSchedule, cfg) -> TrainStep:
+    """The train step of ``cfg`` (:class:`TrainStep`)."""
+    return TrainStep(schedule, cfg)

@@ -49,21 +49,25 @@ Phases, each of which fails the run (nonzero exit, no result line):
    steps at B = 2 on the card against the CPU (the same weights, batch and
    draws, BatchNorm frozen and train: the first-step gradients per tensor,
    each check shown to catch a planted fault; each tensor's update and EMA
-   by norm; losses; the first step's BatchNorm statistics); the timed step at TRAIN.BATCH_SIZE 32 from a
+   by norm; losses; the first step's BatchNorm statistics); the timed step
+   (through ``train/program.py:TrainProgram``, one CUDA graph replay a step,
+   as the train CLI steps) at TRAIN.BATCH_SIZE 32 from a
    dataset of 64 900x256 frames that the script writes under ``build/``
    with the port's PNG writer, through the loader, the augmentation and the
    step: device-resident with BN_MODE frozen and train (and frozen with
    REMAT), and through the host loader decoding every batch (frames of Sub
-   rows, and of Paeth rows): step p50, samples/s, peak memory, launches per
+   rows, and of Paeth rows): step p50, samples/s, peak memory (from the
+   program's build, whose capture allocates the graph's pool), launches per
    step (16 / 1 per forward, doubled under REMAT), one profiled step; and
    the train CLI, 4 iterations saving at 2, then resumed from
    ``checkpoint_2.pth``. Float32 is float32 throughout: ``build_model``
    turns TF32 off on the card, and the script checks that it did;
 9. distillation: one distill step on the card against the CPU at B = 2
    (loss; the student's first-step gradients by phase 8's rule, each check
-   shown to catch a planted fault); the timed distill step at
+   shown to catch a planted fault); the timed distill step (one CUDA graph
+   replay a step, as the distill CLI steps) at
    TRAIN.BATCH_SIZE 32 from the 64 frames device-resident, without guidance
-   and under CFG (p50, samples/s, peak memory, one profiled step, launches
+   and under CFG (p50, samples/s, peak memory from the build, one profiled step, launches
    per step: 48 / 3 and 80 / 5, the teacher's forwards without a gradient
    and the student's with one); the distill CLI from a teacher ``.pth``
    (100 -> 50 -> 25 steps, 3 iterations a stage); the 25-step student
@@ -114,13 +118,22 @@ Phases, each of which fails the run (nonzero exit, no result line):
    the capture recorded, the warm and capture seconds, eager and graph plan
    p50 in turns, the peak memory of each, and one profiled replay (busy
    share; its kernels counted by the profiler against the recorded counts);
-   then a capture on a worker thread replayed on the main thread.
+   then a capture on a worker thread replayed on the main thread;
+14. the training-side programs (``train/program.py``): the train step at
+   B = 32 in float32 (BN frozen, BN train, REMAT) and at B = 64 in bfloat16,
+   the distill step at B = 32 (default and CFG) and the scorer's 3000-step
+   fit, each against its eager step from the same state and draws in turns
+   (bit-identical; launches per replay equal to the eager step's and to the
+   capture's record; the profiler's count of one replay's kernels equal to
+   the record; step p50 of both, warm and capture seconds, peak memory,
+   busy shares), then a plan and a sample after replayed steps against a
+   fresh model loaded with the trained weights.
 
 The last two lines of standard output are the card (nvidia-smi) and the
 kernels as JSON, then ``{"ok": true, "device": ...}``. Per-shape numbers and
 phase 6's results (under ``agents``), phase 11's (under ``carla``), phase
-12's (under ``learnability``) and phase 13's (under ``compiled_plan``) go
-to chiprun_out/chip_smoke.json.
+12's (under ``learnability``), phase 13's (under ``compiled_plan``) and
+phase 14's (under ``compiled_train``) go to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -163,6 +176,9 @@ ENCODE_TOL = 1e-3
 # expected bit-identical; 1e-5 m bounds them (bfloat16: plan_tol's bound)
 GRAPH_TOL = 1e-5
 PLAN_REPS = 5  # phase 13: eager and graph plans, in turns
+NCCL_ITERS = 13  # phase 10: the train CLI on one NCCL rank, past DDP's 11 eager steps to two replays
+TRAIN_REPS = 5  # phase 14: eager and graph steps, in turns, after the first of each
+SCORER_STEPS = 3000  # phase 14: train_scorer's default fit
 # phase 13: profiles of one replay taken at most, until one counts the
 # port's kernels as the capture recorded them. The profiler loses some
 # kernel records of the largest graph's replay (HOIST_PERCEPTION off at
@@ -893,6 +909,7 @@ def training(load_cfg, calls, case, graph_ms, bound_ms, device_breakdown, launch
         make_train_step,
     )
     from autonomous_driving_with_diffusion_model_tpu_torch.train import cli
+    from autonomous_driving_with_diffusion_model_tpu_torch.train.program import TrainProgram
     from autonomous_driving_with_diffusion_model_tpu_torch.utils.config import create_cfg, merge_possible_with_base
 
     out = {}
@@ -1138,7 +1155,8 @@ def training(load_cfg, calls, case, graph_ms, bound_ms, device_breakdown, launch
                             num_workers=cfg.TRAIN.NUM_WORKERS)
         load_s = time.perf_counter() - t0
         st = create_train_state(build_model(cfg, device=dev, seed=0), cfg)
-        step = make_train_step(make_schedule_from_cfg(cfg, dev), cfg)
+        # as the train CLI steps: one CUDA graph replay an iteration
+        step = TrainProgram(make_train_step(make_schedule_from_cfg(cfg, dev), cfg), dev)
         data = iter(loader)
 
         def one(it):
@@ -1153,11 +1171,16 @@ def training(load_cfg, calls, case, graph_ms, bound_ms, device_breakdown, launch
             b["image"] = normalize_images(augment_batch(b["image"], aug, it * cfg.TRAIN.BATCH_SIZE))
             return step(st, b, generator=g)
 
-        n_warm, n_timed = (1, 3) if remat else (1, 5) if source == "paeth" else (3, 10)
+        # the first step is the program's eager step and its capture; the
+        # phase-14 comparison with the eager step carries the repeats cut here
+        n_warm, n_timed = (2, 3) if remat else (1, 5) if source == "paeth" else (2, 6)
+        # the peak from the program's build on: a replay allocates nothing,
+        # its activations live in the graph's pool, allocated at the capture
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         for it in range(n_warm):
             one(it)
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         times = []
         for it in range(n_warm, n_warm + n_timed):
             t0 = time.perf_counter()
@@ -1269,6 +1292,7 @@ def distillation(load_cfg, device_breakdown, launches, smi, dev="cuda", extra_op
     from autonomous_driving_with_diffusion_model_tpu_torch.models import build_model, init_scorer, train_scorer
     from autonomous_driving_with_diffusion_model_tpu_torch.ops import kernels
     from autonomous_driving_with_diffusion_model_tpu_torch.train import create_train_state, export_torch_checkpoint
+    from autonomous_driving_with_diffusion_model_tpu_torch.train.program import DistillProgram
     from autonomous_driving_with_diffusion_model_tpu_torch.utils.constants import GuidanceType
 
     out = {}
@@ -1352,6 +1376,7 @@ def distillation(load_cfg, device_breakdown, launches, smi, dev="cuda", extra_op
         if not isinstance(loader, DeviceResidentLoader):
             raise AssertionError(f"{TRAIN_FRAMES} frames were not made device-resident")
         teacher, st, step, n_steps = stage(cfg, dev)
+        step = DistillProgram(step, dev)  # as the distill CLI steps: one CUDA graph replay an iteration
         data = iter(loader)
 
         def one(it):
@@ -1364,11 +1389,12 @@ def distillation(load_cfg, device_breakdown, launches, smi, dev="cuda", extra_op
             b["image"] = normalize_images(b["image"])
             return step(st, teacher, b, generator=distill_cli.iteration_generator(0, it, dev))
 
-        n_warm, n_timed = 3, 10
+        n_warm, n_timed = 2, 6  # the first is the program's eager step and its capture
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()  # from the build on, as in phase 8
         for it in range(n_warm):
             one(it)
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         times = []
         for it in range(n_warm, n_warm + n_timed):
             t0 = time.perf_counter()
@@ -1541,13 +1567,15 @@ def data_parallel(load_cfg, smi, dev="cuda", extra_opts=()) -> dict:
     torch.save(tv, backbone)
     del net
 
-    # 10.1 NCCL: torchrun, one rank, the train CLI for 3 iterations from the backbone
+    # 10.1 NCCL: torchrun, one rank, the train CLI for NCCL_ITERS iterations from
+    # the backbone: DDP's 11 eager steps, then its step (the all-reduce in it)
+    # captured and replayed
     root = os.path.join(REPO, "build", "phase8_data")
     project = os.path.join(work, "nccl")
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1", "-m",
-         f"{PKG}.train", "--config", os.path.join(REPO, CONFIGS[0]), "--max-iter", "3",
+         f"{PKG}.train", "--config", os.path.join(REPO, CONFIGS[0]), "--max-iter", str(NCCL_ITERS),
          *([] if cuda else ["--device", "cpu"]), "--opts", "TRAIN.ROOT", root, "PROJECT_DIR", project,
          "TRAIN.SAMPLE_INTERVAL", "0", "TRAIN.LOG_INTERVAL", "1", "TRAIN.PRETRAINED_BACKBONE", backbone,
          *extra_opts],
@@ -1560,12 +1588,13 @@ def data_parallel(load_cfg, smi, dev="cuda", extra_opts=()) -> dict:
     checkpoints = os.path.join(project, "checkpoints")
     written = sorted(os.listdir(checkpoints)) if os.path.isdir(checkpoints) else []
     ok = (proc.returncode == 0 and written == ["final.pth"] and "Data-parallel: 1 rank(s)" in train_log
-          and ("(nccl)" if cuda else "(gloo)") in train_log and "iter: [3/3]" in train_log
-          and f"Initializing perception from ImageNet backbone {backbone}" in train_log)
+          and ("(nccl)" if cuda else "(gloo)") in train_log and f"iter: [{NCCL_ITERS}/{NCCL_ITERS}]" in train_log
+          and f"Initializing perception from ImageNet backbone {backbone}" in train_log
+          and ("captured as a CUDA graph after 11 eager step(s)" in train_log or not cuda))
     out["nccl"] = dict(rc=proc.returncode, written=written, seconds=nccl_s)
-    log(f"DDP NCCL: torchrun --nproc_per_node 1 train CLI, 3 iterations from a torchvision backbone: rc "
-        f"{proc.returncode}, wrote {written}, {nccl_s:.1f} s; log: "
-        f"{[l.split('| ')[-1] for l in train_log.splitlines() if 'Data-parallel' in l or 'backbone' in l]} "
+    log(f"DDP NCCL: torchrun --nproc_per_node 1 train CLI, {NCCL_ITERS} iterations from a torchvision backbone: "
+        f"rc {proc.returncode}, wrote {written}, {nccl_s:.1f} s; log: "
+        f"{[l.split('| ')[-1] for l in train_log.splitlines() if any(w in l for w in ('Data-parallel', 'backbone', 'captured'))]} "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"DDP NCCL run: {out['nccl']}\n{proc.stderr[-4000:]}")
@@ -2321,6 +2350,301 @@ def compiled_plan(load_cfg, device_breakdown, launches, smi, dev="cuda") -> dict
     return out
 
 
+def compiled_train(load_cfg, device_breakdown, launches, smi, dev="cuda") -> dict:
+    """Phase 14: the training-side steps as one program each
+    (``train/program.py``, a CUDA graph per key): the train step at B = 32
+    in float32 (BN frozen, BN train, REMAT) and at B = 64 in bfloat16, the
+    distill step at B = 32 (default and CFG) and the scorer's 3000-step fit.
+    Per step: the eager step on one state and the program on its twin from
+    the same weights, batch and draws, in turns, TRAIN_REPS times after the
+    first of each (the program's first is its eager step on a side stream
+    and the capture); every loss, and at the end every parameter, AdamW
+    moment and count, EMA shadow and BatchNorm buffer, bit-identical; each
+    replay's launch counts equal to the eager step's and to the capture's
+    record (16 / 1 per forward); eager and graph step p50; the warm step's
+    and the capture's seconds; the peak MiB of the eager step and of the
+    program's build above the case's base; one profiled eager step and one
+    profiled replay (busy share; the replay's kernels as the profiler counts
+    them against the capture's record, a profile that lost records retaken
+    up to PROFILE_TRIES times). The scorer: the fit's eager loop against
+    its replayed step, bit-identical parameters, both timed. Then a plan and
+    a sample on a model trained by replays against a fresh model loaded with
+    its weights (a replay bumps the ``_version`` of what it writes). ``launches`` gathers the replays'
+    counts into the kernels line; ``dev`` is the card (the CPU only to
+    rehearse the phase: no graph there)."""
+    import torch
+
+    dev = torch.device(dev)
+    card = dev.type == "cuda"
+    # cuDNN's default backward algorithms sum with atomics, so two eager steps
+    # from one state differ in their last bits; deterministic ones let the
+    # comparison ask for bit-identity (phase 8 times the default algorithms)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _compiled_train(load_cfg, device_breakdown, launches, smi, dev, card)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _compiled_train(load_cfg, device_breakdown, launches, smi, dev, card) -> dict:
+    import copy
+
+    import numpy as np
+    import torch
+
+    from autonomous_driving_with_diffusion_model_tpu_torch.data import normalize_images
+    from autonomous_driving_with_diffusion_model_tpu_torch.diffusion import (
+        grid_chain,
+        make_distill_step,
+        make_schedule_from_cfg,
+        sampler_from_cfg,
+    )
+    from autonomous_driving_with_diffusion_model_tpu_torch.distill import iteration_generator
+    from autonomous_driving_with_diffusion_model_tpu_torch.driving import DiffusionPlanner
+    from autonomous_driving_with_diffusion_model_tpu_torch.models import build_model, init_scorer
+    from autonomous_driving_with_diffusion_model_tpu_torch.models.scorer import HypothesisScorer, scorer_step
+    from autonomous_driving_with_diffusion_model_tpu_torch.ops import kernels
+    from autonomous_driving_with_diffusion_model_tpu_torch.train import create_train_state, make_train_step
+    from autonomous_driving_with_diffusion_model_tpu_torch.train.cli import iteration_generators
+    from autonomous_driving_with_diffusion_model_tpu_torch.train.program import (
+        DistillProgram,
+        TrainProgram,
+        replay_steps,
+    )
+    from autonomous_driving_with_diffusion_model_tpu_torch.utils.constants import GuidanceType
+
+    out = {"steps": {}, "cudnn_deterministic": True}
+    mib = lambda b: b / 2**20
+    t_phase = time.perf_counter()
+
+    def batch_of(cfg, B, seed):
+        rng = np.random.default_rng(seed)
+        H, W = cfg.TRAIN.IMAGE_HEIGHT, cfg.TRAIN.IMAGE_WIDTH
+        return {"image": normalize_images(torch.from_numpy(rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8)).to(dev)),
+                "trajs": torch.from_numpy(rng.uniform(-1, 1, (B, 16, 7)).astype(np.float32)).to(dev),
+                "target": torch.from_numpy(rng.uniform(-1, 1, (B, 2)).astype(np.float32)).to(dev)}
+
+    def same_tensors(xs, ys):
+        return all(torch.equal(x, y) for x, y in zip(xs, ys, strict=True))
+
+    def opt_tensors(opt, params):
+        return [opt.state[p][k] for p in params for k in ("step", "exp_avg", "exp_avg_sq")]
+
+    def timed(run):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = run()
+        torch.cuda.synchronize()
+        return m, (time.perf_counter() - t0) * 1e3
+
+    def turns(name, eager, graph, program, per_fwd, n_fwd, finals, extra):
+        """The in-turns comparison and its record; ``eager(it)`` and
+        ``graph(it)`` run iteration ``it`` on the two states."""
+        t_case = time.perf_counter()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        m_e, first_eager_ms = timed(lambda: eager(0))
+        eager_peak = mib(torch.cuda.max_memory_allocated() - base)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        m_g, build_ms = timed(lambda: graph(0))
+        build_peak = mib(torch.cuda.max_memory_allocated() - base)
+        prog = program.programs[program.key]
+        same_loss = [bool(torch.equal(m_e["loss"], m_g["loss"]))]
+        want = {"fused_residual_block": 16 * n_fwd, "fused_conv1d_gn_mish": n_fwd}
+        e_ms, g_ms, counts = [], [], []
+        for it in range(1, 1 + TRAIN_REPS):
+            kernels.reset_launch_counts()
+            m_e, ms = timed(lambda: eager(it))
+            e_ms.append(ms)
+            eager_counts = kernels.launch_counts()
+            kernels.reset_launch_counts()
+            m_g, ms = timed(lambda: graph(it))
+            g_ms.append(ms)
+            counts.append(kernels.launch_counts())
+            for k in launches:
+                launches[k] += counts[-1][k]
+            same_loss.append(bool(torch.equal(m_e["loss"], m_g["loss"])))
+        a, b = finals()
+        identical = all(same_loss) and same_tensors(a, b)
+        recorded = {"conv_gn_mish_kernel": 2 * prog.launches.get("fused_residual_block", 0),
+                    "conv1d_gn_mish_kernel": prog.launches.get("fused_conv1d_gn_mish", 0)}
+        eager_busy = device_breakdown(lambda: eager(1 + TRAIN_REPS))
+        attempts = []
+        for i in range(PROFILE_TRIES):
+            busy = device_breakdown(lambda: graph(2 + TRAIN_REPS + i))
+            profiled = busy["port_kernel_launches"]
+            attempts.append(profiled)
+            if profiled == recorded or any(profiled[k] > recorded[k] for k in recorded):
+                break
+        ok = (identical and all(c == eager_counts == want for c in counts)
+              and (prog.launches == want if card else prog.graph is None)
+              and (profiled == recorded or not card) and np.isfinite(float(m_g["loss"])))
+        row = dict(**extra, bit_identical=identical, losses_bit_identical=same_loss, launches_per_replay=counts[-1],
+                   expected_launches=want, recorded_launches=prog.launches, eager_launches=eager_counts,
+                   first_eager_ms=first_eager_ms, build_ms=build_ms, warm_s=prog.warm_s, capture_s=prog.capture_s,
+                   eager_ms_p50=float(np.median(e_ms)), graph_ms_p50=float(np.median(g_ms)), eager_ms=e_ms,
+                   graph_ms=g_ms, eager_peak_mib=eager_peak, build_peak_mib=build_peak,
+                   eager_profile=eager_busy, profile=busy, profiler_launches=profiled,
+                   expected_profiler_launches=recorded, profile_attempts=attempts, loss=float(m_g["loss"]),
+                   seconds=time.perf_counter() - t_case)
+        out["steps"][name] = row
+        log(f"compiled train {name}: graph vs eager bit-identical {identical} over {1 + TRAIN_REPS} steps in turns; "
+            f"launches per replay {counts[-1]} (eager {eager_counts}, expected {want}), recorded "
+            f"{prog.launches}; warm {prog.warm_s:.2f} s, capture {prog.capture_s:.2f} s; step p50 eager "
+            f"{row['eager_ms_p50']:.2f} ms, graph {row['graph_ms_p50']:.2f} ms over {TRAIN_REPS} each; peak above "
+            f"the base: eager step {eager_peak:.1f} MiB, the program's build {build_peak:.1f} MiB; profiled eager "
+            f"step {eager_busy['device_ms']:.2f} of {eager_busy['wall_ms']:.2f} ms busy "
+            f"({eager_busy['busy_share']:.3f}), replay {busy['device_ms']:.2f} of {busy['wall_ms']:.2f} ms "
+            f"({busy['busy_share']:.3f}), by kind {busy['by_kind']}, port kernels counted {profiled} (recorded "
+            f"{recorded}; profile {len(attempts)} of at most {PROFILE_TRIES}); {row['seconds']:.1f} s; on {smi} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"compiled train {name}: {row}")
+
+    # 14.1 the train step
+    train_cases = [("train_frozen", 32, []), ("train_bn_train", 32, ["TPU.BN_MODE", "train"]),
+                   ("train_remat", 32, ["TPU.REMAT", "True"]),
+                   ("train_bf16_b64", 64, ["TPU.COMPUTE_DTYPE", "bfloat16"])]
+    for name, B, opts in train_cases:
+        cfg = load_cfg(CONFIGS[0])
+        cfg.merge_from_list(["TRAIN.LR_WARMUP", "1", *opts])
+        a = create_train_state(build_model(cfg, device=dev, seed=0), cfg)
+        b = create_train_state(copy.deepcopy(a.model), cfg)
+        sched = make_schedule_from_cfg(cfg, dev)
+        step = make_train_step(sched, cfg)
+        program = TrainProgram(make_train_step(sched, cfg), dev)
+        batch = batch_of(cfg, B, 14)
+
+        def finals(a=a, b=b):
+            def flat(st):
+                ps = list(st.model.parameters())
+                return [*ps, *st.model.buffers(), *opt_tensors(st.optimizer, ps), *st.ema.shadow_params]
+            return flat(a), flat(b)
+
+        turns(name, lambda it: step(a, batch, generator=iteration_generators(it, dev)[1]),
+              lambda it: program(b, batch, generator=iteration_generators(it, dev)[1]), program, 1,
+              2 if cfg.TPU.REMAT else 1, finals,
+              dict(batch=B, dtype=str(cfg.TPU.COMPUTE_DTYPE), bn_mode=str(cfg.TPU.BN_MODE), remat=bool(cfg.TPU.REMAT)))
+        del a, b, program, step
+
+    # 14.2 the distill step: the phase-9 stage of each config, one teacher
+    for name, path in (("distill_default", CONFIGS[0]), ("distill_cfg", CONFIGS[1])):
+        cfg = load_cfg(path)
+        sched = make_schedule_from_cfg(cfg, dev)
+        grid = grid_chain(sched.num_train_timesteps, int(cfg.EVAL.SAMPLE_STEPS), 1)[0]
+        made = [make_distill_step(sched, grid, use_cond=GuidanceType[cfg.TRAIN.USE_COND],
+                                  free_scale=float(cfg.GUIDANCE.FREE_SCALE), lr=1e-4, warmup=1, decay_steps=20)
+                for _ in range(2)]
+        teacher = build_model(cfg, device=dev, seed=0).requires_grad_(False)
+        sa, sb = made[0][0](teacher), made[1][0](teacher)
+        program = DistillProgram(made[1][1], dev)
+        batch = batch_of(cfg, 32, 15)
+        n_fwd = 5 if cfg.TRAIN.USE_COND == "FREE_GUIDANCE" else 3
+
+        def finals(sa=sa, sb=sb):
+            def flat(st):
+                ps = list(st.student.parameters())
+                return [*ps, *st.student.buffers(), *opt_tensors(st.optimizer, ps), *st.ema.shadow_params]
+            return flat(sa), flat(sb)
+
+        turns(name, lambda it: made[0][1](sa, teacher, batch, generator=iteration_generator(0, it, dev)),
+              lambda it: program(sb, teacher, batch, generator=iteration_generator(0, it, dev)), program, 1, n_fwd,
+              finals, dict(batch=32, student_steps=len(grid.ts)))
+        del sa, sb, teacher, program, made
+
+    # 14.3 the scorer's fit: its eager loop and its replayed step
+    rng = np.random.default_rng(11)
+    n_tr = SCORER_N - SCORER_N // 5
+    tr = [torch.from_numpy(a).to(dev) for a in (
+        rng.standard_normal((n_tr, SCORER_K, 16, 7)).astype(np.float32) * np.float32(5.0),
+        (0.3 * rng.standard_normal((n_tr, 2))).astype(np.float32),
+        rng.standard_normal((n_tr, SCORER_K)).astype(np.float32))]
+    p0 = init_scorer(0)
+    fits = {}
+    for kind in ("eager", "graph", "eager_again", "graph_again"):
+        net = HypothesisScorer.from_params(p0).to(dev)
+        step = scorer_step(net, *tr, lr=3e-3, weight_decay=0.1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind.startswith("eager"):
+            for _ in range(SCORER_STEPS):
+                loss = step()
+            info = {}
+        else:
+            loss, info = replay_steps(step, SCORER_STEPS, dev, list(net.parameters()))
+        torch.cuda.synchronize()
+        fits[kind] = dict(s=time.perf_counter() - t0, loss=loss, params=[p.detach().clone() for p in net.parameters()],
+                          info=info)
+    identical = (torch.equal(fits["eager"]["loss"], fits["graph"]["loss"])
+                 and same_tensors(fits["eager"]["params"], fits["graph"]["params"]))
+    net = HypothesisScorer.from_params(p0).to(dev)
+    busy = device_breakdown(lambda: replay_steps(scorer_step(net, *tr, lr=3e-3, weight_decay=0.1), 200, dev,
+                                                 list(net.parameters())))
+    row = dict(n_train=n_tr, k=SCORER_K, steps=SCORER_STEPS, bit_identical=identical,
+               eager_s=[fits["eager"]["s"], fits["eager_again"]["s"]], graph_s=[fits["graph"]["s"], fits["graph_again"]["s"]],
+               warm_s=fits["graph"]["info"]["warm_s"], capture_s=fits["graph"]["info"]["capture_s"],
+               replays=fits["graph"]["info"]["replays"], profile_200_steps=busy)
+    row["eager_step_ms"] = min(row["eager_s"]) / SCORER_STEPS * 1e3
+    row["graph_step_ms"] = min(row["graph_s"]) / SCORER_STEPS * 1e3
+    out["scorer_fit"] = row
+    ok = identical and (row["replays"] == SCORER_STEPS - 1 or not card)
+    log(f"compiled train scorer fit: {SCORER_STEPS} full-batch AdamW steps on {n_tr} sets of K={SCORER_K}, eager "
+        f"loop {row['eager_s'][0]:.2f} / {row['eager_s'][1]:.2f} s, replayed step {row['graph_s'][0]:.2f} / "
+        f"{row['graph_s'][1]:.2f} s (warm {row['warm_s']:.3f} s, capture {row['capture_s']:.3f} s, "
+        f"{row['replays']} replays), per step {row['eager_step_ms']:.3f} / {row['graph_step_ms']:.3f} ms; "
+        f"parameters and loss bit-identical {identical}; 200 replayed steps profiled: {busy['device_ms']:.2f} of "
+        f"{busy['wall_ms']:.2f} ms busy ({busy['busy_share']:.3f}); on {smi} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"compiled scorer fit: {row}")
+
+    # 14.4 a plan and a sample after graph steps: the trained model against
+    # a fresh model loaded with its weights
+    cfg = load_cfg(CONFIGS[1])
+    cfg.merge_from_list(["TRAIN.LR_WARMUP", "1"])
+    planner = DiffusionPlanner(cfg, seed=0, device=dev)
+    st = create_train_state(planner.model.requires_grad_(True), cfg)
+    sched = make_schedule_from_cfg(cfg, dev)
+    program = TrainProgram(make_train_step(sched, cfg), dev)
+    batch = batch_of(cfg, 4, 16)
+    frame = np.random.default_rng(16).integers(0, 256, (cfg.TRAIN.IMAGE_HEIGHT, cfg.TRAIN.IMAGE_WIDTH, 3),
+                                               dtype=np.uint8)
+    target = np.array([0.3, 0.1], np.float32)
+    init = torch.randn((1, 16, 7), generator=torch.Generator().manual_seed(16)).to(dev)
+    target_t = torch.from_numpy(target[None]).to(dev)
+
+    def sample(model):
+        with torch.no_grad():
+            return sampler_from_cfg(model.eval(), sched, cfg)(init, image=batch["image"][:1], target=target_t)
+
+    program(st, batch, generator=iteration_generators(0, dev)[1])
+    planner.model.eval()
+    before = planner.plan(frame, target)  # captured and packed on these weights
+    sample(planner.model)
+    for it in (1, 2, 3):
+        program(st, batch, generator=iteration_generators(it, dev)[1])
+    planner.model.eval()
+    fresh = DiffusionPlanner(cfg, seed=0, device=dev)
+    fresh.model.load_state_dict(planner.model.state_dict())
+    fresh.init_trajs = planner.init_trajs
+    got, want = planner.plan(frame, target), fresh.plan(frame, target)
+    s_got, s_want = sample(planner.model), sample(fresh.model)
+    ok = (bool(np.array_equal(got, want)) and bool(torch.equal(s_got, s_want)) and not np.array_equal(got, before)
+          and (program.programs[program.key].graph is not None or not card))
+    out["after_graph_steps"] = dict(plan_equal=bool(np.array_equal(got, want)), sample_equal=bool(torch.equal(s_got, s_want)),
+                                    plan_moved_m=float(np.abs(got - before).max()))
+    log(f"compiled train: after 3 replayed steps ({CONFIGS[1]}, B=4) the trained model's plan equals a fresh "
+        f"model's on its weights {out['after_graph_steps']['plan_equal']} (moved "
+        f"{out['after_graph_steps']['plan_moved_m']:.3e} m from the plan before), its sample "
+        f"{out['after_graph_steps']['sample_equal']} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"a plan or sample after graph steps used stale weights: {out['after_graph_steps']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2728,6 +3052,9 @@ def main() -> int:
     # ------------------------------------------------- 13. the compiled plan
     report["compiled_plan"] = compiled_plan(load_cfg, device_breakdown, launches, smi)
     phase_done(13)
+    # ----------------------------------- 14. the training-side steps compiled
+    report["compiled_train"] = compiled_train(load_cfg, device_breakdown, launches, smi)
+    phase_done(14)
     report["phase_done_s"] = phase_s
 
     kernels_line = []

@@ -249,6 +249,48 @@ def test_heldout_l2_matches_the_jax_planner(use_target):
     assert sep == j_sep
 
 
+class RecordingPlanner:
+    """A planner whose every plan is kept, in meters."""
+
+    def __init__(self, planner):
+        self.planner, self.plans = planner, []
+
+    def plan(self, frame, target=None):
+        out = np.asarray(self.planner.plan(frame, target))
+        self.plans.append(out.copy())
+        return out
+
+
+def test_cfg_student_closed_loop_matches_the_jax_planner():
+    """``closed_loop_completion`` of a CFG student deployed as the distill
+    CLI says (its 2-step grid, ``GUIDANCE.FREE_SCALE`` 1.0, one conditional
+    pass a step) through the port's and the JAX ``DiffusionPlanner`` on the
+    same weights (``from_jax_variables``), float32, the JAX planner's init
+    noise injected: every tick's plan within 1e-4 m, and the completion and
+    mean |lateral| too."""
+    from autonomous_driving_with_diffusion_model_tpu.driving.plan import DiffusionPlanner as JaxPlanner
+    from autonomous_driving_with_diffusion_model_tpu.utils.config import create_cfg as jax_create_cfg
+    from autonomous_driving_with_diffusion_model_tpu_torch.driving import DiffusionPlanner
+    from autonomous_driving_with_diffusion_model_tpu_torch.models.convert import from_jax_variables
+
+    cfg = tl.make_cfg("FREE_GUIDANCE", hw=HW, quick=True, SAMPLE_TIMESTEPS=[98, 34])
+    cfg.GUIDANCE.FREE_SCALE = 1.0
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    jcfg = jax_create_cfg()
+    jcfg.merge_from_other_cfg(cfg)
+    jax_planner = RecordingPlanner(JaxPlanner(jcfg, seed=2))
+    port = DiffusionPlanner(cfg, device="cpu")
+    port.model.load_state_dict(from_jax_variables(jax_planner.planner.variables, cfg), strict=True)
+    port.init_trajs = torch.from_numpy(np.array(jax_planner.planner.init_trajs))
+    port = RecordingPlanner(port)
+    got = tl.closed_loop_completion(port, HW, use_target=True)
+    want = jl.closed_loop_completion(jax_planner, HW, use_target=True)
+    assert len(port.plans) == len(jax_planner.plans) > 0
+    for tick, (a, b) in enumerate(zip(port.plans, jax_planner.plans)):
+        np.testing.assert_allclose(a, b, atol=1e-4, rtol=0, err_msg=f"tick {tick}")
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
 def test_meter_times_reads_the_train_log(tmp_path):
     log = tmp_path / "train.log"
     log.write_text("2026 | INFO | iter: [20/60]\ttime: 0.092 (0.092)\teta: 0:00:03\tlr: 1.9e-06\tloss 0.2447\n"
