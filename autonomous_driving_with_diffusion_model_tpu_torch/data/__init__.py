@@ -1,4 +1,11 @@
-from .augment import IMAGENET_MEAN, IMAGENET_STD, augment_batch, augment_factors, normalize_images
+from .augment import (
+    IMAGENET_MEAN,
+    IMAGENET_STD,
+    AugmentProgram,
+    augment_batch,
+    augment_factors,
+    normalize_images,
+)
 from .dataset import DeviceResidentLoader, Loader, TrajDataset, get_loader, maybe_device_resident
 from .png import read_png, write_png
 
@@ -9,6 +16,7 @@ __all__ = [
     "get_loader",
     "maybe_device_resident",
     "augment_batch",
+    "AugmentProgram",
     "augment_factors",
     "normalize_images",
     "IMAGENET_MEAN",

@@ -10,13 +10,18 @@ mask on a 1/8-resolution grid and resizes it (nearest, half-pixel centres,
 as ``jax.image.resize``); each op draws "per channel" with probability
 ``color``.
 
-The draws come from one explicit ``torch.Generator`` (:func:`augment_batch`):
-the per-image choices (order, gates, strengths) on the generator's device,
-then one seed from it for the whole-image fields (noise, dropout masks),
-which are drawn on the images' device. Each op is a function of the draws
-it is given (``_blur``, ``_add_noise``, ...), so its math can be checked
-alone. JAX's random numbers differ from PyTorch's, so the two packages
-agree in distribution, not in values.
+All draws are made before the augmentation runs (:func:`augment_draws`):
+the per-image choices (order, gates, strengths) from one explicit
+``torch.Generator``, then, from a generator on the images' device seeded
+from it, the whole-image fields (noise, dropout uniforms) at full batch
+shape. The body (:func:`augment_body`) is branch-free, as JAX's vmapped
+``lax.switch`` over the ops is: at each of the 7 positions every image goes
+through every op and a mask keeps its own op's result, so no shape depends
+on the data and nothing is read back to the host, and
+:class:`AugmentProgram` captures it as one CUDA graph per batch shape. Each
+op is a function of the draws it is given (``_blur``, ``_add_noise``, ...),
+so its math can be checked alone. JAX's random numbers differ from
+PyTorch's, so the two packages agree in distribution, not in values.
 """
 
 from __future__ import annotations
@@ -27,11 +32,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["augment_factors", "augment_batch", "normalize_images", "IMAGENET_MEAN", "IMAGENET_STD"]
+__all__ = ["augment_factors", "augment_draws", "augment_body", "augment_batch", "AugmentProgram",
+           "normalize_images", "IMAGENET_MEAN", "IMAGENET_STD"]
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
-OPS = ("blur", "noise", "coarse_dropout", "dropout", "add", "multiply", "contrast")
+OPS = ("blur", "noise", "coarse_dropout", "dropout", "add", "multiply", "contrast")  # op j
 
 
 @functools.lru_cache(maxsize=None)
@@ -76,19 +82,36 @@ def _per_image(v: torch.Tensor) -> torch.Tensor:
     return v.reshape(-1, 1, 1, 1)
 
 
+def _blur_taps(sigma: torch.Tensor) -> torch.Tensor:
+    """(n, 5): each image's 5-tap Gaussian of std ``sigma``, normalized; the
+    identity below a sigma of 1e-3."""
+    offsets = torch.arange(-2.0, 3.0, device=sigma.device)
+    k = torch.exp(-0.5 * (offsets[None] / sigma.clamp_min(1e-3)[:, None]) ** 2)
+    delta = torch.tensor([0.0, 0.0, 1.0, 0.0, 0.0], device=sigma.device)
+    return torch.where(sigma[:, None] < 1e-3, delta, k / k.sum(dim=1, keepdim=True))
+
+
+def _separable(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """Image i convolved with ``taps[i]`` (n, 5) along H, then along W, zero
+    padding: shifted copies summed in tap order, so a row's result does not
+    depend on the batch around it."""
+    n, H, W, C = x.shape
+    k = taps.reshape(n, 5, 1, 1, 1)
+    xp = F.pad(x, (0, 0, 0, 0, 2, 2))
+    out = xp[:, 0:H] * k[:, 0]
+    for t in range(1, 5):
+        out = torch.addcmul(out, xp[:, t:t + H], k[:, t])
+    xp = F.pad(out, (0, 0, 2, 2))
+    out = xp[:, :, 0:W] * k[:, 0]
+    for t in range(1, 5):
+        out = torch.addcmul(out, xp[:, :, t:t + W], k[:, t])
+    return out
+
+
 def _blur(x: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
     """Separable 5-tap Gaussian of std ``sigma`` per image, zero padding;
     sigma below 1e-3 leaves the image as it is."""
-    n, H, W, C = x.shape
-    offsets = torch.arange(-2.0, 3.0, device=x.device)
-    k = torch.exp(-0.5 * (offsets[None] / sigma.clamp_min(1e-3)[:, None]) ** 2)
-    delta = torch.tensor([0.0, 0.0, 1.0, 0.0, 0.0], device=x.device)
-    k = torch.where(sigma[:, None] < 1e-3, delta, k / k.sum(dim=1, keepdim=True))
-    k = k.repeat_interleave(C, dim=0)  # (n C, 5): image i's kernel for each of its channels
-    xt = x.permute(0, 3, 1, 2).reshape(1, n * C, H, W)
-    out = F.conv2d(xt, k.reshape(n * C, 1, 5, 1), padding=(2, 0), groups=n * C)
-    out = F.conv2d(out, k.reshape(n * C, 1, 1, 5), padding=(0, 2), groups=n * C)
-    return out.reshape(n, C, H, W).permute(0, 2, 3, 1)
+    return _separable(x, _blur_taps(sigma))
 
 
 def _add_noise(x: torch.Tensor, scale: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
@@ -96,12 +119,19 @@ def _add_noise(x: torch.Tensor, scale: torch.Tensor, noise: torch.Tensor) -> tor
     return x + noise * _per_image(scale)
 
 
+@functools.lru_cache(maxsize=None)
+def _nearest_index(device: torch.device, h: int, w: int, H: int, W: int):
+    """The rows and columns a nearest resize from (h, w) to (H, W) reads,
+    made once per device and shape (no host copy inside a CUDA graph)."""
+    rows = torch.from_numpy(np.floor((np.arange(H) + 0.5) * h / H).astype(np.int64)).to(device)
+    cols = torch.from_numpy(np.floor((np.arange(W) + 0.5) * w / W).astype(np.int64)).to(device)
+    return rows, cols
+
+
 def _nearest_up(mask: torch.Tensor, H: int, W: int) -> torch.Tensor:
     """(n, h, w, C) -> (n, H, W, C), nearest with half-pixel centres
     (``jax.image.resize(..., "nearest")``)."""
-    h, w = mask.shape[1:3]
-    rows = torch.from_numpy(np.floor((np.arange(H) + 0.5) * h / H).astype(np.int64)).to(mask.device)
-    cols = torch.from_numpy(np.floor((np.arange(W) + 0.5) * w / W).astype(np.int64)).to(mask.device)
+    rows, cols = _nearest_index(mask.device, mask.shape[1], mask.shape[2], H, W)
     return mask.index_select(1, rows).index_select(2, cols)
 
 
@@ -135,41 +165,23 @@ def _channel_choice(per_c: torch.Tensor, field: torch.Tensor) -> torch.Tensor:
     return torch.where(_per_image(per_c), field, field[..., :1])
 
 
-def _apply(op: str, x: torch.Tensor, d: dict, f: dict, gen: torch.Generator) -> torch.Tensor:
-    """Op ``op`` on images x with their choices ``d`` (u, per_c, v_c, v_s on
-    x's device); whole-image fields drawn from ``gen``."""
-    n, H, W, C = x.shape
-    u, per_c = d["u"], d["per_c"]
-    if op == "blur":
-        return _blur(x, u * float(f["blur"]))
-    if op == "noise":
-        z = torch.randn(x.shape, generator=gen, device=x.device)
-        return _add_noise(x, u * float(f["dropout"]) * 255.0, _channel_choice(per_c, z))
-    if op in ("coarse_dropout", "dropout"):
-        shape = (n, max(H // 8, 1), max(W // 8, 1), C) if op == "coarse_dropout" else x.shape
-        p = _per_image(u * float(f["dropout"]))
-        drop = (_channel_choice(per_c, torch.rand(shape, generator=gen, device=x.device)) < p).to(x.dtype)
-        return _coarse_dropout(x, drop) if op == "coarse_dropout" else _dropout(x, drop)
-    lo, hi = {"add": (-f["add"], f["add"]), "multiply": (f["mul_neg"], f["mul_pos"]),
-              "contrast": (f["contrast_neg"], f["contrast_pos"])}[op]
-    lo, hi = float(lo), float(hi)
-    v = torch.where(per_c[:, None], d["v_c"], d["v_s"][:, None]) * (hi - lo) + lo
-    v = v.reshape(n, 1, 1, C)
-    return {"add": _add, "multiply": _multiply, "contrast": _contrast}[op](x, v)
-
-
-def augment_batch(images: torch.Tensor, generator: torch.Generator, image_iteration) -> torch.Tensor:
-    """Augment a uint8 NHWC batch on its device -> float32 [0, 255].
-
-    From ``generator``, in this order: each image's order of the seven ops
-    (B, 7), whether each op applies (B, 7, probability ``frequency``),
-    whether it draws per channel (B, 7, probability ``color``), a uniform
-    strength per op (B, 7), uniform per-channel and shared values (B, 7, C)
-    and (B, 7) for Add, Multiply and LinearContrast, and one seed for the
-    noise and dropout fields."""
+def augment_draws(generator: torch.Generator, shape, image_iteration, device, out=None) -> dict:
+    """Every draw of one augmentation of images of ``shape`` (B, H, W, C),
+    made before the body runs. From ``generator``, in this order: each
+    image's order of the seven ops (B, 7), whether each op applies (B, 7,
+    probability ``frequency``), whether it draws per channel (B, 7,
+    probability ``color``), a uniform strength per op (B, 7), uniform
+    per-channel and shared values (B, 7, C) and (B, 7) for Add, Multiply and
+    LinearContrast, and one seed; then, from a generator on ``device``
+    seeded with it, the noise field, the coarse dropout's uniforms and the
+    dropout's uniforms at full batch shape. What the body needs of them is
+    computed here, on the generator's device: ``select[k, j]``, the images
+    whose k-th op is ``OPS[j]`` and applies; each image's blur taps, noise
+    scale, dropout probabilities and Add / Multiply / LinearContrast values.
+    ``out``: the dict an earlier call returned for this shape and
+    ``device``, filled in place (a program's buffers); else one is made."""
     f = augment_factors(image_iteration)
-    x = images.to(torch.float32)
-    B, C = x.shape[0], x.shape[-1]
+    B, H, W, C = shape
     g = generator
     order = torch.argsort(torch.rand((B, 7), generator=g, device=g.device), dim=1)
     apply = torch.rand((B, 7), generator=g, device=g.device) < float(f["frequency"])
@@ -178,15 +190,117 @@ def augment_batch(images: torch.Tensor, generator: torch.Generator, image_iterat
     v_c = torch.rand((B, 7, C), generator=g, device=g.device)
     v_s = torch.rand((B, 7), generator=g, device=g.device)
     seed = int(torch.randint(0, 2**62, (1,), generator=g, device=g.device))
-    fields = torch.Generator(device=x.device).manual_seed(seed)
-    order, apply = order.cpu().numpy(), apply.cpu().numpy()
-    choices = {k: v.to(x.device) for k, v in dict(per_c=per_c, u=u, v_c=v_c, v_s=v_s).items()}
+    values = []
+    for j, (lo, hi) in enumerate(((-f["add"], f["add"]), (f["mul_neg"], f["mul_pos"]),
+                                  (f["contrast_neg"], f["contrast_pos"])), start=4):
+        lo, hi = float(lo), float(hi)
+        v = torch.where(per_c[:, j, None], v_c[:, j], v_s[:, j, None]) * (hi - lo) + lo
+        values.append(v.reshape(B, 1, 1, C))
+    small = {
+        "select": (order.T[:, None, :] == torch.arange(7, device=g.device)[None, :, None]) & apply.T[None],
+        "per_c": per_c,
+        "blur_taps": _blur_taps(u[:, 0] * float(f["blur"])),
+        "noise_scale": u[:, 1] * float(f["dropout"]) * 255.0,
+        "coarse_p": u[:, 2] * float(f["dropout"]),
+        "dropout_p": u[:, 3] * float(f["dropout"]),
+        "values": torch.stack(values),
+    }
+    device = torch.device(device)
+    if out is None:
+        out = {k: torch.empty(v.shape, dtype=v.dtype, device=device) for k, v in small.items()}
+        out.update(noise=torch.empty(shape, device=device), dropout=torch.empty(shape, device=device),
+                   coarse=torch.empty((B, max(H // 8, 1), max(W // 8, 1), C), device=device))
+    for k, v in small.items():
+        out[k].copy_(v)
+    fields = torch.Generator(device=device).manual_seed(seed)
+    out["noise"].normal_(generator=fields)
+    out["coarse"].uniform_(generator=fields)
+    out["dropout"].uniform_(generator=fields)
+    return out
+
+
+def augment_body(images: torch.Tensor, d: dict) -> torch.Tensor:
+    """The augmentation's device body: uint8 NHWC -> float32 [0, 255] from
+    the draws ``d`` (:func:`augment_draws`). No shape depends on the data
+    and nothing is read back to the host: at each of the 7 positions every
+    image goes through every op, and ``select`` keeps the result of the
+    image's own op there (as JAX's vmapped ``lax.switch`` does). Bit for bit
+    the ops each image takes, applied in its order."""
+    x = images.to(torch.float32)
+    H, W = x.shape[1:3]
+    per_c = d["per_c"]
+    noise = _channel_choice(per_c[:, 1], d["noise"]) * _per_image(d["noise_scale"])
+    coarse = _nearest_up(_channel_choice(per_c[:, 2], d["coarse"]) < _per_image(d["coarse_p"]), H, W)
+    dropout = _channel_choice(per_c[:, 3], d["dropout"]) < _per_image(d["dropout_p"])
+    add, mul, contrast = d["values"]
     for k in range(7):  # the k-th op of each image's order
-        for j, op in enumerate(OPS):
-            rows = np.nonzero((order[:, k] == j) & apply[:, j])[0]
-            if len(rows) == 0:
-                continue
-            idx = torch.from_numpy(rows).to(x.device)
-            d = {name: v.index_select(0, idx)[:, j] for name, v in choices.items()}
-            x = x.index_copy(0, idx, _apply(op, x.index_select(0, idx), d, f, fields))
+        on = [_per_image(m) for m in d["select"][k]]
+        # an op an image does not take here leaves it as it is: a where, or
+        # an exact identity (+ 0, x 1, no dropped pixel) in one pass
+        x = torch.where(on[0], _separable(x, d["blur_taps"]), x)
+        x = torch.addcmul(x, noise, on[1].to(x.dtype))
+        x = x.masked_fill(coarse & on[2], 0.0)
+        x = x.masked_fill(dropout & on[3], 0.0)
+        x = x + torch.where(on[4], add, 0.0)
+        x = x * torch.where(on[5], mul, 1.0)
+        x = torch.where(on[6], _contrast(x, contrast), x)
     return x.clamp(0.0, 255.0)
+
+
+def augment_batch(images: torch.Tensor, generator: torch.Generator, image_iteration) -> torch.Tensor:
+    """Augment a uint8 NHWC batch on its device -> float32 [0, 255]: the
+    body on the draws of :func:`augment_draws`, eagerly."""
+    return augment_body(images, augment_draws(generator, images.shape, image_iteration, images.device))
+
+
+class AugmentProgram:
+    """``program(images, generator, image_iteration) -> float32``:
+    :func:`augment_batch` as one program (the counterpart of the JAX train
+    loop's ``jax.jit(augment_batch)``). It holds fixed buffers per key (the
+    images' shape and dtype): the uint8 images and every draw. A call makes
+    the draws into the buffers (``augment_draws``), copies the images in
+    and runs the body on them. On a CUDA device the body is a CUDA graph
+    per key: run once eagerly on a side stream, then captured with
+    ``torch.cuda.graph`` and replayed on every later call; a capture that
+    fails raises ``RuntimeError`` naming the key. On the CPU the body runs
+    on the buffers. Returns a copy a later call does not overwrite."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.programs = {}
+        self.key = None  # the key of the last call
+        self._stream = None
+
+    def __call__(self, images: torch.Tensor, generator: torch.Generator, image_iteration) -> torch.Tensor:
+        self.key = key = (tuple(images.shape), images.dtype)
+        prog = self.programs.get(key) or {"images": torch.empty_like(images, device=self.device), "graph": None}
+        prog["draws"] = augment_draws(generator, images.shape, image_iteration, self.device, prog.get("draws"))
+        prog["images"].copy_(images)
+        if self.device.type != "cuda":
+            out = augment_body(prog["images"], prog["draws"])
+        else:
+            if prog["graph"] is None:
+                self._build(prog, key)  # raises if the capture fails
+            prog["graph"].replay()
+            out = prog["out"].clone()
+        self.programs[key] = prog
+        return out
+
+    def _build(self, prog: dict, key) -> None:
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        current = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(current)
+        with torch.cuda.stream(self._stream):
+            augment_body(prog["images"], prog["draws"])  # builds what the body builds at first use
+        current.wait_stream(self._stream)
+        torch.cuda.synchronize(self.device)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, stream=self._stream, capture_error_mode="thread_local"):
+                out = augment_body(prog["images"], prog["draws"])
+        except RuntimeError as e:
+            raise RuntimeError(f"capturing the augmentation as a CUDA graph failed for the key (images "
+                               f"{key[0]}, {str(key[1]).replace('torch.', '')}): {e}") from e
+        torch.cuda.synchronize(self.device)
+        prog["graph"], prog["out"] = graph, out

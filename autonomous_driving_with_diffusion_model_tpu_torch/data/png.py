@@ -14,7 +14,9 @@ Paeth depend on the byte to the left, already reconstructed, so an image
 holding any such row is undone along anti-diagonals instead: every pixel
 of diagonal x + y = d depends only on diagonals d - 1 and d - 2, so each
 step is one vectorised operation over up to H pixels, W + H - 1 steps in
-all. ``chip_smoke.py`` phase 8 times both on the card's host.
+all; :func:`read_pngs` walks them once for a batch of frames, so each step
+covers up to n x H pixels. ``chip_smoke.py`` phase 8 times both on the
+card's host.
 
 :func:`write_png` writes grey, RGB or RGBA with a chosen filter, so that
 data can be made without either library.
@@ -28,7 +30,7 @@ from typing import Sequence, Union
 
 import numpy as np
 
-__all__ = ["read_png", "write_png"]
+__all__ = ["read_png", "read_pngs", "png_shape", "write_png"]
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 6: 4}  # colour type -> channels
@@ -48,6 +50,31 @@ def _chunks(data: bytes):
 
 def read_png(path: str) -> np.ndarray:
     """An 8-bit PNG -> (H, W, 3) uint8 RGB."""
+    return read_pngs([path])[0]
+
+
+def read_pngs(paths: Sequence[str]) -> np.ndarray:
+    """8-bit PNGs of one size -> (n, H, W, 3) uint8 RGB, each frame as
+    :func:`read_png` reads it. The frames' row filters are undone together,
+    so the anti-diagonals of a batch's Average and Paeth rows are walked
+    once for all of its frames (``data/dataset.py``'s decoder processes
+    read a batch so)."""
+    frames = [_filtered(p) for p in paths]
+    h, w = frames[0][0].shape[:2]
+    out = np.empty((len(frames), h, w, 3), np.uint8)
+    for bpp in sorted({f.shape[2] for f, _ in frames}):
+        idx = [i for i, (f, _) in enumerate(frames) if f.shape[2] == bpp]
+        for i in idx:
+            if frames[i][0].shape[:2] != (h, w):
+                raise ValueError(f"{paths[i]}: a {frames[i][0].shape[1]}x{frames[i][0].shape[0]} frame among "
+                                 f"{w}x{h} ones")
+        img = _unfilter(np.stack([frames[i][0] for i in idx]), np.stack([frames[i][1] for i in idx]))
+        out[idx] = np.repeat(img, 3, axis=3) if bpp == 1 else img[..., :3]
+    return out
+
+
+def _filtered(path: str):
+    """A PNG's filtered rows (H, W, bpp) uint8 and each row's filter (H,)."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != SIGNATURE:
@@ -76,53 +103,69 @@ def read_png(path: str) -> np.ndarray:
     kinds = rows[:, 0]
     if kinds.max(initial=0) > 4:
         raise ValueError(f"{path}: unknown row filter {int(kinds.max())}")
-    img = _unfilter(rows[:, 1:].reshape(h, w, bpp), kinds)
-    if bpp == 1:
-        return np.repeat(img, 3, axis=2)
-    return np.ascontiguousarray(img[..., :3])
+    return rows[:, 1:].reshape(h, w, bpp), kinds
+
+
+def png_shape(path: str):
+    """(H, W, 3): the shape ``read_png`` returns for ``path``, from its
+    header alone."""
+    with open(path, "rb") as f:
+        head = f.read(8 + 8 + 13)
+    if head[:8] != SIGNATURE or head[12:16] != b"IHDR":
+        raise ValueError(f"{path} is not a PNG")
+    w, h = struct.unpack(">II", head[16:24])
+    return h, w, 3
 
 
 def _paeth(a, b, c):
-    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    bc, ac = b - c, a - c
+    pa, pb, pc = np.abs(bc), np.abs(ac), np.abs(bc + ac)  # |p - a|, |p - b|, |p - c| for p = a + b - c
     return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
 
 
 def _unfilter(filt: np.ndarray, kinds: np.ndarray) -> np.ndarray:
-    """Undo the row filters of ``filt`` (H, W, bpp) uint8."""
-    h, w, bpp = filt.shape
+    """Undo the row filters of ``filt`` (n, H, W, bpp) uint8, n frames whose
+    rows' filters are ``kinds`` (n, H)."""
+    n, h, w, bpp = filt.shape
     if kinds.max(initial=0) <= 2:
         out = np.empty_like(filt)
-        prev = np.zeros((w, bpp), np.uint8)
+        prev = np.zeros((n, w, bpp), np.uint8)
         for y in range(h):
-            k = kinds[y]
-            if k == 1:
-                out[y] = np.cumsum(filt[y], axis=0, dtype=np.uint8)  # wraps modulo 256
-            elif k == 2:
-                out[y] = filt[y] + prev
-            else:
-                out[y] = filt[y]
-            prev = out[y]
+            k, row = kinds[:, y, None, None], filt[:, y]
+            if (k == 1).any():
+                row = np.where(k == 1, np.cumsum(filt[:, y], axis=1, dtype=np.uint8), row)  # wraps modulo 256
+            if (k == 2).any():
+                row = np.where(k == 2, filt[:, y] + prev, row)
+            out[:, y] = row
+            prev = out[:, y]
         return out
-    # anti-diagonals: pixel (y, x) lives at R[x + y + 2, y + 1]; two zero
-    # diagonals in front and a zero row above stand for the bytes outside
+    # anti-diagonals: pixel (y, x) of frame i lives at R[x + y + 2, y + 1, i];
+    # two zero diagonals in front and a zero row above stand for the bytes
+    # outside; a diagonal's rows of every frame are one contiguous block
     n_diag = w + h - 1
-    skew = np.zeros((n_diag, h, bpp), np.int16)
+    skew = np.zeros((n_diag, h, n, bpp), np.int16)
     for y in range(h):
-        skew[y:y + w, y] = filt[y]
-    R = np.zeros((n_diag + 2, h + 1, bpp), np.int16)
-    k = kinds.astype(np.intp)[:, None]
-    has_avg, has_paeth = (kinds == 3).any(), (kinds == 4).any()
-    zero = np.zeros((h, bpp), np.int16)
+        skew[y:y + w, y] = filt[:, y].transpose(1, 0, 2)
+    R = np.zeros((n_diag + 2, h + 1, n, bpp), np.int16)
+    # each filter the rows use, and where: None predicts 0, Sub a, Up b,
+    # Average (a + b) / 2, Paeth the nearest of a, b, c to a + b - c
+    used = {j: (kinds.T == j)[:, :, None] for j in range(5) if (kinds == j).any()}
     for d in range(n_diag):
         y0, y1 = max(0, d - w + 1), min(h - 1, d) + 1
         a, b, c = R[d + 1, y0 + 1:y1 + 1], R[d + 1, y0:y1], R[d, y0:y1]  # left, up, up-left
-        n = y1 - y0
-        pred = np.choose(k[y0:y1], [zero[:n], a, b, (a + b) >> 1 if has_avg else zero[:n],
-                                    _paeth(a, b, c) if has_paeth else zero[:n]])
+        preds = {1: lambda: a, 2: lambda: b, 3: lambda: (a + b) >> 1, 4: lambda: _paeth(a, b, c)}
+        if len(used) == 1:
+            (j,) = used
+            pred = preds[j]() if j else 0
+        else:
+            pred = np.zeros(a.shape, np.int16)
+            for j, rows in used.items():
+                if j:
+                    np.copyto(pred, preds[j](), where=rows[y0:y1])
         R[d + 2, y0 + 1:y1 + 1] = (skew[d, y0:y1] + pred) & 255
-    out = np.empty((h, w, bpp), np.uint8)
+    out = np.empty((n, h, w, bpp), np.uint8)
     for y in range(h):
-        out[y] = R[y + 2:y + 2 + w, y + 1]
+        out[:, y] = R[y + 2:y + 2 + w, y + 1].transpose(1, 0, 2)
     return out
 
 

@@ -26,6 +26,10 @@ Writes ``LEARNABILITY_torch.json`` (and ``DISTILL_torch.json`` with
 3): a baseline of the JAX script's kind, with other values. It runs on the
 card unless ``--device cpu`` is given; with no card it raises.
 ``train``, ``evaluate`` and ``distill`` take reduced counts for a short run.
+Every planner plans from one fixed init-noise draw (``TPU.FIXED_INIT_NOISE``),
+so a few-step sampler's closed loop depends on it: ``distill_draws``
+evaluates a ``--distill`` run's teacher and students again per draw (the
+planners' seeds, and an injected draw such as JAX's).
 """
 
 from __future__ import annotations
@@ -766,6 +770,134 @@ def evaluate(ckpt, heldout, hw, *, use_cond="NO_GUIDANCE", quick=False, device=N
     }
 
 
+def student_cfg(stage, use_cond, hw, quick=False, **tpu):
+    """The evaluation config of a distill stage's student: its grid, and
+    under CFG ``GUIDANCE.FREE_SCALE`` 1.0 (the student bakes the guidance
+    scale in; the sampler runs one forward per step)."""
+    cfg = make_cfg(use_cond, hw, quick, **{**tpu, "SAMPLE_TIMESTEPS": stage["timesteps"]})
+    if use_cond == "FREE_GUIDANCE":
+        cfg.GUIDANCE.FREE_SCALE = 1.0
+    return cfg
+
+
+def graph_vs_eager_m(planner, heldout, hw, use_target) -> float:
+    """The largest |plan - eager plan| (m) over the held-out frames: the
+    planner's program (a CUDA graph replay on the card) against its eager
+    body ``_plan`` on the same inputs."""
+    import torch
+
+    worst = 0.0
+    for s in heldout:
+        frame = heldout_frame(s, hw)
+        tgt = np.asarray(s["traj"][-1, :2] if use_target else np.zeros(2), np.float32).reshape(1, 2)
+        trajs, _ = planner.plan_hypotheses(frame, tgt if use_target else None)
+        eager, _ = planner._plan(planner.init_trajs, torch.from_numpy(frame).to(planner.device),
+                                 torch.from_numpy(tgt).to(planner.device), planner.step_noise)
+        worst = max(worst, float(np.abs(trajs - eager.cpu().numpy()).max()))
+    return worst
+
+
+def evaluate_distilled(manifest, ckpt, heldout, hw, *, use_cond="NO_GUIDANCE", quick=False, device=None,
+                       start=50, eval_ks=(4, 2, 1), cl_steps=120, cv_steps=None, seed=0, init_trajs=None,
+                       **tpu) -> dict:
+    """The teacher ``ckpt`` at ``start`` steps, and each student of the
+    distill ``manifest`` at ``eval_ks`` steps beside the teacher run at the
+    same step count: held-out RMS and both closed loops per point, and
+    ``distill_gates`` over them. Every planner draws its fixed init noise
+    from ``seed`` (``DiffusionPlanner``'s own draw), or plans from
+    ``init_trajs`` (K, horizon, D) where given; ``tpu`` sets ``TPU.<key>``
+    of every planner's config (``make_cfg``)."""
+    import torch
+
+    from .driving.plan import DiffusionPlanner
+
+    if cv_steps is None:
+        cv_steps = 30 if quick else 400
+    guided = use_cond != "NO_GUIDANCE"
+
+    def eval_point(cfg, checkpoint):
+        planner = DiffusionPlanner(cfg, checkpoint=checkpoint, seed=seed, device=device)
+        if init_trajs is not None:
+            planner.init_trajs = torch.as_tensor(np.asarray(init_trajs, np.float32)).to(planner.device)
+        rms, _, _ = heldout_l2_m(planner, heldout, hw, guided)
+        comp, dev = closed_loop_completion(planner, hw, steps=cl_steps, use_target=guided)
+        cvc, cvd = closed_loop_curved(planner, hw, max_steps=cv_steps, use_target=guided)
+        return {
+            "heldout_rms_m": round(rms, 4),
+            "completion": round(comp, 3),
+            "mean_abs_lat_m": round(dev, 3),
+            "curved_completion": round(cvc, 3),
+            "curved_mean_dev_m": round(cvd, 3),
+        }
+
+    def teacher_cfg(k):
+        cfg = make_cfg(use_cond, hw, quick, **tpu)
+        cfg.EVAL.SAMPLE_STEPS = k
+        return cfg
+
+    students, teacher_at = {}, {}
+    teacher_at[str(start)] = eval_point(teacher_cfg(start), ckpt)
+    print(f"[learnability] distill teacher @{start}: {teacher_at[str(start)]}", flush=True)
+    for stage in manifest["stages"]:
+        k = stage["num_steps"]
+        if k not in eval_ks:
+            continue
+        students[str(k)] = eval_point(student_cfg(stage, use_cond, hw, quick, **tpu), stage["checkpoint"])
+        teacher_at[str(k)] = eval_point(teacher_cfg(k), ckpt)
+        print(f"[learnability] distill @{k}-step: student {students[str(k)]} "
+              f"vs teacher-leading {teacher_at[str(k)]}", flush=True)
+    measured = [k for k in map(str, eval_ks) if k in students]
+    return {"teacher": teacher_at, "students": students,
+            "gates": distill_gates(teacher_at, students, measured, start)}
+
+
+def distill_draws(workdir, out, *, use_cond="FREE_GUIDANCE", seeds=range(5), jax_init_trajs=None,
+                  float32_draws=(), quick=False, device=None, cl_steps=120, cv_steps=None) -> dict:
+    """``evaluate_distilled`` of the teacher and students a ``--distill``
+    run left in ``workdir``, once per init-noise draw: the planners' own
+    draw from each seed of ``seeds`` (``seed N``), and the JAX planner's,
+    injected from the ``.npy`` at ``jax_init_trajs`` (``jax``). The draws
+    named in ``float32_draws`` are evaluated again with every planner in
+    float32 (``<draw> float32``). Writes ``out``: per draw the five metrics
+    per point and the four gates, with the card's name and power limit."""
+    from .driving.plan import DiffusionPlanner
+    from .utils.device import resolve_device
+
+    device = resolve_device(device)
+    hw = (64, 96) if quick else (256, 900)
+    with open(osp.join(workdir, "distill", "distill.json")) as f:
+        manifest = json.load(f)
+    ckpt = osp.join(workdir, "run", "checkpoints", "final.pt" if quick else "final.pth")
+    heldout = heldout_samples(3 if quick else 8)
+    draws = {f"seed {s}": dict(seed=int(s)) for s in seeds}
+    if jax_init_trajs is not None:
+        draws["jax"] = dict(init_trajs=np.load(jax_init_trajs))
+    runs = [(name, kw, {}) for name, kw in draws.items()]
+    runs += [(f"{name} float32", draws[name], {"COMPUTE_DTYPE": "float32"}) for name in float32_draws]
+    result = {"workdir": workdir, "manifest": manifest, "teacher_checkpoint": ckpt,
+              "jax_init_trajs": jax_init_trajs, "draws": {}}
+    t0 = time.time()
+    for name, kw, tpu in runs:
+        ev = evaluate_distilled(manifest, ckpt, heldout, hw, use_cond=use_cond, quick=quick, device=device,
+                                start=manifest["start_steps"], cl_steps=cl_steps, cv_steps=cv_steps, **kw, **tpu)
+        result["draws"][name] = {**ev, "pass": all(ev["gates"].values())}
+        print(f"[learnability] draw {name}: gates {ev['gates']}", flush=True)
+    # the CFG student's key: the plan's CUDA graph against its eager body
+    result["graph_vs_eager_max_abs_m"] = {
+        str(st["num_steps"]): graph_vs_eager_m(
+            DiffusionPlanner(student_cfg(st, use_cond, hw, quick), checkpoint=st["checkpoint"], device=device),
+            heldout, hw, use_cond != "NO_GUIDANCE")
+        for st in manifest["stages"] if st["num_steps"] in (4, 2, 1)}
+    print(f"[learnability] students' graph vs eager plans, max abs m: {result['graph_vs_eager_max_abs_m']}",
+          flush=True)
+    result["seconds"] = round(time.time() - t0, 1)
+    result["device"] = card_name(device)
+    with open(out, "w") as f:
+        json.dump(result, f, indent=2)
+        f.write("\n")
+    return result
+
+
 def distill(ckpt, data_root, heldout, hw, *, use_cond="NO_GUIDANCE", quick=False, device=None, batch=64,
             start=50, iters=800, stages=6, workdir, cl_steps=120, cv_steps=None, eval_ks=(4, 2, 1),
             seed=0) -> dict:
@@ -774,11 +906,7 @@ def distill(ckpt, data_root, heldout, hw, *, use_cond="NO_GUIDANCE", quick=False
     then benchmark the few-step students against the teacher run at the
     same step counts (held-out RMS and both closed loops) and gate them."""
     from . import distill as distill_cli
-    from .driving.plan import DiffusionPlanner
 
-    if cv_steps is None:
-        cv_steps = 30 if quick else 400
-    guided = use_cond != "NO_GUIDANCE"
     dworkdir = osp.join(workdir, "distill")
     dopts = [
         "TRAIN.ROOT", data_root,
@@ -802,40 +930,10 @@ def distill(ckpt, data_root, heldout, hw, *, use_cond="NO_GUIDANCE", quick=False
     t0d = time.time()
     dmanifest = distill_cli.main(distill_cli.parse_args(argv))
 
-    def eval_point(planner):
-        rms, _, _ = heldout_l2_m(planner, heldout, hw, guided)
-        comp, dev = closed_loop_completion(planner, hw, steps=cl_steps, use_target=guided)
-        cvc, cvd = closed_loop_curved(planner, hw, max_steps=cv_steps, use_target=guided)
-        return {
-            "heldout_rms_m": round(rms, 4),
-            "completion": round(comp, 3),
-            "mean_abs_lat_m": round(dev, 3),
-            "curved_completion": round(cvc, 3),
-            "curved_mean_dev_m": round(cvd, 3),
-        }
-
-    students, teacher_at = {}, {}
-    cfg_t0 = make_cfg(use_cond, hw, quick)
-    cfg_t0.EVAL.SAMPLE_STEPS = start
-    teacher_at[str(start)] = eval_point(DiffusionPlanner(cfg_t0, checkpoint=ckpt, device=device))
-    print(f"[learnability] distill teacher @{start}: {teacher_at[str(start)]}", flush=True)
-    for stage in dmanifest["stages"]:
-        k = stage["num_steps"]
-        if k not in eval_ks:
-            continue
-        cfg_s = make_cfg(use_cond, hw, quick, SAMPLE_TIMESTEPS=stage["timesteps"])
-        if use_cond == "FREE_GUIDANCE":
-            # CFG students bake the guidance scale in: deploy at FREE_SCALE
-            # 1.0, where the sampler runs one forward per step
-            cfg_s.GUIDANCE.FREE_SCALE = 1.0
-        students[str(k)] = eval_point(DiffusionPlanner(cfg_s, checkpoint=stage["checkpoint"], device=device))
-        cfg_t = make_cfg(use_cond, hw, quick)
-        cfg_t.EVAL.SAMPLE_STEPS = k
-        teacher_at[str(k)] = eval_point(DiffusionPlanner(cfg_t, checkpoint=ckpt, device=device))
-        print(f"[learnability] distill @{k}-step: student {students[str(k)]} "
-              f"vs teacher-leading {teacher_at[str(k)]}", flush=True)
+    ev = evaluate_distilled(dmanifest, ckpt, heldout, hw, use_cond=use_cond, quick=quick, device=device,
+                            start=start, eval_ks=eval_ks, cl_steps=cl_steps, cv_steps=cv_steps)
+    teacher_at, students, gates = ev["teacher"], ev["students"], ev["gates"]
     measured = [k for k in map(str, eval_ks) if k in students]
-    gates = distill_gates(teacher_at, students, measured, start)
     return {
         "start_steps": start,
         "iters_per_stage": iters,

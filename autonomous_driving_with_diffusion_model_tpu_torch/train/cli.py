@@ -15,10 +15,11 @@ step's forward is wrapped in ``DistributedDataParallel``
 rank 0; every rank holds the same weights and EMA.
 
 It trains on the card unless ``--device cpu`` is given. The frames are
-decoded on the host (``data/png.py``) and, with ``TPU.DEVICE_DATA``, kept on
-the device; augmentation and normalization run on the device, then the
-train step (``train/state.py``), one CUDA graph replay per iteration on the
-card (``train/program.py``). Every ``TRAIN.SAVE_INTERVAL`` iterations
+decoded on the host (``data/png.py``, in worker processes) and, with
+``TPU.DEVICE_DATA``, kept on the device; augmentation (one CUDA graph
+replay per iteration on the card, ``data/augment.py:AugmentProgram``) and
+normalization run on the device, then the train step (``train/state.py``),
+one CUDA graph replay per iteration on the card (``train/program.py``). Every ``TRAIN.SAVE_INTERVAL`` iterations
 and at the end it saves ``checkpoints/checkpoint_{it}.pth`` /
 ``final.pth`` in the reference layout (ResNet-34), or the port's own
 ``.pt`` for other encoders. ``TRAIN.RESUME`` resumes from either.
@@ -182,7 +183,7 @@ def main(args):
 def _train(args, cfg, dev, log):
     import torch.distributed as dist
 
-    from ..data import augment_batch, get_loader, maybe_device_resident, normalize_images
+    from ..data import AugmentProgram, get_loader, maybe_device_resident, normalize_images
     from ..data.dataset import DeviceResidentLoader
     from ..diffusion import make_schedule_from_cfg
     from ..models import build_model
@@ -222,8 +223,10 @@ def _train(args, cfg, dev, log):
                  dist.get_backend())
     # the step as one program: a CUDA graph replayed per iteration on the card
     train_step = TrainProgram(make_train_step(schedule, cfg), dev)
+    augment = AugmentProgram(dev)  # likewise the augmentation: one graph per batch shape
     loader = maybe_device_resident(
-        get_loader(cfg, train=True, shard_index=process_index(), shard_count=process_count()), cfg, dev)
+        get_loader(cfg, train=True, shard_index=process_index(), shard_count=process_count(),
+                   pin_memory=dev.type == "cuda"), cfg, dev)
     if isinstance(loader, DeviceResidentLoader):
         log.info("Device-resident dataset: %d samples, %.1f MB uploaded once",
                  len(loader.dataset), loader.nbytes() / 1e6)
@@ -254,7 +257,7 @@ def _train(args, cfg, dev, log):
         batch = {k: torch.as_tensor(v).to(dev, non_blocking=True) for k, v in batch.items()}
         images = batch["image"]
         if cfg.TRAIN.USE_IMG_AUGMENTOR:
-            images = augment_batch(images, aug_gen, image_iteration)
+            images = augment(images, aug_gen, image_iteration)
         batch["image"] = normalize_images(images)
         metrics = train_step(state, batch, generator=step_gen)
         image_iteration += cfg.TRAIN.BATCH_SIZE

@@ -55,11 +55,17 @@ Phases, each of which fails the run (nonzero exit, no result line):
    dataset of 64 900x256 frames that the script writes under ``build/``
    with the port's PNG writer, through the loader, the augmentation and the
    step: device-resident with BN_MODE frozen and train (and frozen with
-   REMAT), and through the host loader decoding every batch (frames of Sub
-   rows, and of Paeth rows): step p50, samples/s, peak memory (from the
-   program's build, whose capture allocates the graph's pool), launches per
-   step (16 / 1 per forward, doubled under REMAT), one profiled step; and
-   the train CLI, 4 iterations saving at 2, then resumed from
+   REMAT), and through the host loader decoding every batch in its decoder
+   processes into pinned batches (frames of Sub rows, and of Paeth rows;
+   its p50 beside the device-resident step's): step p50, samples/s, peak
+   memory (from the program's build, whose capture allocates the graph's
+   pool), launches per step (16 / 1 per forward, doubled under REMAT), one
+   profiled step; the host's decode ms per frame on 4 threads against 4
+   and 8 decoder processes, Sub and Paeth rows; the augmentation alone at B = 32
+   and 64 (``AugmentProgram``'s CUDA graph against its eager body on the
+   same draws, bit-identical, and against the row-gathering path it
+   replaced; host ms of each in turns, the replay's device ms, kernels per
+   replay); and the train CLI, 4 iterations saving at 2, then resumed from
    ``checkpoint_2.pth``. Float32 is float32 throughout: ``build_model``
    turns TF32 off on the card, and the script checks that it did;
 9. distillation: one distill step on the card against the CPU at B = 2
@@ -111,8 +117,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    DDIM-10 plan, the 24 held-out plans within BF16_PLAN_TOL of a CPU
    planner's); its ``distill`` 8 -> 4 -> 2 at 3 iterations a stage and the
    2-step student's plans;
-13. the compiled plan: for phase 4's three configs, phase 7's planner paths
-   and HOIST_PERCEPTION off, the CUDA graph's plan against the eager body it
+13. the compiled plan: for phase 4's three configs, phase 7's planner paths,
+   HOIST_PERCEPTION off and a CFG student's key (FREE_SCALE 1.0, a distilled
+   2-step grid, bfloat16; also against the CPU planner within the bf16
+   bound), the CUDA graph's plan against the eager body it
    captures (1e-5 m in float32, bit-identical expected; the bf16 bound in
    bfloat16), the first plan's launch counts (one replay) and the counts
    the capture recorded, the warm and capture seconds, eager and graph plan
@@ -233,6 +241,9 @@ PARAM_TOL = 2.0
 LOSS_RTOL = 1e-4
 STAT_TOL = 1e-4
 TRAIN_FRAMES = 64
+NUM_WORKERS = 4  # TRAIN.NUM_WORKERS: the host loader's decoders
+AUG_REPS = 10  # phase 8: augmentation calls of each path, in turns
+AUG_TOL = 1e-3  # [0, 255]: the row-gathering path against the branch-free body (the same ops on the same draws)
 REPLAY = os.path.join("tests", "fixtures", "replay_town01.npz")
 LATENCY_TICKS = 20
 DISTILL_START = 100  # the default config's DDIM-100 teacher grid
@@ -336,8 +347,9 @@ def card_rates(name: str):
 def device_breakdown(run) -> dict:
     """One run under torch.profiler: wall ms, the kernels' summed device
     ms (one stream, so they do not overlap), that sum by kind, the kernels
-    of kind "other" that take the most device time, and the port's two
-    kernels as many times as the profiler saw them run."""
+    of kind "other" that take the most device time, the port's two
+    kernels as many times as the profiler saw them run, and every kernel
+    so counted."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -349,6 +361,7 @@ def device_breakdown(run) -> dict:
         wall = (time.perf_counter() - t0) * 1e3
     by_kind, other = {}, {}
     port = {"conv_gn_mish_kernel": 0, "conv1d_gn_mish_kernel": 0}
+    n_kernels = 0
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
@@ -367,6 +380,7 @@ def device_breakdown(run) -> dict:
                                                           "dgrad")) else
                 "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
+        n_kernels += ev.count
         if kind == "conv_gn_mish":
             port["conv1d_gn_mish_kernel" if "conv1d_gn_mish" in name else "conv_gn_mish_kernel"] += ev.count
         if kind == "other":
@@ -375,7 +389,8 @@ def device_breakdown(run) -> dict:
     top = sorted(other.items(), key=lambda kv: -kv[1])[:6]
     return {"wall_ms": wall, "device_ms": dev_ms, "busy_share": dev_ms / wall,
             "by_kind": {k: round(v, 4) for k, v in sorted(by_kind.items())},
-            "top_other": [(k[:90], round(v, 3)) for k, v in top], "port_kernel_launches": port}
+            "top_other": [(k[:90], round(v, 3)) for k, v in top], "port_kernel_launches": port,
+            "kernels": n_kernels}
 
 
 def agents(load_cfg, case, device_breakdown, launches, max_err, smi) -> dict:
@@ -859,6 +874,153 @@ def write_dataset(root: str, n: int, h: int, w: int, seed: int = 0) -> None:
             f.write("\n".join(lines) + "\n")
 
 
+def decode_throughput(hosts, smi) -> dict:
+    """Host ms per decoded frame of each host dataset (``hosts``: rows ->
+    dataset root, frames of Sub or of Paeth rows): ``read_png`` on
+    NUM_WORKERS threads over TRAIN_FRAMES frames (the loader before the
+    decoder processes), and the port's ``Loader`` at B = 32 over an epoch of
+    4 x TRAIN_FRAMES frames with NUM_WORKERS and with twice as many decoder
+    processes (the epoch after the one that starts them)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from autonomous_driving_with_diffusion_model_tpu_torch.data import Loader, TrajDataset, read_png
+
+    out = {}
+    for rows, root in hosts.items():
+        ds = TrajDataset(root, cache_decoded=False)
+        ds.front_image = ds.front_image[:4 * TRAIN_FRAMES]  # 8 batches: work for 8 processes
+        with ThreadPoolExecutor(NUM_WORKERS) as pool:  # threads on TRAIN_FRAMES frames: Paeth rows thrash the GIL
+            list(pool.map(read_png, ds.front_image[:NUM_WORKERS]))
+            t0 = time.perf_counter()
+            list(pool.map(read_png, ds.front_image[:TRAIN_FRAMES]))
+            threads = (time.perf_counter() - t0) / TRAIN_FRAMES * 1e3
+        procs = {}
+        for workers in (NUM_WORKERS, 2 * NUM_WORKERS):
+            loader = Loader(ds, batch_size=32, num_workers=workers, shuffle=False)
+            try:
+                t0 = time.perf_counter()
+                list(loader)  # starts the processes
+                start_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                n = sum(len(b["trajs"]) for b in loader)
+                procs[workers] = (time.perf_counter() - t0) / n * 1e3
+            finally:
+                loader.close()
+        out[rows] = {"threads_ms": threads, "processes_ms": procs[NUM_WORKERS],
+                     f"processes_ms_{2 * NUM_WORKERS}": procs[2 * NUM_WORKERS], "frames": n,
+                     "first_epoch_s": start_s, "host_cpus": os.cpu_count()}
+        log(f"decode {rows} rows: {threads:.3f} ms a frame on {NUM_WORKERS} threads, {procs[NUM_WORKERS]:.3f} ms a "
+            f"frame in {NUM_WORKERS} decoder processes ({threads / procs[NUM_WORKERS]:.2f}x), "
+            f"{procs[2 * NUM_WORKERS]:.3f} ms in {2 * NUM_WORKERS} ({n} frames of an epoch; the first epoch, "
+            f"with the processes' start, {start_s:.1f} s; {os.cpu_count()} host CPUs), host clock; on {smi}")
+    return out
+
+
+def augment_rows(images, d):
+    """The augmentation as the port ran it before its branch-free body, on
+    the draws ``d``: at each position, for each op, the rows that take it
+    (read back to the host), gathered, the op, and scattered back: shapes
+    that change with the data, so no graph can hold it."""
+    import numpy as np
+    import torch
+
+    from autonomous_driving_with_diffusion_model_tpu_torch.data import augment as aug
+
+    x = images.to(torch.float32)
+    select = d["select"].cpu().numpy()
+    for k in range(7):
+        for j in range(7):
+            rows = np.nonzero(select[k, j])[0]
+            if len(rows) == 0:
+                continue
+            idx = torch.from_numpy(rows).to(x.device)
+            xs = x.index_select(0, idx)
+            pick = lambda name: d[name].index_select(0, idx)
+            per_c = pick("per_c")
+            if j == 0:
+                y = aug._separable(xs, pick("blur_taps"))
+            elif j == 1:
+                y = aug._add_noise(xs, pick("noise_scale"), aug._channel_choice(per_c[:, 1], pick("noise")))
+            elif j in (2, 3):
+                field, p = ("coarse", "coarse_p") if j == 2 else ("dropout", "dropout_p")
+                drop = (aug._channel_choice(per_c[:, j], pick(field)) < aug._per_image(pick(p))).to(x.dtype)
+                y = aug._coarse_dropout(xs, drop) if j == 2 else aug._dropout(xs, drop)
+            else:
+                y = (aug._add, aug._multiply, aug._contrast)[j - 4](xs, d["values"][j - 4].index_select(0, idx))
+            x = x.index_copy(0, idx, y)
+    return x.clamp(0.0, 255.0)
+
+
+def augmentation(device_breakdown, smi, dev="cuda") -> dict:
+    """Phase 8's augmentation alone, at B = 32 (the fp32 step's batch) and
+    B = 64 (the bf16 learnability step's) at 900x256, at iteration 0
+    (frequency 0.05) and late (every op at 0.5): the program
+    (``AugmentProgram``, a CUDA graph replay) against its eager body on the
+    same draws (bit-identical) and against the row-gathering path it
+    replaced (``augment_rows``, AUG_TOL); host ms per call ending in a
+    synchronize (draws included), in turns, p50 over AUG_REPS; the graph's
+    device ms by CUDA events; the kernels the profiler counts in one replay
+    and in one eager body."""
+    import numpy as np
+    import torch
+
+    from autonomous_driving_with_diffusion_model_tpu_torch.data import augment as aug
+    from autonomous_driving_with_diffusion_model_tpu_torch.train import cli
+
+    out = {}
+    rng = np.random.default_rng(8)
+    for B in (32, 64):
+        images = torch.from_numpy(rng.integers(0, 256, (B, 256, 900, 3), dtype=np.uint8)).to(dev)
+        program = aug.AugmentProgram(dev)
+        for iteration in (0, 6.4e8):
+            gen = lambda it: cli.iteration_generators(it, dev)[0]
+            got = program(images, gen(0), iteration)  # the build and a replay
+            want = aug.augment_batch(images, gen(0), iteration)
+            d = aug.augment_draws(gen(0), images.shape, iteration, dev)
+            rows = augment_rows(images, d)
+            same = bool(torch.equal(got, want))
+            rows_err = float((rows - want).abs().max())
+            prog = program.programs[program.key]
+            runs = {"rows": lambda it: augment_rows(images, aug.augment_draws(gen(it), images.shape, iteration, dev)),
+                    "eager": lambda it: aug.augment_batch(images, gen(it), iteration),
+                    "graph": lambda it: program(images, gen(it), iteration)}
+            ms = {k: [] for k in runs}
+            for r in range(AUG_REPS):
+                for k, run in runs.items():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run(r + 1)
+                    torch.cuda.synchronize()
+                    ms[k].append((time.perf_counter() - t0) * 1e3)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(AUG_REPS):
+                prog["graph"].replay()
+            end.record()
+            torch.cuda.synchronize()
+            replay_ms = start.elapsed_time(end) / AUG_REPS
+            replay = device_breakdown(lambda: prog["graph"].replay())
+            eager = device_breakdown(lambda: aug.augment_body(prog["images"], prog["draws"]))
+            ok = same and rows_err <= AUG_TOL and replay["kernels"] > 0
+            row = dict(bit_identical=same, rows_vs_eager_max_abs=rows_err,
+                       rows_bit_identical=bool(torch.equal(rows, want)),
+                       ms_p50={k: float(np.median(v)) for k, v in ms.items()}, ms=ms, replay_device_ms=replay_ms,
+                       kernels_per_replay=replay["kernels"], kernels_per_eager_body=eager["kernels"],
+                       replay_profile=replay, taking_an_op=int(d["select"].any(dim=(0, 1)).sum()))
+            out[f"b{B}_it{iteration:g}"] = row
+            log(f"augmentation B={B} at 900x256, iteration {iteration:g}: graph vs eager bit-identical {same}, "
+                f"the row-gathering path within {rows_err:.3e} (bit-identical {row['rows_bit_identical']}); host "
+                f"ms p50 (draws included) rows {row['ms_p50']['rows']:.2f}, eager body "
+                f"{row['ms_p50']['eager']:.2f}, graph {row['ms_p50']['graph']:.2f} over {AUG_REPS} each in turns; "
+                f"replay device {replay_ms:.3f} ms; kernels per replay {replay['kernels']} (eager body "
+                f"{eager['kernels']}); {row['taking_an_op']} of {B} images take an op; on {smi} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"augmentation B={B} iteration {iteration:g}: {row}")
+        del images, program
+    return out
+
+
 def grad_ratio(got, want, names):
     """The worst tensor's max abs gradient difference over its tolerance
     (fails above 1), and its name."""
@@ -889,10 +1051,10 @@ def training(load_cfg, calls, case, graph_ms, bound_ms, device_breakdown, launch
     import torch
 
     from autonomous_driving_with_diffusion_model_tpu_torch.data import (
+        AugmentProgram,
         DeviceResidentLoader,
         Loader,
         TrajDataset,
-        augment_batch,
         get_loader,
         maybe_device_resident,
         normalize_images,
@@ -1136,6 +1298,7 @@ def training(load_cfg, calls, case, graph_ms, bound_ms, device_breakdown, launch
     out["decode_ms"] = decode
     log(f"train data: {TRAIN_FRAMES} frames of {W}x{H} written in {out['dataset_write_s']:.1f} s; one PNG "
         f"decodes in {decode['sub']:.1f} ms (Sub rows) / {decode['paeth']:.1f} ms (Paeth rows) on the host")
+    out["decode_ms_per_frame"] = decode_throughput(hosts, smi)
 
     out["timed"] = {}
     for key, bn_mode, remat, source in (("frozen", "frozen", False, "device"), ("train", "train", False, "device"),
@@ -1150,13 +1313,14 @@ def training(load_cfg, calls, case, graph_ms, bound_ms, device_breakdown, launch
             loader = maybe_device_resident(get_loader(cfg), cfg, dev)
             if not isinstance(loader, DeviceResidentLoader):
                 raise AssertionError(f"{TRAIN_FRAMES} frames were not made device-resident")
-        else:  # get_loader's Loader with the decoded-frame cache off
+        else:  # get_loader's Loader, as the train CLI makes it on the card
             loader = Loader(TrajDataset(cfg.TRAIN.ROOT, cache_decoded=False), batch_size=cfg.TRAIN.BATCH_SIZE,
-                            num_workers=cfg.TRAIN.NUM_WORKERS)
+                            num_workers=cfg.TRAIN.NUM_WORKERS, pin_memory=True)
         load_s = time.perf_counter() - t0
         st = create_train_state(build_model(cfg, device=dev, seed=0), cfg)
         # as the train CLI steps: one CUDA graph replay an iteration
         step = TrainProgram(make_train_step(make_schedule_from_cfg(cfg, dev), cfg), dev)
+        augment = AugmentProgram(dev)
         data = iter(loader)
 
         def one(it):
@@ -1168,12 +1332,14 @@ def training(load_cfg, calls, case, graph_ms, bound_ms, device_breakdown, launch
                 b = next(data)
             b = {k: torch.as_tensor(v).to(dev, non_blocking=True) for k, v in b.items()}  # as the CLI does
             aug, g = cli.iteration_generators(it, dev)
-            b["image"] = normalize_images(augment_batch(b["image"], aug, it * cfg.TRAIN.BATCH_SIZE))
+            b["image"] = normalize_images(augment(b["image"], aug, it * cfg.TRAIN.BATCH_SIZE))
             return step(st, b, generator=g)
 
         # the first step is the program's eager step and its capture; the
-        # phase-14 comparison with the eager step carries the repeats cut here
-        n_warm, n_timed = (2, 3) if remat else (1, 5) if source == "paeth" else (2, 6)
+        # phase-14 comparison with the eager step carries the repeats cut
+        # here. The host loader's steps outnumber its 4 prefetched batches,
+        # so that its p50 is its steady state
+        n_warm, n_timed = (2, 3) if remat else (2, 12) if source != "device" else (2, 6)
         # the peak from the program's build on: a replay allocates nothing,
         # its activations live in the graph's pool, allocated at the capture
         torch.cuda.synchronize()
@@ -1211,7 +1377,14 @@ def training(load_cfg, calls, case, graph_ms, bound_ms, device_breakdown, launch
             f"kind {busy['by_kind']}; on {smi}")
         if not np.isfinite(loss):
             raise AssertionError(f"train step {key}: loss {loss}")
+        if source != "device":
+            loader.close()
         del st, loader, data
+    timed = out["timed"]
+    log("train step through the host loader (decoder processes) beside the device-resident step, p50 ms / busy "
+        "share: " + "; ".join(f"{k} {timed[k]['step_ms_p50']:.2f} / {timed[k]['profile']['busy_share']:.3f}"
+                              for k in ("frozen", "frozen_host_sub", "frozen_host_paeth")) + f"; on {smi}")
+    out["augmentation"] = augmentation(device_breakdown, smi, dev)
     for rows in ("sub", "paeth"):
         shutil.rmtree(hosts[rows], ignore_errors=True)
         shutil.rmtree(os.path.join(REPO, "build", f"phase8_{rows}_frames"), ignore_errors=True)
@@ -2214,8 +2387,9 @@ def learnability(device_breakdown, launches, smi, dev="cuda", quick=False) -> di
 
 def compiled_plan(load_cfg, device_breakdown, launches, smi, dev="cuda") -> dict:
     """Phase 13: the plan as one program (``driving/program.py``, a CUDA
-    graph per key) for phase 4's three configs, phase 7's planner paths and
-    HOIST_PERCEPTION off. Per path, on one frame: the graph's plan against
+    graph per key) for phase 4's three configs, phase 7's planner paths,
+    HOIST_PERCEPTION off and a CFG student's key (held to the CPU planner
+    too, ``plan_tol``). Per path, on one frame: the graph's plan against
     the eager body ``_plan`` on the same inputs (GRAPH_TOL in float32,
     plan_tol's bf16 bound in bfloat16; whether bit-identical); the first
     plan's launch counts (its one replay: 16 / 1 per forward) and the
@@ -2252,6 +2426,11 @@ def compiled_plan(load_cfg, device_breakdown, launches, smi, dev="cuda") -> dict
     # and at batch 8 over DDIM-100 (800 encodes a plan: the largest graph)
     paths += [("hoist_off_free_guidance", CONFIGS[1], {"TPU.HOIST_PERCEPTION": False}),
               ("hoist_off_k8", CONFIGS[0], {"TPU.HOIST_PERCEPTION": False, "TPU.NUM_HYPOTHESES": 8})]
+    # the key every CFG student replays (learnability.student_cfg): the
+    # guidance scale baked in, a distilled 2-step grid, bfloat16; also held
+    # to the CPU planner of the same weights and draw
+    paths += [("cfg_student_2step_bf16", CONFIGS[1], {"GUIDANCE.FREE_SCALE": 1.0, "TPU.SAMPLE_TIMESTEPS": [98, 34],
+                                                      "TPU.COMPUTE_DTYPE": "bfloat16"})]
     mib = lambda b: b / 2**20
     for name, path, opts in paths:
         t_path = time.perf_counter()
@@ -2309,7 +2488,15 @@ def compiled_plan(load_cfg, device_breakdown, launches, smi, dev="cuda") -> dict
             if profiled == recorded or any(profiled[k] > recorded[k] for k in recorded):
                 break
         ok = ok and profiled == recorded
-        row = dict(steps=n_fwd, hypotheses=gpu.num_hypotheses, dtype=str(cfg.TPU.COMPUTE_DTYPE),
+        cpu_diff = None
+        if name == "cfg_student_2step_bf16":
+            cpu = DiffusionPlanner(cfg, seed=0, device="cpu")
+            cpu.init_trajs = gpu.init_trajs.cpu()
+            cpu_diff = float(np.abs(got - cpu.plan_hypotheses(frames[0], tgt)[0]).max())
+            ok = ok and cpu_diff <= plan_tol(cfg)["atol"]
+            del cpu
+        row = dict(steps=n_fwd, gpu_vs_cpu_max_abs_m=cpu_diff, hypotheses=gpu.num_hypotheses,
+                   dtype=str(cfg.TPU.COMPUTE_DTYPE),
                    first_plan_launches=counts, recorded_launches=None if program is None else program.launches,
                    graph_vs_eager_max_abs_m=diff, bit_identical=bool(np.array_equal(got, ref)), tolerance_m=tol,
                    best=best, eager_best=ref_best,
@@ -2329,7 +2516,9 @@ def compiled_plan(load_cfg, device_breakdown, launches, smi, dev="cuda") -> dict
             f"base: eager {eager_peak:.1f} MiB, graph's first plan {graph_peak:.1f} MiB; profiled replay "
             f"{busy['device_ms']:.2f} of {busy['wall_ms']:.2f} ms busy ({busy['busy_share']:.3f}), by kind "
             f"{busy['by_kind']}, port kernels counted {profiled} (expected {recorded}; profile "
-            f"{len(attempts)} of at most {PROFILE_TRIES}, the earlier ones counted {attempts[:-1]}); path "
+            f"{len(attempts)} of at most {PROFILE_TRIES}, the earlier ones counted {attempts[:-1]}); "
+            + ("" if cpu_diff is None else f"GPU vs CPU plan {cpu_diff:.3e} m (bound {plan_tol(cfg)['atol']}); ")
+            + f"path "
             f"{row['seconds']:.1f} s; on {smi} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"compiled plan {name}: {row}")

@@ -187,3 +187,49 @@ def test_gamma_beta_rounding_to_bf16_is_bounded(rng, which):
     ulp = 2.0 ** (np.floor(np.log2(float(want.abs().max()))) - 7)
     assert float((got - want).abs().max()) <= 2 * ulp
     assert any(float((p - e).abs().max()) > 0 for p, e in zip(packed, exact))
+
+
+def test_bf16_cfg_student_plans_no_farther_from_fp32_than_jax(rng):
+    """A CFG student's plans in bfloat16 (``GUIDANCE.FREE_SCALE`` 1.0, the
+    distilled 2-step grid, one conditional forward a step; trained-like
+    GroupNorm affines) stay as close to the float32 plans as the JAX
+    planner's bfloat16 plans do, within 2x, on the same weights, frames and
+    init draws: the port's bf16 deployment adds no error of its own to the
+    plans (the control dims included) that a closed loop could turn into
+    drift."""
+    from autonomous_driving_with_diffusion_model_tpu.driving.plan import DiffusionPlanner as JaxPlanner
+    from autonomous_driving_with_diffusion_model_tpu_torch.driving import DiffusionPlanner
+
+    def cfg_of(dtype):
+        cfg = _cfg("FREE_GUIDANCE", dtype)
+        cfg.MODEL.DIM = 32
+        cfg.TRAIN.IMAGE_HEIGHT, cfg.TRAIN.IMAGE_WIDTH = 32, 48
+        cfg.EVAL.SCHEDULER = "ddim"
+        cfg.TPU.SAMPLE_TIMESTEPS = [98, 34]
+        cfg.GUIDANCE.FREE_SCALE = 1.0
+        return cfg
+
+    port32 = DiffusionPlanner(cfg_of("float32"), device="cpu")
+    port16 = DiffusionPlanner(cfg_of("bfloat16"), device="cpu")
+    with torch.no_grad():
+        for m in port32.model.modules():
+            if isinstance(m, torch.nn.GroupNorm):
+                m.weight.copy_(torch.from_numpy(rng.normal(1.0, 0.3, m.weight.shape).astype(np.float32)))
+                m.bias.copy_(torch.from_numpy(rng.normal(0.0, 0.3, m.bias.shape).astype(np.float32)))
+    port16.model.load_state_dict(port32.model.state_dict())
+    tree = _jax_tree(port32.model, cfg_of("float32"))
+    jax16 = JaxPlanner(_jax_cfg(cfg_of("bfloat16")))
+    jax16.variables = tree
+    err = {"port": [], "jax": []}
+    for _ in range(6):
+        init = rng.standard_normal((1, 16, 7)).astype(np.float32)
+        port32.init_trajs = port16.init_trajs = torch.from_numpy(init)
+        jax16.init_trajs = jnp.asarray(init)
+        frame = rng.integers(0, 256, (32, 48, 3), dtype=np.uint8)
+        target = rng.uniform(-0.5, 0.5, 2).astype(np.float32)
+        want = port32.plan(frame, target)
+        err["port"].append(port16.plan(frame, target) - want)
+        err["jax"].append(np.asarray(jax16.plan(frame, target)) - want)
+    rms = {k: float(np.sqrt(np.mean(np.square(v)))) for k, v in err.items()}
+    assert 0 < rms["port"] <= 2 * rms["jax"], rms
+    assert np.abs(err["port"]).max() <= 2 * np.abs(err["jax"]).max(), rms

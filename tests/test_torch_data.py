@@ -31,6 +31,7 @@ from autonomous_driving_with_diffusion_model_tpu_torch.data import (
     read_png,
     write_png,
 )
+from autonomous_driving_with_diffusion_model_tpu_torch.data.png import read_pngs
 from autonomous_driving_with_diffusion_model_tpu_torch.utils.config import create_cfg
 
 # one intra-op thread per process: the suite runs in several worker
@@ -157,6 +158,71 @@ def test_loader_raises_a_workers_error(tmp_path, rng):
         list(Loader(TrajDataset(root), batch_size=2, num_workers=2, shuffle=False))
 
 
+def _write_filtered(root, n, rng, filt):
+    """``n`` samples whose frames the port's writer filters with ``filt``
+    (1 Sub, 4 Paeth; a list is one filter per row)."""
+    _write_dataset(root, n, rng)
+    for i in range(n):
+        path = os.path.join(root, "front", f"{i:06d}.png")
+        write_png(path, rng.integers(0, 256, (*HW, 3), dtype=np.uint8), filt)
+
+
+@pytest.mark.parametrize("filt", [1, 4, ([0, 1, 2, 3, 4] * 7)[:HW[0]]], ids=["sub", "paeth", "every"])
+def test_decoder_processes_give_jax_batches_and_read_png_frames(tmp_path, rng, filt):
+    """Frames of Sub rows, of Paeth rows and of every filter: the decoder
+    processes' batches equal JAX's Loader's, their frames ``read_png``'s,
+    over two epochs of one pool of processes; a batch taken while an
+    earlier iteration was left midway is still this epoch's."""
+    root = str(tmp_path / "d")
+    _write_filtered(root, 9, rng, filt)
+    ds = TrajDataset(root)
+    ours, theirs = Loader(ds, batch_size=2, num_workers=3, seed=5), JaxLoader(JaxDataset(root), batch_size=2, seed=5)
+    try:
+        next(iter(ours))  # an iteration left after one batch
+        theirs._epoch += 1
+        for _ in range(2):
+            got, want = list(ours), list(theirs)
+            assert len(got) == len(want) == 4
+            for a, b in zip(got, want):
+                for k in ("image", "trajs", "target"):
+                    np.testing.assert_array_equal(a[k], b[k])
+        procs = ours._pool.procs
+        assert len(procs) == 3 and all(p.is_alive() for p in procs)
+    finally:
+        ours.close()
+    assert not any(p.is_alive() for p in procs)
+    shuffled = Loader(ds, batch_size=3, num_workers=2, shuffle=False)
+    try:
+        for bi, batch in enumerate(shuffled):
+            want = np.stack([read_png(ds.front_image[i]) for i in range(3 * bi, 3 * bi + 3)])
+            np.testing.assert_array_equal(batch["image"], want)
+    finally:
+        shuffled.close()
+
+
+def test_loader_raises_when_a_worker_dies(tmp_path, rng):
+    """A decoder process that dies (killed here) makes the consumer raise,
+    naming its exit code, and the next epoch raises too; nothing falls back
+    to threads."""
+    import signal
+
+    root = str(tmp_path / "d")
+    _write_dataset(root, 8, rng)
+    loader = Loader(TrajDataset(root), batch_size=2, num_workers=2, shuffle=False)
+    try:
+        it = iter(loader)
+        next(it)
+        victim = loader._pool.procs[0]
+        os.kill(victim.pid, signal.SIGKILL)
+        victim.join()
+        with pytest.raises(RuntimeError, match=f"pid {victim.pid}.*exited with code -9"):
+            list(it)
+        with pytest.raises(RuntimeError, match="exited"):
+            list(loader)
+    finally:
+        loader.close()
+
+
 def test_device_resident_loader_matches_host_loader(tmp_path, rng):
     root = str(tmp_path / "d")
     _write_dataset(root, 7, rng)
@@ -254,3 +320,97 @@ def test_augment_batch_contract():
     changed = lambda out: sum(not torch.equal(o, i.float()) for o, i in zip(out, images))
     assert changed(late) >= 12
     assert changed(aug.augment_batch(images, torch.Generator().manual_seed(1), 0)) <= 8
+
+
+def _composed(images, d):
+    """The reference the branch-free body is held to: each image alone, its
+    ops applied one after another in its own order where they apply, each
+    op the plain function of its draws for that image."""
+    out = []
+    for b in range(images.shape[0]):
+        x = images[b:b + 1].to(torch.float32)
+        per_c = d["per_c"][b:b + 1]
+        for k in range(7):
+            (js,) = torch.nonzero(d["select"][k, :, b], as_tuple=True)
+            for j in js.tolist():
+                if j == 0:
+                    x = aug._separable(x, d["blur_taps"][b:b + 1])
+                elif j == 1:
+                    x = aug._add_noise(x, d["noise_scale"][b:b + 1],
+                                       aug._channel_choice(per_c[:, 1], d["noise"][b:b + 1]))
+                elif j in (2, 3):
+                    name, p = ("coarse", d["coarse_p"]) if j == 2 else ("dropout", d["dropout_p"])
+                    drop = (aug._channel_choice(per_c[:, j], d[name][b:b + 1])
+                            < aug._per_image(p[b:b + 1])).to(x.dtype)
+                    x = aug._coarse_dropout(x, drop) if j == 2 else aug._dropout(x, drop)
+                else:
+                    op = {4: aug._add, 5: aug._multiply, 6: aug._contrast}[j]
+                    x = op(x, d["values"][j - 4][b:b + 1])
+        out.append(x.clamp(0.0, 255.0))
+    return torch.cat(out)
+
+
+@pytest.mark.parametrize("iteration", [0, 3.2e6, 6.4e8])
+def test_branch_free_augmentation_equals_the_per_op_composition(iteration):
+    """Bit for bit in float32, given the same draws: the body runs every op
+    on every image at each of the 7 positions and keeps each image's own;
+    the reference applies each image's ops alone in its order. Each image
+    takes each op at most once, at one position, and no more than one op a
+    position; at a late iteration most images take several."""
+    images = torch.from_numpy(np.random.default_rng(5).integers(0, 256, (12, *HW, 3), dtype=np.uint8))
+    d = aug.augment_draws(torch.Generator().manual_seed(7), images.shape, iteration, "cpu")
+    assert d["select"].sum(dim=1).max() <= 1 and d["select"].sum(dim=0).max() <= 1
+    got = aug.augment_body(images, d)
+    assert torch.equal(got, _composed(images, d))
+    assert torch.equal(got, aug.augment_batch(images, torch.Generator().manual_seed(7), iteration))
+    if iteration == 6.4e8:
+        assert (d["select"].sum(dim=(0, 1)) >= 2).sum() >= 6
+
+
+def test_augment_draws_are_made_in_a_fixed_order():
+    """The draws are a function of the generator's state alone, filled in
+    place into given buffers as made fresh, and the noise and dropout
+    fields come at full batch shape."""
+    shape = (4, *HW, 3)
+    a = aug.augment_draws(torch.Generator().manual_seed(3), shape, 1e6, "cpu")
+    bufs = {k: torch.full_like(v, 7) for k, v in a.items()}
+    b = aug.augment_draws(torch.Generator().manual_seed(3), shape, 1e6, "cpu", out=bufs)
+    assert b is bufs and set(a) == set(b)
+    for k in a:
+        assert a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]), k
+    assert a["noise"].shape == a["dropout"].shape == shape and a["coarse"].shape == (4, 4, 6, 3)
+    assert a["select"].shape == (7, 7, 4) and a["values"].shape == (3, 4, 1, 1, 3)
+
+
+def test_augment_program_on_the_cpu_is_the_eager_body():
+    """The program's buffers hold the draws; on the CPU it runs the body on
+    them: equal to ``augment_batch`` call after call, one key per shape."""
+    program = aug.AugmentProgram("cpu")
+    rng = np.random.default_rng(2)
+    for it, n in ((0, 4), (1, 4), (2, 6)):
+        images = torch.from_numpy(rng.integers(0, 256, (n, *HW, 3), dtype=np.uint8))
+        got = program(images, torch.Generator().manual_seed(it), 6.4e8)
+        assert torch.equal(got, aug.augment_batch(images, torch.Generator().manual_seed(it), 6.4e8))
+    assert len(program.programs) == 2 and program.key == ((6, *HW, 3), torch.uint8)
+
+
+
+def test_read_pngs_equals_read_png_frame_by_frame(tmp_path, rng):
+    """A batch decoded together (its Average and Paeth rows' anti-diagonals
+    walked once for all frames) equals each frame read alone: frames of
+    every row filter, of Sub rows only, grey and RGBA among them; frames of
+    another size raise."""
+    every = ([0, 1, 2, 3, 4] * 7)[:HW[0]]
+    paths = []
+    for i, (filt, channels) in enumerate([(every, 3), (1, 3), (4, 1), (every[::-1], 4), (2, 3)]):
+        img = rng.integers(0, 256, (*HW, channels), dtype=np.uint8)
+        paths.append(str(tmp_path / f"{i}.png"))
+        write_png(paths[-1], img[..., 0] if channels == 1 else img, filt)
+    got = read_pngs(paths)
+    assert got.shape == (5, *HW, 3) and got.dtype == np.uint8
+    for frame, path in zip(got, paths):
+        np.testing.assert_array_equal(frame, read_png(path))
+    np.testing.assert_array_equal(read_pngs(paths[1:2] + paths[4:])[1], read_png(paths[4]))
+    write_png(str(tmp_path / "big.png"), rng.integers(0, 256, (HW[0] + 1, HW[1], 3), dtype=np.uint8), 4)
+    with pytest.raises(ValueError, match="among"):
+        read_pngs([paths[0], str(tmp_path / "big.png")])

@@ -105,11 +105,12 @@ def _np(tree):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_run(use_cond, snr_weight):
-    """The teacher's variables and N_STEPS jitted JAX distill steps."""
+def jax_run(use_cond, snr_weight, dtype="float32"):
+    """The teacher's variables and N_STEPS jitted JAX distill steps, the
+    model computing in ``dtype``."""
     jcfg = jax_create_cfg()
     jcfg.merge_from_other_cfg(port_cfg(use_cond))
-    model = jax_build_model(jcfg)
+    model = jax_build_model(jcfg, dtype=getattr(jnp, dtype))
     variables = model.init(jax.random.PRNGKey(0), jnp.zeros((1, 16, 7)), img=jnp.zeros((1, *HW, 3)),
                            time=jnp.asarray([1.0]))
     grid = jax_grid_chain(T, START, 1)[0]
@@ -208,6 +209,31 @@ def test_one_distill_step_matches_jax():
     for (name, p), s in zip(state.student.named_parameters(), state.ema.shadow_params):
         assert torch.equal(p.detach(), start[name]), name
         torch.testing.assert_close(s, shadow[name], atol=0, rtol=0, msg=name)
+
+
+@pytest.mark.parametrize("use_cond", ["NO_GUIDANCE", "FREE_GUIDANCE"])
+def test_bf16_distill_step_within_jax_bf16_gap(use_cond):
+    """One distill step of bfloat16 models (float32 parameters, bfloat16
+    forwards of the teacher and the student) from the same teacher, batch
+    and draws: the loss and the gradient stay as close to JAX's float32 step
+    as JAX's own bfloat16 step does, within 2x (two bfloat16 forwards round
+    at other places) and, for the loss, one bf16 ulp; the bound of
+    ``tests/test_torch_train_variants.py:test_bf16_step_within_jax_bf16_gap``."""
+    variables, f32_states, f32_losses = jax_run(use_cond, False)
+    _, b16_states, b16_losses = jax_run(use_cond, False, "bfloat16")
+    cfg = port_cfg(use_cond)
+    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    state, losses, _, grads = port_run(cfg, variables, False, n_steps=1)
+    jax_gap, port_gap = abs(b16_losses[0] - f32_losses[0]), abs(losses[0] - f32_losses[0])
+    ulp = 2.0 ** (np.floor(np.log2(f32_losses[0])) - 7)  # one bf16 ulp of the loss
+    assert port_gap <= 2 * jax_gap + ulp, (port_gap, jax_gap)
+    f32 = {k: v / (1 - BETA1) for k, v in as_port(f32_states[0].opt_state[0].mu, cfg, variables).items()}
+    b16 = {k: v / (1 - BETA1) for k, v in as_port(b16_states[0].opt_state[0].mu, cfg, variables).items()}
+    err = lambda g: float(torch.sqrt(sum(((g[k] - f32[k]) ** 2).sum() for k in grads))
+                          / torch.sqrt(sum((f32[k] ** 2).sum() for k in grads)))
+    assert 0 < err(b16) and err(grads) <= 2 * err(b16) + 1e-3, (err(grads), err(b16))
+    assert state.student.compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in state.student.parameters())
 
 
 @pytest.mark.parametrize("start_steps,stages", [(50, 10), (100, 2), (7, 3), (10, 4)])

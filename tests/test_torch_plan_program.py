@@ -196,6 +196,31 @@ def test_graph_equals_eager_on_card(mode, k, scheduler, dtype):
 
 
 @pytest.mark.gpu
+def test_cfg_student_key_on_card():
+    """The key every CFG student replays (``learnability.student_cfg``):
+    ``GUIDANCE.FREE_SCALE`` 1.0, a distilled 2-step ``TPU.SAMPLE_TIMESTEPS``
+    grid, bfloat16. The graph's plan equals the eager body's bit for bit,
+    counts its launches, and stays within chip_smoke.py's bf16 bound (1 m
+    at scale 1) of the CPU planner's plan from the same weights and draw."""
+    _need_card()
+    cfg = _cfg("FREE_GUIDANCE", dtype="bfloat16")
+    cfg.GUIDANCE.FREE_SCALE = 1.0
+    cfg.TPU.SAMPLE_TIMESTEPS = [98, 34]
+    planner = DiffusionPlanner(cfg, seed=0, device="cuda")
+    cpu = DiffusionPlanner(cfg, seed=0, device="cpu")
+    cpu.init_trajs = planner.init_trajs.cpu()
+    for frame, target in zip(_frames(3), TARGETS):
+        want, want_best, eager_launches = _eager(planner, frame, target)
+        kernels.reset_launch_counts()
+        got, best = planner.plan_hypotheses(frame, target)
+        assert kernels.launch_counts() == eager_launches and all(eager_launches.values())
+        assert eager_launches["fused_conv1d_gn_mish"] == 2  # one head a step
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_allclose(got, cpu.plan_hypotheses(frame, target)[0], atol=1.0, rtol=0)
+    assert len(planner._program.programs) == 1
+
+
+@pytest.mark.gpu
 def test_new_frame_shape_captures_anew_on_card():
     _need_card()
     planner = DiffusionPlanner(_cfg("FREE_GUIDANCE", 2), seed=0, device="cuda")

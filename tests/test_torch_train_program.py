@@ -463,3 +463,46 @@ def test_failed_capture_raises_on_card(monkeypatch):
         with pytest.raises(RuntimeError, match=r"capturing the train step .*batch\.image \(4, 32, 48, 3\)"):
             program(state, batch_of("cuda"), generator=iteration_generators(it, "cuda")[1])
     assert program.programs == {}
+
+
+@pytest.mark.gpu
+def test_augment_graph_equals_the_eager_body_on_card():
+    """The augmentation program (``data/augment.py:AugmentProgram``) on the
+    card replays a CUDA graph: bit-identical to the eager body on the same
+    draws, call after call on one key, and a new shape is a new key."""
+    from autonomous_driving_with_diffusion_model_tpu_torch.data import augment as aug
+
+    _need_card()
+    program = aug.AugmentProgram("cuda")
+    rng = np.random.default_rng(4)
+    for it, n in ((0, 8), (1, 8), (2, 8), (3, 6)):
+        images = torch.from_numpy(rng.integers(0, 256, (n, *HW, 3), dtype=np.uint8)).cuda()
+        got = program(images, torch.Generator().manual_seed(it), 6.4e8)
+        want = aug.augment_batch(images, torch.Generator().manual_seed(it), 6.4e8)
+        assert torch.equal(got, want), it
+    assert len(program.programs) == 2 and all(p["graph"] is not None for p in program.programs.values())
+
+
+@pytest.mark.gpu
+def test_host_loader_pins_its_batches_on_card(tmp_path):
+    """With ``pin_memory`` the decoder processes' batches come as
+    page-locked tensors, frames equal to ``read_png``'s, and upload
+    without waiting."""
+    from autonomous_driving_with_diffusion_model_tpu_torch.data import Loader, TrajDataset, read_png, write_png
+
+    _need_card()
+    rng = np.random.default_rng(0)
+    for sub in ("front", "waypoints"):
+        (tmp_path / sub).mkdir()
+    for i in range(4):
+        write_png(str(tmp_path / "front" / f"{i:06d}.png"), rng.integers(0, 256, (*HW, 3), dtype=np.uint8), 4)
+        (tmp_path / "waypoints" / f"{i:06d}.txt").write_text("0.1 0.2\n" + "0.5 0 0 0 0 0 0\n" * 16)
+    loader = Loader(TrajDataset(str(tmp_path)), batch_size=2, num_workers=2, shuffle=False, pin_memory=True)
+    try:
+        for bi, batch in enumerate(loader):
+            assert all(v.is_pinned() for v in batch.values())
+            image = batch["image"].to("cuda", non_blocking=True)
+            want = np.stack([read_png(str(tmp_path / "front" / f"{i:06d}.png")) for i in (2 * bi, 2 * bi + 1)])
+            np.testing.assert_array_equal(image.cpu().numpy(), want)
+    finally:
+        loader.close()
