@@ -27,10 +27,13 @@ PyTorch's, so the two packages agree in distribution, not in values.
 from __future__ import annotations
 
 import functools
+import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..utils import profiling
 
 __all__ = ["augment_factors", "augment_draws", "augment_body", "augment_batch", "AugmentProgram",
            "normalize_images", "IMAGENET_MEAN", "IMAGENET_STD"]
@@ -263,30 +266,47 @@ class AugmentProgram:
     per key: run once eagerly on a side stream, then captured with
     ``torch.cuda.graph`` and replayed on every later call; a capture that
     fails raises ``RuntimeError`` naming the key. On the CPU the body runs
-    on the buffers. Returns a copy a later call does not overwrite."""
+    on the buffers. Returns a copy a later call does not overwrite.
+
+    Tracing (``utils/profiling.py``): a call is the host span ``augment``,
+    whose request is the program's call count, with the children
+    ``augment.draws`` (the draws and the copies into the buffers),
+    ``augment.build`` on a miss and ``augment.replay`` (the replay's launch
+    and the output's copy; on the CPU the body). The graph is one device
+    span, ``augment`` (2 markers), read only by ``profiling.report()``. A
+    build counts ``captures.augment`` and its seconds."""
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.programs = {}
         self.key = None  # the key of the last call
+        self.calls = 0
         self._stream = None
 
     def __call__(self, images: torch.Tensor, generator: torch.Generator, image_iteration) -> torch.Tensor:
-        self.key = key = (tuple(images.shape), images.dtype)
-        prog = self.programs.get(key) or {"images": torch.empty_like(images, device=self.device), "graph": None}
-        prog["draws"] = augment_draws(generator, images.shape, image_iteration, self.device, prog.get("draws"))
-        prog["images"].copy_(images)
-        if self.device.type != "cuda":
-            out = augment_body(prog["images"], prog["draws"])
-        else:
-            if prog["graph"] is None:
-                self._build(prog, key)  # raises if the capture fails
-            prog["graph"].replay()
-            out = prog["out"].clone()
-        self.programs[key] = prog
-        return out
+        request, self.calls = self.calls, self.calls + 1
+        with profiling.span("augment", request=request):
+            self.key = key = (tuple(images.shape), images.dtype)
+            prog = self.programs.get(key) or {"images": torch.empty_like(images, device=self.device), "graph": None}
+            with profiling.span("augment.draws"):
+                prog["draws"] = augment_draws(generator, images.shape, image_iteration, self.device,
+                                              prog.get("draws"))
+                prog["images"].copy_(images)
+            if self.device.type == "cuda" and prog["graph"] is None:
+                with profiling.span("augment.build"):
+                    self._build(prog, key)  # raises if the capture fails
+            with profiling.span("augment.replay"):
+                if self.device.type != "cuda":
+                    out = augment_body(prog["images"], prog["draws"])
+                else:
+                    prog["graph"].replay()
+                    prog["spans"].replayed()
+                    out = prog["out"].clone()
+            self.programs[key] = prog
+            return out
 
     def _build(self, prog: dict, key) -> None:
+        t0 = time.perf_counter()
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
         current = torch.cuda.current_stream(self.device)
@@ -296,11 +316,17 @@ class AugmentProgram:
         current.wait_stream(self._stream)
         torch.cuda.synchronize(self.device)
         graph = torch.cuda.CUDAGraph()
+        spans = profiling.GraphSpans("augment", self.device, 2)
         try:
-            with torch.cuda.graph(graph, stream=self._stream, capture_error_mode="thread_local"):
+            with profiling.capture(spans), torch.cuda.graph(graph, stream=self._stream,
+                                                            capture_error_mode="thread_local"):
+                profiling.mark("augment")
                 out = augment_body(prog["images"], prog["draws"])
+                profiling.mark_end()
+            spans.close()
         except RuntimeError as e:
             raise RuntimeError(f"capturing the augmentation as a CUDA graph failed for the key (images "
                                f"{key[0]}, {str(key[1]).replace('torch.', '')}): {e}") from e
         torch.cuda.synchronize(self.device)
-        prog["graph"], prog["out"] = graph, out
+        prog["graph"], prog["out"], prog["spans"] = graph, out, spans
+        profiling.count("captures.augment", 1, time.perf_counter() - t0)

@@ -13,6 +13,16 @@ seed, or from a reference ``.pth`` (``state_dict`` + EMA shadow overwrite)
 or the port's own checkpoint (its EMA shadow), as the distill CLI writes for
 other encoders.
 
+Tracing (``utils/profiling.py``): ``plan_begin`` is the host span ``plan``,
+whose request is the planner's plan sequence number and whose attributes are
+the program's key and the port kernels' launches of its replay; the
+program's spans are its children (``driving/program.py``). ``plan_fetch``
+and ``plan_hypotheses`` wait inside ``plan.fetch``. ``_plan`` marks the
+device spans of the graph: ``plan.encode`` (normalization and the encoder,
+once, under ``TPU.HOIST_PERCEPTION``), ``plan.denoise`` (the sampler: every
+step's U-Net forward, the guidance's combine and the update) and
+``plan.score`` (the scorer and the argmin).
+
 Random numbers come from the planner's CPU generator, so the GPU and the CPU
 planner of one seed draw the same: the init trajectories, and the step noise
 of the samplers that need it (DDPM, DDIM with eta > 0, inpainting), both
@@ -38,9 +48,10 @@ from ..diffusion.schedule import make_schedule_from_cfg
 from ..models.scorer import HypothesisScorer, load_scorer
 from ..models.temporal_unet import build_model
 from ..train.checkpoint import load_eval_state_dict
+from ..utils import profiling
 from ..utils.constants import MAGIC_NUM, GuidanceType
 from ..utils.device import resolve_device
-from .program import PlanProgram
+from .program import PlanProgram, describe
 
 __all__ = ["DiffusionPlanner", "process_next_waypoint", "agent_to_world", "way_point_to_pixel"]
 
@@ -126,6 +137,7 @@ class DiffusionPlanner:
         # the plan as one program; its key follows the weights of these modules
         nets = [self.model] + ([self._scorer_net] if self._scorer == "learned" else [])
         self._program = PlanProgram(nets, self.device, getattr(torch, str(cfg.TPU.COMPUTE_DTYPE)))
+        self.plans = 0  # plans begun: the next plan's request
 
     def _draw(self, shape):
         """(init trajectories, step noise or None) from the CPU generator."""
@@ -139,16 +151,19 @@ class DiffusionPlanner:
               step_noise: Optional[torch.Tensor]):
         """The plan's body, eagerly: the program ``plan_begin`` runs, and the
         plain version it is held against."""
+        profiling.mark("plan.encode" if self._hoisted else "plan.denoise", steps=self._sample.num_steps)
         image = normalize_images(rgb_u8)[None]  # (1, H, W, 3)
         K = init_trajs.shape[0]
         if self._hoisted:
             kwargs = dict(img_feature=self.model.encode_image(image).repeat(K, 1))
+            profiling.mark("plan.denoise")
         else:  # the reference's execution re-encodes in every step
             kwargs = dict(image=image.repeat(K, 1, 1, 1))
         trajs = self._sample(
             init_trajs, target=target.repeat(K, 1) if self._needs_target else None,
             noise_seq=step_noise, **kwargs
         )
+        profiling.mark("plan.score")
         if self._scorer == "learned":
             score = self._scorer_net(trajs, target[0])
         elif self._scorer == "guidance_loss" and self._needs_target:
@@ -160,7 +175,9 @@ class DiffusionPlanner:
         else:  # comfort: least squared jerk over the xy path
             jerk = torch.diff(trajs[..., :2], n=2, dim=1)
             score = (jerk * jerk).sum((1, 2))
-        return trajs, torch.argmin(score)
+        best = torch.argmin(score)
+        profiling.mark_end()
+        return trajs, best
 
     def plan(self, rgb_u8: np.ndarray, target: Optional[np.ndarray] = None) -> np.ndarray:
         """rgb_u8: (H, W, 3) uint8 frame; target: (2,) or (1, 2) ego-frame
@@ -172,23 +189,31 @@ class DiffusionPlanner:
     def plan_hypotheses(self, rgb_u8: np.ndarray, target: Optional[np.ndarray] = None):
         """All K hypotheses: ((K, horizon, 7) numpy trajectories, best index)."""
         trajs, best = self.plan_begin(rgb_u8, target)
-        return trajs.cpu().numpy(), int(best)
+        with profiling.span("plan.fetch", request=self.plans - 1):
+            return trajs.cpu().numpy(), int(best)
 
     def plan_begin(self, rgb_u8: np.ndarray, target: Optional[np.ndarray] = None):
         """Queue a plan without waiting: returns device tensors (trajs, best),
         copies that a later plan does not overwrite."""
-        if self._fixed_noise:
-            init, noise = self.init_trajs, self.step_noise
-        else:
-            init, noise = self._draw(self.init_trajs.shape)
-        tgt = np.zeros((1, 2), np.float32) if target is None else np.asarray(target, np.float32).reshape(1, 2)
-        return self._program(self._plan, init, torch.from_numpy(np.ascontiguousarray(rgb_u8, np.uint8)),
-                             torch.from_numpy(tgt), noise)
+        request, self.plans = self.plans, self.plans + 1
+        with profiling.span("plan", request=request) as sp:
+            if self._fixed_noise:
+                init, noise = self.init_trajs, self.step_noise
+            else:
+                init, noise = self._draw(self.init_trajs.shape)
+            tgt = np.zeros((1, 2), np.float32) if target is None else np.asarray(target, np.float32).reshape(1, 2)
+            out = self._program(self._plan, init, torch.from_numpy(np.ascontiguousarray(rgb_u8, np.uint8)),
+                                torch.from_numpy(tgt), noise)
+            if sp:
+                prog = self._program
+                sp.set(key=describe(prog.key), launches=dict(prog.programs[prog.key].launches))
+            return out
 
     def plan_fetch(self, handle) -> np.ndarray:
         """Wait on a ``plan_begin`` handle; the (1, horizon, 7) trajectory ``plan`` returns."""
         trajs, best = handle
-        return trajs.cpu().numpy()[int(best)][None]
+        with profiling.span("plan.fetch"):
+            return trajs.cpu().numpy()[int(best)][None]
 
     @staticmethod
     def post_process_control_interact(throttle_res, steer_res, brake_res):

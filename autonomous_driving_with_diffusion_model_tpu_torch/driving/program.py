@@ -32,6 +32,18 @@ with no Python between its ~10,000 launches:
 * capture runs in the ``thread_local`` capture mode, so a pipelined agent's
   worker thread can capture while the main thread works on.
 
+Tracing (``utils/profiling.py``). A call records the host spans
+``plan.weights_key`` (the walk of :func:`weights_key`), ``plan.inputs`` (the
+key, the buffers, the copies into them, the frame's pageable copy among
+them), ``plan.build`` on a miss, ``plan.replay`` (the replay's launch; on
+the CPU the body) and ``plan.outputs`` (the clones), children of the
+planner's ``plan`` span. The graph carries the device spans that the body
+marks (``DiffusionPlanner._plan``: ``plan.encode``, ``plan.denoise``,
+``plan.score``; at most :data:`MARKERS` markers), each replay's written on
+the device and read only by ``profiling.report()``. A build counts
+``captures.plan`` and its seconds (the warm run and the capture), a new
+weights generation ``weights_generations.plan``.
+
 The kernels' launch counts (``ops/kernels.py``) are host counters that the
 wrappers add to where they launch, which a replay does not call. The warm
 run and the capture are the program's build: the counts are set back to
@@ -53,8 +65,11 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..ops import kernels
+from ..utils import profiling
 
-__all__ = ["PlanProgram", "weights_key"]
+__all__ = ["PlanProgram", "weights_key", "describe", "MARKERS"]
+
+MARKERS = 6  # device-span markers a plan graph may hold
 
 
 def weights_key(modules) -> Tuple:
@@ -67,11 +82,13 @@ def weights_key(modules) -> Tuple:
 class _Program:
     """One key's input buffers, and on the card its graph, the graph's
     outputs, the launches it captured and the seconds of its warm run and
-    of its capture (host clock, each ending in a synchronize)."""
+    of its capture (host clock, each ending in a synchronize), and the
+    graph's device spans."""
 
     def __init__(self, inputs: List[Optional[torch.Tensor]]):
         self.inputs = inputs
         self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.spans: Optional[profiling.GraphSpans] = None
         self.outputs: Tuple[torch.Tensor, ...] = ()
         self.launches: Dict[str, int] = {}
         self.warm_s = self.capture_s = 0.0
@@ -97,30 +114,39 @@ class PlanProgram:
     def __call__(self, body: Callable, init: torch.Tensor, frame: torch.Tensor, target: torch.Tensor,
                  noise: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
         with self._lock:
-            weights = weights_key(self.modules)
-            if weights != self._weights:
-                self.programs.clear()  # their graphs hold the old weights' packs
-                self._weights, self._generation = weights, self._generation + 1
-            self.key = key = (tuple(frame.shape), int(init.shape[0]),
-                              None if noise is None else tuple(noise.shape), self.dtype, self._generation)
-            prog = self.programs.get(key)
-            new = prog is None
-            if new:
-                prog = _Program([
-                    torch.empty(a.shape, dtype=dt, device=self.device) if a is not None else None
-                    for a, dt in ((init, torch.float32), (frame, torch.uint8), (target, torch.float32),
-                                  (noise, torch.float32))])
-            for buf, src in zip(prog.inputs, (init, frame, target, noise)):
-                if buf is not None:
-                    buf.copy_(src)
+            with profiling.span("plan.weights_key"):
+                weights = weights_key(self.modules)
+                if weights != self._weights:
+                    self.programs.clear()  # their graphs hold the old weights' packs
+                    self._weights, self._generation = weights, self._generation + 1
+                    profiling.count("weights_generations.plan")
+            with profiling.span("plan.inputs"):
+                self.key = key = (tuple(frame.shape), int(init.shape[0]),
+                                  None if noise is None else tuple(noise.shape), self.dtype, self._generation)
+                prog = self.programs.get(key)
+                new = prog is None
+                if new:
+                    prog = _Program([
+                        torch.empty(a.shape, dtype=dt, device=self.device) if a is not None else None
+                        for a, dt in ((init, torch.float32), (frame, torch.uint8), (target, torch.float32),
+                                      (noise, torch.float32))])
+                for buf, src in zip(prog.inputs, (init, frame, target, noise)):
+                    if buf is not None:
+                        buf.copy_(src)
             if new and self.device.type == "cuda":
-                self._build(prog, body, key)  # raises if the capture fails
+                with profiling.span("plan.build"):
+                    self._build(prog, body, key)  # raises if the capture fails
             self.programs[key] = prog
-            if prog.graph is None:  # the CPU: the body on the buffers
-                return tuple(o.clone() for o in body(*prog.inputs))
-            prog.graph.replay()
-            kernels.add_launch_counts(prog.launches)
-            return tuple(o.clone() for o in prog.outputs)
+            with profiling.span("plan.replay"):
+                if prog.graph is None:  # the CPU: the body on the buffers
+                    outputs = body(*prog.inputs)
+                else:
+                    prog.graph.replay()
+                    kernels.add_launch_counts(prog.launches)
+                    prog.spans.replayed()
+                    outputs = prog.outputs
+            with profiling.span("plan.outputs"):
+                return tuple(o.clone() for o in outputs)
 
     def _build(self, prog: _Program, body: Callable, key: Tuple) -> None:
         """Warm the body on a side stream, then capture it into ``prog``;
@@ -139,22 +165,26 @@ class PlanProgram:
             torch.cuda.synchronize(self.device)
             t1 = time.perf_counter()
             graph = torch.cuda.CUDAGraph()
+            spans = profiling.GraphSpans("plan", self.device, MARKERS)
             try:
-                with torch.cuda.graph(graph, stream=self._stream, capture_error_mode="thread_local"):
+                with profiling.capture(spans), torch.cuda.graph(graph, stream=self._stream,
+                                                                capture_error_mode="thread_local"):
                     outputs = body(*prog.inputs)
+                spans.close()
             except RuntimeError as e:
-                raise RuntimeError(f"capturing the plan as a CUDA graph failed for {_describe(key)}: {e}") from e
+                raise RuntimeError(f"capturing the plan as a CUDA graph failed for {describe(key)}: {e}") from e
             captured = kernels.launch_counts()
         finally:
             now = kernels.launch_counts()
             kernels.add_launch_counts({k: before[k] - now[k] for k in before})
-        prog.graph, prog.outputs = graph, tuple(outputs)
+        prog.graph, prog.outputs, prog.spans = graph, tuple(outputs), spans
         prog.launches = {k: captured[k] - warm[k] for k in warm}
         torch.cuda.synchronize(self.device)
         prog.warm_s, prog.capture_s = t1 - t0, time.perf_counter() - t1
+        profiling.count("captures.plan", 1, prog.warm_s + prog.capture_s)
 
 
-def _describe(key: Tuple) -> str:
+def describe(key: Tuple) -> str:
     """A program's key in words."""
     frame, k, noise, dtype, generation = key
     return (f"the key (frame {frame}, K {k}, step noise {noise}, {str(dtype).replace('torch.', '')}, "

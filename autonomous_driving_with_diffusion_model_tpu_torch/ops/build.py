@@ -24,7 +24,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-SOURCES = ("conv_gn_mish.cu", "conv1d_gn_mish.cu")
+SOURCES = ("conv_gn_mish.cu", "conv1d_gn_mish.cu", "span_stamp.cu")
 
 _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 # argtypes of every C entry point, by library
@@ -49,6 +49,10 @@ SIGNATURES = {
             _I, _I, _I, _I, _I,  # S, copy width, stage channels, threads, shared-memory bytes
             _P, _P,  # phase stamps (or null), stream
         ],
+    },
+    "span_stamp.cu": {
+        # ring, counter, slots, stride, marker index, last, kernel nodes out (or null), stream
+        "adm_span_mark": [_P, _P, _I, _I, _I, _I, _P, _P],
     },
 }
 

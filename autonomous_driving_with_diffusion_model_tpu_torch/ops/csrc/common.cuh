@@ -1,5 +1,5 @@
 // Pieces shared by the port's CUDA sources: dtype codes, limits, element
-// conversion, Mish and the phase stamps.
+// conversion, Mish, the device's ns timer and the phase stamps.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -27,6 +27,14 @@ __device__ __forceinline__ float mish(float x) {
   return x * tanhf(sp);
 }
 
+// The device's ns timer (%globaltimer), the clock of the phase stamps and of
+// the device spans (span_stamp.cu).
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long ns;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+  return ns;
+}
+
 // Phase stamps, off when `stamps` is null (every normal launch): thread 0 of
 // CTA i (the CTA's linear index in its grid) writes %globaltimer (ns) and
 // clock64() (SM cycles) of phase p to stamps[(i * NPHASE + p) * 2 + {0, 1}].
@@ -34,8 +42,7 @@ __device__ __forceinline__ float mish(float x) {
 // done and stored (ops/kernels.py:PHASES).
 __device__ __forceinline__ void stamp(unsigned long long* stamps, int phase) {
   if (stamps != nullptr && threadIdx.x == 0) {
-    unsigned long long ns;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+    const unsigned long long ns = globaltimer();
     const size_t cta = blockIdx.x + (size_t)gridDim.x * (blockIdx.y + (size_t)gridDim.y * blockIdx.z);
     unsigned long long* s = stamps + (cta * NPHASE + phase) * 2;
     s[0] = ns;

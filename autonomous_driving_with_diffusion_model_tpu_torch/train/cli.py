@@ -55,7 +55,8 @@ def parse_args(argv=None):
     parser.add_argument("--generate-only", default=False, action="store_true")
     parser.add_argument("--max-iter", default=None, type=int, help="override TRAIN.MAX_ITER")
     parser.add_argument("--profile-dir", default=None, type=str,
-                        help="write a torch.profiler trace of iterations 10-15 into this dir")
+                        help="write a torch.profiler trace of iterations 10-15 into this dir; "
+                             "it carries the program's spans (step, augment and their parts)")
     parser.add_argument("--device", default=None, type=str,
                         help="torch device to train on (default: the card)")
     parser.add_argument("--opts", nargs=argparse.REMAINDER, default=None, type=str)

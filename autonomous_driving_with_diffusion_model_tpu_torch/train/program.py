@@ -44,6 +44,17 @@ decay written into its device scalar, the counts and the next LR afterwards,
   launches as they happen; the capture's are taken back out and added on
   every replay, so a step counts its launches once however it ran.
 
+Tracing (``utils/profiling.py``): a train step is the host span ``step``,
+whose request is the state's step count, with the children ``step.draws``
+(the dropout uniforms before a replay), ``step.state_key`` (the walks of
+what the step writes), ``step.replay`` (the replay's launch; on the CPU the
+body) and ``step.build`` on a miss. Its graph carries the device spans the
+body marks (``TrainStep.body``: ``step.forward``, ``step.backward``,
+``step.optimizer``; 2G + 2 markers of the 2G + 4 a graph may hold), read
+only by ``profiling.report()``. A capture counts ``captures.step`` and the
+seconds of its eager step and its capture. The distill program and
+:func:`replay_steps` record none of these.
+
 :func:`replay_steps` runs a step of no inputs (the scorer's full-batch
 AdamW step) ``steps`` times as one eager step, one capture and ``steps - 1``
 replays.
@@ -62,6 +73,7 @@ import torch
 
 from ..models.blocks import DropoutDraws
 from ..ops import kernels
+from ..utils import profiling
 from .state import StepDraws, TrainState, TrainStep
 
 __all__ = ["TrainProgram", "DistillProgram", "replay_steps", "DDP_WARM_STEPS"]
@@ -91,6 +103,7 @@ class _Captured:
         self.loss: Optional[torch.Tensor] = None
         self.uniforms: List[torch.Tensor] = []
         self.launches: Dict[str, int] = {}
+        self.spans: Optional[profiling.GraphSpans] = None
         self.warm_steps = self.warm_left = warm_steps
         self.keep: list = []
         self.warm_s = self.capture_s = 0.0
@@ -105,17 +118,21 @@ def _buffers(srcs: Dict[str, torch.Tensor], device) -> Dict[str, torch.Tensor]:
     return {name: torch.empty(src.shape, dtype=src.dtype, device=device) for name, src in srcs.items()}
 
 
-def _capture(body: Callable[[], torch.Tensor], device, stream, what: str):
+def _capture(body: Callable[[], torch.Tensor], device, stream, what: str,
+             spans: Optional[profiling.GraphSpans] = None):
     """(graph, its output, the launches it recorded, seconds): ``body``
-    captured on ``stream``; the launch counts end as they began. Raises
-    ``RuntimeError`` naming ``what`` if the capture fails."""
+    captured on ``stream``, its device-span markers into ``spans``; the
+    launch counts end as they began. Raises ``RuntimeError`` naming
+    ``what`` if the capture fails."""
     torch.cuda.synchronize(device)
     t0 = time.perf_counter()
     before = kernels.launch_counts()
     graph = torch.cuda.CUDAGraph()
     try:
-        with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+        with profiling.capture(spans), torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
             out = body()
+        if spans is not None:
+            spans.close()
     except RuntimeError as e:
         raise RuntimeError(f"capturing {what} as a CUDA graph failed: {e}") from e
     finally:
@@ -169,19 +186,24 @@ class _StepProgram:
         prog = self.programs.get(self.key)
         return prog if prog is not None and prog.graph is not None else None
 
-    def _capture_into(self, prog: _Captured, body: Callable[[], torch.Tensor], what: str) -> None:
-        """Capture ``body`` into ``prog``; a failed capture drops the key
-        and raises."""
+    def _capture_into(self, prog: _Captured, body: Callable[[], torch.Tensor], what: str,
+                      spans: Optional[profiling.GraphSpans] = None) -> None:
+        """Capture ``body`` into ``prog``, its markers into ``spans``; a
+        failed capture drops the key and raises."""
         try:
-            prog.graph, prog.loss, prog.launches, prog.capture_s = _capture(body, self.device, self._stream, what)
+            prog.graph, prog.loss, prog.launches, prog.capture_s = _capture(body, self.device, self._stream, what,
+                                                                            spans)
         except RuntimeError:
             del self.programs[self.key]
             raise
+        prog.spans = spans
 
     def _replay(self, prog: _Captured, writes: List[torch.Tensor]) -> torch.Tensor:
         """Replay ``prog``'s graph, which writes ``writes`` in place."""
         prog.graph.replay()
         kernels.add_launch_counts(prog.launches)
+        if prog.spans is not None:
+            prog.spans.replayed()
         torch.autograd.graph.increment_version(writes)
         return prog.loss.clone()
 
@@ -209,6 +231,11 @@ class TrainProgram(_StepProgram):
 
     def __call__(self, state: TrainState, batch: Dict[str, torch.Tensor], draws: Optional[StepDraws] = None,
                  generator: Optional[torch.Generator] = None) -> dict:
+        with profiling.span("step", request=state.step):
+            return self._step(state, batch, draws, generator)
+
+    def _step(self, state: TrainState, batch: Dict[str, torch.Tensor], draws: Optional[StepDraws],
+              generator: Optional[torch.Generator]) -> dict:
         step = self.step
         draws = step.local_draws(state, batch["trajs"].shape[0], draws, generator)
         inputs = {**{f"batch.{k}": v for k, v in sorted(batch.items())},
@@ -217,37 +244,53 @@ class TrainProgram(_StepProgram):
             tuple((k, tuple(v.shape), v.dtype) for k, v in inputs.items()), step.groups,
             state.model.compute_dtype, step.bn_mode, step.remat, step.use_cond.name, state.world, generation)
         ddp_nccl = state.ddp is not None and self.device.type == "cuda"
-        prog, build = self._program(self.state_key(state), key_of, inputs, DDP_WARM_STEPS if ddp_nccl else 1)
+        with profiling.span("step.state_key"):
+            state_key = self.state_key(state)
+        prog, build = self._program(state_key, key_of, inputs, DDP_WARM_STEPS if ddp_nccl else 1)
         bufs = prog.inputs
         batch_b = {k[len("batch."):]: v for k, v in bufs.items() if k.startswith("batch.")}
         if prog.graph is not None:
-            gen = _generator(draws.dropout, self.device)
-            for u in prog.uniforms:  # after t, noise and keep, as the eager step draws them
-                u.copy_(torch.rand(u.shape, generator=gen, device=gen.device))
+            with profiling.span("step.draws"):
+                gen = _generator(draws.dropout, self.device)
+                for u in prog.uniforms:  # after t, noise and keep, as the eager step draws them
+                    u.copy_(torch.rand(u.shape, generator=gen, device=gen.device))
             lr, decay = step.begin(state)
-            loss = self._replay(prog, self.writes(state))
+            with profiling.span("step.replay"):
+                loss = self._replay(prog, self.writes(state))
             step.end(state)
         elif not build:  # the CPU: the step on the buffers
             lr, decay = step.begin(state)
-            loss = step.body(state, batch_b, StepDraws(bufs["t"], bufs["noise"], bufs["keep"], draws.dropout))
+            with profiling.span("step.replay"):
+                loss = step.body(state, batch_b, StepDraws(bufs["t"], bufs["noise"], bufs["keep"], draws.dropout))
             step.end(state)
         else:
-            recorder = DropoutDraws(_generator(draws.dropout, self.device))
-
-            def run():
-                lr, decay = step.begin(state)
-                loss = step.body(state, batch_b, StepDraws(bufs["t"], bufs["noise"], bufs["keep"], recorder))
-                step.end(state)
-                return lr, decay, loss
-
-            lr, decay, loss = self._eager(prog, run)
-            if prog.warm_left <= 0:
-                prog.uniforms = [torch.empty_like(u) for u in recorder.draws]
-                body = lambda: step.body(state, batch_b, StepDraws(bufs["t"], bufs["noise"], bufs["keep"],
-                                                                   DropoutDraws(draws=prog.uniforms)))
-                self._capture_into(prog, body, f"the train step for {_describe(self.key)}")
-        self._state = self.state_key(state)
+            with profiling.span("step.build"):
+                lr, decay, loss = self._build(prog, state, batch_b, draws)
+        with profiling.span("step.state_key"):
+            self._state = self.state_key(state)
         return {"loss": loss, "lr": lr, "ema_decay": decay}
+
+    def _build(self, prog: _Captured, state: TrainState, batch_b: Dict[str, torch.Tensor], draws: StepDraws):
+        """An eager step on the side stream; after the key's last one, the
+        capture. Returns (lr, decay, loss) of the eager step."""
+        step, bufs = self.step, prog.inputs
+        recorder = DropoutDraws(_generator(draws.dropout, self.device))
+
+        def run():
+            lr, decay = step.begin(state)
+            loss = step.body(state, batch_b, StepDraws(bufs["t"], bufs["noise"], bufs["keep"], recorder))
+            step.end(state)
+            return lr, decay, loss
+
+        lr, decay, loss = self._eager(prog, run)
+        if prog.warm_left <= 0:
+            prog.uniforms = [torch.empty_like(u) for u in recorder.draws]
+            body = lambda: step.body(state, batch_b, StepDraws(bufs["t"], bufs["noise"], bufs["keep"],
+                                                               DropoutDraws(draws=prog.uniforms)))
+            spans = profiling.GraphSpans("step", self.device, 2 * step.groups + 4)
+            self._capture_into(prog, body, f"the train step for {_describe(self.key)}", spans)
+            profiling.count("captures.step", 1, prog.warm_s + prog.capture_s)
+        return lr, decay, loss
 
 
 class DistillProgram(_StepProgram):

@@ -51,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..diffusion.schedule import DiffusionSchedule, add_noise
 from ..models.temporal_unet import BN_MODES, TemporalMapUnet
+from ..utils import profiling
 from ..utils.constants import ANCHOR_DIMS, GuidanceType
 from .ema import EmaConfig, EmaState, ema_apply, ema_begin, ema_end, ema_init
 
@@ -364,7 +365,11 @@ class TrainStep:
     def body(self, state: TrainState, batch: Dict[str, torch.Tensor], draws: StepDraws) -> torch.Tensor:
         """The update on the device, from the rank's ``draws``: forward,
         backward, the scrub, AdamW at the LR scalar, the EMA at its scalar.
-        Returns the loss; syncs nothing."""
+        Returns the loss; syncs nothing. Captured, it marks the device spans
+        ``step.forward`` and ``step.backward`` (each micro-batch's) and
+        ``step.optimizer`` (the gradients' averaging, the scrub, AdamW and
+        the EMA): 2G + 2 markers (``utils/profiling.py``)."""
+        profiling.mark("step.forward")
         model = state.model
         B = batch["trajs"].shape[0]
         dev = model.device
@@ -378,6 +383,8 @@ class TrainStep:
         mb = B // groups
         loss = torch.zeros((), dtype=torch.float32, device=dev)
         for i in range(groups):
+            if i:
+                profiling.mark("step.forward")
             rows = slice(i * mb, (i + 1) * mb)
             # DDP averages the gradients once, in the last micro-batch's backward
             sync = state.ddp.no_sync() if state.ddp is not None and i < groups - 1 else nullcontext()
@@ -385,11 +392,13 @@ class TrainStep:
                 loss_i = self.micro_loss(forward, batch["image"][rows], batch["trajs"][rows],
                                          batch["target"][rows], t[rows], noise[rows], keep.reshape(-1)[i],
                                          draws.dropout)
+                profiling.mark("step.backward")
                 moved = [b.clone() for b in _bn_buffers(model)] if self.remat else []
                 loss_i.backward()
             for b, saved in zip(_bn_buffers(model) if self.remat else (), moved):
                 b.copy_(saved)  # the recompute moved them a second time
             loss = loss + loss_i.detach()
+        profiling.mark("step.optimizer")
         grads = []
         for p in params:
             if p.grad is None:  # as JAX's zero gradient: the weight still decays
@@ -404,6 +413,7 @@ class TrainStep:
         _nan_scrub_(grads)
         state.optimizer.step()
         ema_apply(state.ema, params)
+        profiling.mark_end()
         return loss
 
 
