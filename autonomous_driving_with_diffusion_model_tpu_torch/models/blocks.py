@@ -59,23 +59,27 @@ __all__ = [
 ]
 
 
-def _packed(module: nn.Module, dtype: torch.dtype, build: Callable[[], Tuple]) -> Tuple:
-    """``build()`` (kernel-layout copies of ``module``'s parameters) cast to
-    the compute dtype ``dtype``, cached per dtype until a parameter changes
-    storage, type, device or version. When autograd records and a parameter
-    needs a gradient, the copies are made on every call, in the graph."""
+def _packed(module: nn.Module, dtype: torch.dtype, build: Callable[[], Tuple]) -> Tuple[Tuple, bool]:
+    """``(pack, cached)``: ``build()`` (kernel-layout copies of ``module``'s
+    parameters) cast to the compute dtype ``dtype``, cached per dtype until a
+    parameter changes storage, type, device or version; ``cached`` is True
+    when the pack was made before this call (a pack made now was written by
+    the kernels right before the block's own). When autograd records and a
+    parameter needs a gradient, the copies are made on every call, in the
+    graph."""
     pack = lambda: tuple(None if a is None else a.to(dtype).contiguous() for a in build())
     params = list(module.parameters())
     if torch.is_grad_enabled() and any(p.requires_grad for p in params):
-        return pack()
+        return pack(), False
     key = tuple((p.data_ptr(), p._version, p.dtype, p.device) for p in params)
     caches = module.__dict__.setdefault("_kernel_params", {})
     cache = caches.get(dtype)
-    if cache is None or cache[0] != key:
+    cached = cache is not None and cache[0] == key
+    if not cached:
         with torch.no_grad():
             cache = (key, pack())
         caches[dtype] = cache
-    return cache[1]
+    return cache[1], cached
 
 
 def _kio(w: torch.Tensor) -> torch.Tensor:
@@ -103,7 +107,7 @@ class Conv1dBlock(nn.Module):
         return _packed(
             self, dtype,
             lambda: (_kio(conv.weight), conv.bias, norm.weight, norm.bias),
-        )
+        )[0]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w, b, g, be = self.kernel_params(x.dtype)
@@ -135,10 +139,11 @@ class ResidualTemporalMapBlock(nn.Module):
         )
 
     def kernel_params(self, dtype: torch.dtype = torch.float32) -> Tuple:
-        return _packed(self, dtype, self._build)
+        return _packed(self, dtype, self._build)[0]
 
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        return fused_residual_block(x.contiguous(), t.contiguous(), *self.kernel_params(x.dtype))
+        params, cached = _packed(self, x.dtype, self._build)
+        return fused_residual_block(x.contiguous(), t.contiguous(), *params, weights_cached=cached)
 
 
 class Downsample1d(nn.Module):

@@ -36,7 +36,14 @@ SIGNATURES = {
             _P, _I, _P, _P,  # epilogue input, Ce, its weight, its bias
             _P, _I, _I, _I,  # out, x_dtype, p_dtype, out_dtype
             _I, _I, _I,  # cluster size, threads, shared-memory bytes
+            _I, _I,  # one-wave path, programmatic dependent launch
             _P, _P,  # phase stamps (or null), stream
+        ],
+        "adm_conv_gn_mish_clusters": [
+            _I, _I, _I, _I, _I, _I, _I, _I,  # B, L, Cin, C, K, groups, epi, Ce
+            _I, _I, _I,  # x_dtype, p_dtype, out_dtype
+            _I, _I, _I, _I, _I,  # cluster size, threads, shared-memory bytes, one-wave, stamped
+            _P,  # out: the clusters the card holds at once
         ],
         # CTAs, threads, cluster size (0: no cluster), shared-memory bytes, stream
         "adm_empty_launch": [_I, _I, _I, _I, _P],

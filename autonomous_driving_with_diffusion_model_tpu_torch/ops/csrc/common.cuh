@@ -40,13 +40,22 @@ __device__ __forceinline__ unsigned long long globaltimer() {
 // clock64() (SM cycles) of phase p to stamps[(i * NPHASE + p) * 2 + {0, 1}].
 // The phases are entry, loads landed, outputs in shared memory, statistics
 // done and stored (ops/kernels.py:PHASES).
-__device__ __forceinline__ void stamp(unsigned long long* stamps, int phase) {
+// stamp_at writes a pair read earlier: a kernel that may not write device
+// memory yet keeps its entry stamp in registers until it may.
+__device__ __forceinline__ void stamp_at(unsigned long long* stamps, int phase,
+                                         unsigned long long ns, unsigned long long cycles) {
   if (stamps != nullptr && threadIdx.x == 0) {
-    const unsigned long long ns = globaltimer();
     const size_t cta = blockIdx.x + (size_t)gridDim.x * (blockIdx.y + (size_t)gridDim.y * blockIdx.z);
     unsigned long long* s = stamps + (cta * NPHASE + phase) * 2;
     s[0] = ns;
-    s[1] = (unsigned long long)clock64();
+    s[1] = cycles;
+  }
+}
+
+__device__ __forceinline__ void stamp(unsigned long long* stamps, int phase) {
+  if (stamps != nullptr && threadIdx.x == 0) {
+    const unsigned long long ns = globaltimer();
+    stamp_at(stamps, phase, ns, (unsigned long long)clock64());
   }
 }
 

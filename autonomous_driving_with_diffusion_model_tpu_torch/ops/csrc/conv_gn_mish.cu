@@ -50,6 +50,27 @@
 // their indices instead of dividing. With cs = 1 a CTA takes no cluster
 // barrier and this is the port's first design, one CTA per group.
 //
+// The one-wave path (ONE_WAVE; ops/kernels.py:launch_path picks it when all
+// B x groups clusters are co-resident and the slice fits). At batch 1-2 a
+// launch is a chain of latencies, and none of its weights depend on the
+// launch before it. So each CTA first issues 16-byte cp.async copies of its
+// whole weight slice into shared memory (its rank's K x nc conv rows and nce
+// epilogue rows, cg values each) and loads its group's bias, gamma, beta and
+// epilogue bias into registers; then it waits on its predecessor
+// (griddepcontrol.wait) and only then stages x, t and xres and writes
+// anything to device memory; the dot products then read the weights from
+// shared memory in the order split_dot reads them, and the later sums keep
+// their order too (the peers' values are read before the first add), so at
+// the same S the result is the other path's, bit for bit. A one-wave CTA
+// holds at most ops/kernels.py:ONE_WAVE_THREADS threads, so that two share an
+// SM and a launch's successor fits beside it; a smaller S sums in another
+// order. Launched with programmatic dependent launch (`pdl`: the weights were
+// not written just before), the launch and that fetch overlap the tail of
+// the launch before; each CTA triggers its own dependents
+// (griddepcontrol.launch_dependents) after its dot phase, so when a
+// successor starts, every kernel before this one has completed. Without the
+// attribute the wait and the trigger do nothing.
+//
 // Plain C interface for ctypes; the launch goes on the caller's stream and
 // the function returns the launch's CUDA error, or -1 for an unsupported
 // dtype mix and -2 for a shape or geometry the kernel does not take.
@@ -84,10 +105,19 @@ __host__ __device__ __forceinline__ int slice_begin(int n, int parts, int r) {
 }
 
 // Offsets, in floats, of a CTA's shared-memory buffers, and their total
-// (ops/kernels.py:launch_geometry computes the same total).
+// (ops/kernels.py:launch_geometry computes the same total). The one-wave
+// path's weight slice follows, from a 16-byte boundary (slice_bytes).
 struct Layout {
   int red, sp, sy, sye, yc, sres, sx, se, part, parte, total;
 };
+
+// Bytes of the one-wave path's weight slice: K x ceil(Cin / cs) conv rows and
+// ceil(Ce / cs) epilogue rows of cg values (ops/kernels.py:one_wave_geometry).
+__host__ __device__ inline int slice_bytes(int Cin, int cg, int K, int cs, int epi, int Ce,
+                                           int p_bytes) {
+  const bool has_e = epi == EPI_TBIAS || epi == EPI_RES_CONV;
+  return (K * ((Cin + cs - 1) / cs) + (has_e ? (Ce + cs - 1) / cs : 0)) * cg * p_bytes;
+}
 
 __host__ __device__ inline Layout layout(int L, int Cin, int cg, int K, int S, int cs, int epi,
                                          int Ce) {
@@ -165,12 +195,84 @@ __device__ __forceinline__ void split_dot(float (&acc)[LMAX], const float* rows,
   }
 }
 
+// split_dot with the weights in shared memory: row j of the slice, cg values
+// from wc (the thread's channel), in split_dot's order of j and of the sums.
+template <int LMAX, int U, typename TP>
+__device__ __forceinline__ void split_dot_smem(float (&acc)[LMAX], const float* rows, int stride,
+                                               int rows_n, int nj, const TP* wc, int cg, int s,
+                                               int S) {
+  const TP* wp = wc + s * cg;
+  const int step = S * cg;
+  for (int j0 = s; j0 < nj; j0 += U * S) {
+    float wv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      wv[u] = j0 + u * S < nj ? to_f(*wp) : 0.f;
+      wp += step;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int j = j0 + u * S;
+      if (j < nj) {
+#pragma unroll
+        for (int l = 0; l < LMAX; ++l)
+          if (l < rows_n) acc[l] = fmaf(rows[l * stride + j], wv[u], acc[l]);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// Rows of `bytes` each (a multiple of 16) from src, `pitch` bytes apart, into
+// dst back to back, as 16-byte cp.async copies spread over the CTA. Row i is
+// (k, ci) = (i / nc, i % nc), its source k * kpitch + ci * pitch.
+__device__ __forceinline__ void copy_rows(char* dst, const char* src, int rows, int nc,
+                                          int64_t kpitch, int64_t pitch, int bytes) {
+  const int pieces = bytes / 16;
+  for (int q = threadIdx.x; q < rows * pieces; q += blockDim.x) {
+    const int i = q / pieces, piece = q - i * pieces;
+    const int k = i / nc, ci = i - k * nc;
+    cp_async16(dst + (int64_t)i * bytes + piece * 16, src + k * kpitch + ci * pitch + piece * 16);
+  }
+}
+
+// Programmatic dependent launch (sm_90): wait until every grid this one
+// depends on has completed and its writes are visible; let the dependent
+// grid launch. Both do nothing in a launch without the attribute.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// v + at(0) + at(1) + ... + at(cs - 1), in that order, with every rank's
+// value read before the first add: the reads from peers' shared memory are
+// in flight together rather than one after the other.
+template <typename At>
+__device__ __forceinline__ float rank_sum(float v, At at, int cs) {
+  float t[MAX_CLUSTER];
+#pragma unroll
+  for (int q = 0; q < MAX_CLUSTER; ++q) t[q] = q < cs ? at(q) : 0.f;
+#pragma unroll
+  for (int q = 0; q < MAX_CLUSTER; ++q)
+    if (q < cs) v += t[q];
+  return v;
+}
+
 // TX: conv input; TP: weights, biases and the epilogue input; TO: output.
 // ein/ew/eb: the epilogue's input, weight and bias: t (B, Ce), tw, tb for
 // EPI_TBIAS; xres (B, L, Ce), wres, bres for EPI_RES_CONV; xres (B, L, C)
 // alone for EPI_RES_ID. Launched in clusters of cs along x. STAMP: record
-// the phase stamps; a normal launch compiles without them.
-template <int LMAX, bool STAMP, typename TX, typename TP, typename TO>
+// the phase stamps; a normal launch compiles without them. ONE_WAVE: the
+// one-wave path (see the header).
+template <int LMAX, bool STAMP, typename TX, typename TP, typename TO, bool ONE_WAVE = false>
 __global__ void __launch_bounds__(MAX_THREADS)
     conv_gn_mish_kernel(const TX* __restrict__ x, const TP* __restrict__ w,
                         const TP* __restrict__ bias, const TP* __restrict__ gamma,
@@ -178,7 +280,15 @@ __global__ void __launch_bounds__(MAX_THREADS)
                         int S, float eps, int epi, const TP* __restrict__ ein, int Ce,
                         const TP* __restrict__ ew, const TP* __restrict__ eb,
                         TO* __restrict__ out, unsigned long long* __restrict__ stamps) {
-  if constexpr (STAMP) stamp(stamps, 0);
+  // the one-wave path writes nothing to device memory before its wait, so
+  // its entry stamp waits in registers
+  unsigned long long entry_ns = 0, entry_cycles = 0;
+  if constexpr (STAMP && ONE_WAVE) {
+    entry_ns = globaltimer();
+    entry_cycles = (unsigned long long)clock64();
+  } else if constexpr (STAMP) {
+    stamp(stamps, 0);
+  }
   constexpr int U = LMAX <= 4 ? 8 : 4;  // weight loads in flight per thread
   extern __shared__ float smem[];
   coop::cluster_group cluster = coop::this_cluster();
@@ -216,6 +326,33 @@ __global__ void __launch_bounds__(MAX_THREADS)
   // a cluster of one needs no cluster barrier and no distributed addresses
   auto peer = [&](float* p, int q) { return q == r ? p : cluster.map_shared_rank(p, q); };
 
+  // the one-wave path's weight slice: rows j = k * nc + ci of the conv, then
+  // the nce epilogue rows, cg values each, issued before the wait
+  TP* ws = nullptr;
+  TP* wse = nullptr;
+  float pv[4] = {0.f, 0.f, 0.f, 0.f};  // this thread's bias, gamma, beta, epilogue bias
+  if constexpr (ONE_WAVE) {
+    ws = reinterpret_cast<TP*>(smem + (lay.total + 3) / 4 * 4);
+    wse = ws + K * nc * cg;
+    const int64_t pitch = (int64_t)C * sizeof(TP);
+    const int row = cg * (int)sizeof(TP);
+    copy_rows(reinterpret_cast<char*>(ws), reinterpret_cast<const char*>(w + (int64_t)c0 * C + g * cg),
+              K * nc, nc, Cin * pitch, pitch, row);
+    if (has_e)
+      copy_rows(reinterpret_cast<char*>(wse),
+                reinterpret_cast<const char*>(ew + (int64_t)e0 * C + g * cg), nce, nce, 0, pitch, row);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    if (tid < cg) {
+      const int c = g * cg + tid;
+      pv[0] = load(bias, c);
+      pv[1] = load(gamma, c);
+      pv[2] = load(beta, c);
+      pv[3] = has_e ? load(eb, c) : 0.f;
+    }
+    grid_dependency_wait();
+    if constexpr (STAMP) stamp_at(stamps, 0, entry_ns, entry_cycles);
+  }
+
   const TX* xb = x + (int64_t)b * L * Cin + c0;
   for (int i = tid; i < Lp * nc; i += nt) {
     const int l = i / nc - pad;
@@ -227,16 +364,22 @@ __global__ void __launch_bounds__(MAX_THREADS)
     for (int i = tid; i < L * nce; i += nt)
       se[i] = load(ein, ((int64_t)b * L + i / nce) * Ce + e0 + i % nce);
   // the epilogue's operands, loaded now so that no later step waits on memory
-  for (int i = tid; i < cg; i += nt) {
-    const int c = g * cg + i;
-    sp[i] = load(bias, c);
-    sp[cg + i] = load(gamma, c);
-    sp[2 * cg + i] = load(beta, c);
-    sp[3 * cg + i] = has_e ? load(eb, c) : 0.f;
+  if constexpr (ONE_WAVE) {
+    if (tid < cg)
+      for (int p = 0; p < 4; ++p) sp[p * cg + tid] = pv[p];
+  } else {
+    for (int i = tid; i < cg; i += nt) {
+      const int c = g * cg + i;
+      sp[i] = load(bias, c);
+      sp[cg + i] = load(gamma, c);
+      sp[2 * cg + i] = load(beta, c);
+      sp[3 * cg + i] = has_e ? load(eb, c) : 0.f;
+    }
   }
   if (epi == EPI_RES_ID)
     for (int o = o0 + tid; o < o1; o += nt)
       sres[o - o0] = load(ein, ((int64_t)b * L + o / cg) * C + g * cg + o % cg);
+  if constexpr (ONE_WAVE) asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
   if constexpr (STAMP) stamp(stamps, 1);
 
@@ -247,33 +390,53 @@ __global__ void __launch_bounds__(MAX_THREADS)
     float acc[LMAX];
 #pragma unroll
     for (int l = 0; l < LMAX; ++l) acc[l] = 0.f;
-    split_dot<LMAX, U>(acc, sx, nc, L, K * nc, w + (int64_t)c0 * C + c, Cin - nc, C, s, S);
+    if constexpr (ONE_WAVE)
+      split_dot_smem<LMAX, U>(acc, sx, nc, L, K * nc, ws + cl, cg, s, S);
+    else
+      split_dot<LMAX, U>(acc, sx, nc, L, K * nc, w + (int64_t)c0 * C + c, Cin - nc, C, s, S);
 #pragma unroll
     for (int l = 0; l < LMAX; ++l)
       if (l < L) part[s * n + l * cg + cl] = acc[l];
     if (has_e) {
 #pragma unroll
       for (int l = 0; l < LMAX; ++l) acc[l] = 0.f;
-      split_dot<LMAX, U>(acc, se, nce, erows, nce, ew + (int64_t)e0 * C + c, 0, C, s, S);
+      if constexpr (ONE_WAVE)
+        split_dot_smem<LMAX, U>(acc, se, nce, erows, nce, wse + cl, cg, s, S);
+      else
+        split_dot<LMAX, U>(acc, se, nce, erows, nce, ew + (int64_t)e0 * C + c, 0, C, s, S);
 #pragma unroll
       for (int l = 0; l < LMAX; ++l)
         if (l < erows) parte[s * ne + l * cg + cl] = acc[l];
     }
   }
   __syncthreads();
+  // past its wait and its weights: a dependent launch may start
+  if constexpr (ONE_WAVE) launch_dependents();
 
-  // 1. the rank's share of every output, summed over its S threads
-  for (int o = tid; o < n; o += nt) {
-    float v = 0.f;
+  // 1. the rank's share of every output, summed over its S threads (the
+  // one-wave path gives the epilogue's outputs threads of their own)
+  if constexpr (ONE_WAVE) {
+    for (int o = tid; o < n + ne; o += nt) {
+      const float* p = o < n ? part + o : parte + (o - n);
+      const int stride = o < n ? n : ne;
+      float v = 0.f;
 #pragma unroll 8
-    for (int j = 0; j < S; ++j) v += part[j * n + o];
-    sy[o] = v;
-  }
-  for (int o = tid; o < ne; o += nt) {
-    float v = 0.f;
+      for (int j = 0; j < S; ++j) v += p[j * stride];
+      (o < n ? sy[o] : sye[o - n]) = v;
+    }
+  } else {
+    for (int o = tid; o < n; o += nt) {
+      float v = 0.f;
 #pragma unroll 8
-    for (int j = 0; j < S; ++j) v += parte[j * ne + o];
-    sye[o] = v;
+      for (int j = 0; j < S; ++j) v += part[j * n + o];
+      sy[o] = v;
+    }
+    for (int o = tid; o < ne; o += nt) {
+      float v = 0.f;
+#pragma unroll 8
+      for (int j = 0; j < S; ++j) v += parte[j * ne + o];
+      sye[o] = v;
+    }
   }
   if (cs > 1) cluster.sync(); else __syncthreads();
   if constexpr (STAMP) stamp(stamps, 2);
@@ -284,7 +447,10 @@ __global__ void __launch_bounds__(MAX_THREADS)
   float lsum = 0.f;
   for (int o = tid; o < n; o += nt) {
     float v = sp[o % cg];
-    for (int q = 0; q < cs; ++q) v += peer(sy, q)[o];
+    if constexpr (ONE_WAVE)
+      v = rank_sum(v, [&](int q) { return peer(sy, q)[o]; }, cs);
+    else
+      for (int q = 0; q < cs; ++q) v += peer(sy, q)[o];
     yc[o] = v;
     lsum += v;
   }
@@ -306,7 +472,10 @@ __global__ void __launch_bounds__(MAX_THREADS)
     if (has_e) {
       const int eo = (epi == EPI_TBIAS ? 0 : l) * cg + ol;
       float e = sp[3 * cg + ol];
-      for (int q = 0; q < cs; ++q) e += peer(sye, q)[eo];
+      if constexpr (ONE_WAVE)
+        e = rank_sum(e, [&](int q) { return peer(sye, q)[eo]; }, cs);
+      else
+        for (int q = 0; q < cs; ++q) e += peer(sye, q)[eo];
       y += e;
     } else if (epi == EPI_RES_ID) {
       y += sres[o - o0];
@@ -320,54 +489,63 @@ __global__ void __launch_bounds__(MAX_THREADS)
 
 __global__ void empty_kernel(int) {}
 
-// A launch of `kernel` on `ctas` CTAs in clusters of cs along x.
+// A launch of `kernel` on `ctas` CTAs in clusters of cs along x; with `pdl`,
+// a programmatic dependent launch. With `clusters` set, nothing is launched:
+// *clusters gets how many such clusters the card holds at once.
 template <typename... Params, typename... Args>
 int launch_clusters(void (*kernel)(Params...), int ctas, int threads, size_t smem, int cs,
-                    cudaStream_t stream, Args... args) {
+                    bool pdl, int* clusters, cudaStream_t stream, Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(ctas);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
+  cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cs;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  cfg.numAttrs = pdl ? 2 : 1;
+  const cudaError_t err = clusters ? cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg)
+                                   : cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) {
     (void)cudaGetLastError();  // the refusal is returned; do not leave it for the next check
     return (int)err;
   }
-  return (int)cudaGetLastError();
+  return clusters ? 0 : (int)cudaGetLastError();
 }
 
-template <int LMAX, bool STAMP, typename TX, typename TP, typename TO>
+template <int LMAX, bool STAMP, typename TX, typename TP, typename TO, bool ONE_WAVE>
 int launch_l(const void* x, const void* w, const void* bias, const void* gamma, const void* beta,
              int B, int L, int Cin, int C, int K, int groups, int S, float eps, int epi,
              const void* ein, int Ce, const void* ew, const void* eb, void* out, int cs,
-             int threads, size_t smem, unsigned long long* stamps, cudaStream_t stream) {
-  auto kernel = conv_gn_mish_kernel<LMAX, STAMP, TX, TP, TO>;
+             int threads, size_t smem, bool pdl, int* clusters, unsigned long long* stamps,
+             cudaStream_t stream) {
+  auto kernel = conv_gn_mish_kernel<LMAX, STAMP, TX, TP, TO, ONE_WAVE>;
   if (smem > 48 * 1024) {
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   return launch_clusters(
-      kernel, B * groups * cs, threads, smem, cs, stream, static_cast<const TX*>(x),
-      static_cast<const TP*>(w), static_cast<const TP*>(bias), static_cast<const TP*>(gamma),
-      static_cast<const TP*>(beta), L, Cin, C, K, groups, S, eps, epi,
-      static_cast<const TP*>(ein), Ce, static_cast<const TP*>(ew), static_cast<const TP*>(eb),
-      static_cast<TO*>(out), stamps);
+      kernel, B * groups * cs, threads, smem, cs, pdl, clusters, stream,
+      static_cast<const TX*>(x), static_cast<const TP*>(w), static_cast<const TP*>(bias),
+      static_cast<const TP*>(gamma), static_cast<const TP*>(beta), L, Cin, C, K, groups, S, eps,
+      epi, static_cast<const TP*>(ein), Ce, static_cast<const TP*>(ew),
+      static_cast<const TP*>(eb), static_cast<TO*>(out), stamps);
 }
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 template <typename TX, typename TP, typename TO>
 int launch(const void* x, const void* w, const void* bias, const void* gamma, const void* beta,
            int B, int L, int Cin, int C, int K, int groups, float eps, int epi, const void* ein,
            int Ce, const void* ew, const void* eb, void* out, int cs, int threads, int smem,
-           unsigned long long* stamps, cudaStream_t stream) {
+           bool one_wave, bool pdl, bool stamped, int* clusters, unsigned long long* stamps,
+           cudaStream_t stream) {
   if (groups <= 0 || C % groups != 0 || L < 1 || L > MAX_L || K < 1) return -2;
   if (epi != EPI_TBIAS && epi != EPI_RES_CONV && epi != EPI_RES_ID) return -2;
   const int cg = C / groups;
@@ -375,19 +553,51 @@ int launch(const void* x, const void* w, const void* bias, const void* gamma, co
   if (threads < cg || threads > MAX_THREADS || threads % 32 != 0) return -2;
   const int S = threads / cg < MAX_SPLIT ? threads / cg : MAX_SPLIT;
   const Layout lay = layout(L, Cin, cg, K, S, cs, epi, Ce);
-  if (smem != lay.total * (int)sizeof(float) || smem > MAX_SMEM) return -2;
-#define ADM_L(LM)                                                                              \
-  return stamps ? launch_l<LM, true, TX, TP, TO>(x, w, bias, gamma, beta, B, L, Cin, C, K, groups, \
-                                                 S, eps, epi, ein, Ce, ew, eb, out, cs, threads,   \
-                                                 (size_t)smem, stamps, stream)                     \
-                : launch_l<LM, false, TX, TP, TO>(x, w, bias, gamma, beta, B, L, Cin, C, K, groups, \
-                                                  S, eps, epi, ein, Ce, ew, eb, out, cs, threads,   \
-                                                  (size_t)smem, stamps, stream)
-  if (L <= 2) ADM_L(2);
-  if (L <= 4) ADM_L(4);
-  if (L <= 8) ADM_L(8);
-  ADM_L(16);
+  int want = lay.total * (int)sizeof(float);
+  if (one_wave) {
+    // whole 16-byte copies of every weight row, from 16-byte aligned rows
+    if ((cg * (int)sizeof(TP)) % 16 != 0) return -2;
+    if (!clusters && (!aligned16(w) || ((epi == EPI_TBIAS || epi == EPI_RES_CONV) && !aligned16(ew))))
+      return -2;
+    want = (want + 15) / 16 * 16 + slice_bytes(Cin, cg, K, cs, epi, Ce, (int)sizeof(TP));
+  } else if (pdl) {
+    return -2;  // only the one-wave path waits on its predecessor
+  }
+  if (smem != want || smem > MAX_SMEM) return -2;
+#define ADM_L(LM, OW)                                                                         \
+  return stamped                                                                              \
+             ? launch_l<LM, true, TX, TP, TO, OW>(x, w, bias, gamma, beta, B, L, Cin, C, K,   \
+                                                  groups, S, eps, epi, ein, Ce, ew, eb, out, cs, \
+                                                  threads, (size_t)smem, pdl, clusters, stamps, \
+                                                  stream)                                     \
+             : launch_l<LM, false, TX, TP, TO, OW>(x, w, bias, gamma, beta, B, L, Cin, C, K,  \
+                                                   groups, S, eps, epi, ein, Ce, ew, eb, out, cs, \
+                                                   threads, (size_t)smem, pdl, clusters, stamps, \
+                                                   stream)
+#define ADM_LS(OW)     \
+  if (L <= 2) ADM_L(2, OW); \
+  if (L <= 4) ADM_L(4, OW); \
+  if (L <= 8) ADM_L(8, OW); \
+  ADM_L(16, OW)
+  if (one_wave) {
+    ADM_LS(true);
+  }
+  ADM_LS(false);
+#undef ADM_LS
 #undef ADM_L
+}
+
+template <typename Fn>
+int by_dtype(int x_dtype, int p_dtype, int out_dtype, Fn&& fn) {
+  if (p_dtype == DT_F32 && x_dtype == DT_F32 && out_dtype == DT_F32)
+    return fn(float(), float(), float());
+  if (p_dtype == DT_BF16) {
+    if (x_dtype == DT_BF16 && out_dtype == DT_BF16)
+      return fn(__nv_bfloat16(), __nv_bfloat16(), __nv_bfloat16());
+    if (x_dtype == DT_BF16 && out_dtype == DT_F32) return fn(__nv_bfloat16(), __nv_bfloat16(), float());
+    if (x_dtype == DT_F32 && out_dtype == DT_BF16) return fn(float(), __nv_bfloat16(), __nv_bfloat16());
+  }
+  return -1;
 }
 
 }  // namespace
@@ -397,26 +607,39 @@ int launch(const void* x, const void* w, const void* bias, const void* gamma, co
 // out: (B, L, C) of out_dtype. Weights and the epilogue input are of p_dtype.
 // cs, threads, smem: the launch geometry (ops/kernels.py:launch_geometry):
 // the cluster size, the threads of a CTA and its shared-memory bytes.
+// one_wave: the one-wave path, its smem the layout's total rounded up to 16
+// bytes and the weight slice (ops/kernels.py:one_wave_geometry); pdl: launch
+// it with programmatic dependent launch (the one-wave path only).
 // stamps: null, or (CTAs, 5, 2) values (common.cuh:stamp).
 extern "C" int adm_conv_gn_mish(const void* x, const void* w, const void* bias,
                                 const void* gamma, const void* beta, int B, int L, int Cin, int C,
                                 int K, int groups, float eps, int epi, const void* ein, int Ce,
                                 const void* ew, const void* eb, void* out, int x_dtype,
                                 int p_dtype, int out_dtype, int cs, int threads, int smem,
-                                unsigned long long* stamps, void* stream) {
+                                int one_wave, int pdl, unsigned long long* stamps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ADM_LAUNCH(TX, TP, TO)                                                                   \
-  return launch<TX, TP, TO>(x, w, bias, gamma, beta, B, L, Cin, C, K, groups, eps, epi, ein, Ce, \
-                            ew, eb, out, cs, threads, smem, stamps, s)
-  if (p_dtype == DT_F32 && x_dtype == DT_F32 && out_dtype == DT_F32) ADM_LAUNCH(float, float, float);
-  if (p_dtype == DT_BF16) {
-    if (x_dtype == DT_BF16 && out_dtype == DT_BF16)
-      ADM_LAUNCH(__nv_bfloat16, __nv_bfloat16, __nv_bfloat16);
-    if (x_dtype == DT_BF16 && out_dtype == DT_F32) ADM_LAUNCH(__nv_bfloat16, __nv_bfloat16, float);
-    if (x_dtype == DT_F32 && out_dtype == DT_BF16) ADM_LAUNCH(float, __nv_bfloat16, __nv_bfloat16);
-  }
-#undef ADM_LAUNCH
-  return -1;
+  return by_dtype(x_dtype, p_dtype, out_dtype, [&](auto tx, auto tp, auto to) {
+    return launch<decltype(tx), decltype(tp), decltype(to)>(
+        x, w, bias, gamma, beta, B, L, Cin, C, K, groups, eps, epi, ein, Ce, ew, eb, out, cs,
+        threads, smem, one_wave != 0, pdl != 0, stamps != nullptr, nullptr, stamps, s);
+  });
+}
+
+// How many clusters of the launch that adm_conv_gn_mish would make with these
+// arguments (less the pointers; `stamped`: with phase stamps) the card holds
+// at once: cudaOccupancyMaxActiveClusters of that kernel instance, into
+// *clusters. ops/kernels.py asks once per geometry.
+extern "C" int adm_conv_gn_mish_clusters(int B, int L, int Cin, int C, int K, int groups, int epi,
+                                         int Ce, int x_dtype, int p_dtype, int out_dtype, int cs,
+                                         int threads, int smem, int one_wave, int stamped,
+                                         int* clusters) {
+  if (clusters == nullptr) return -2;
+  return by_dtype(x_dtype, p_dtype, out_dtype, [&](auto tx, auto tp, auto to) {
+    return launch<decltype(tx), decltype(tp), decltype(to)>(
+        nullptr, nullptr, nullptr, nullptr, nullptr, B, L, Cin, C, K, groups, 0.f, epi, nullptr,
+        Ce, nullptr, nullptr, nullptr, cs, threads, smem, one_wave != 0, false, stamped != 0,
+        clusters, nullptr, nullptr);
+  });
 }
 
 // An empty kernel launched as a kernel of the port is: ctas CTAs of
@@ -432,7 +655,8 @@ extern "C" int adm_empty_launch(int ctas, int threads, int cs, int smem, void* s
     if (err != cudaSuccess) return (int)err;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cs > 0) return launch_clusters(empty_kernel, ctas, threads, (size_t)smem, cs, s, 0);
+  if (cs > 0)
+    return launch_clusters(empty_kernel, ctas, threads, (size_t)smem, cs, false, nullptr, s, 0);
   empty_kernel<<<ctas, threads, smem, s>>>(0);
   return (int)cudaGetLastError();
 }

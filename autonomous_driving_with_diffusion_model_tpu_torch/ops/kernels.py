@@ -12,7 +12,10 @@ Each kernel has its own CUDA source:
   (a whole ``ResidualTemporalMapBlock``), two launches of the template
   ``ops/csrc/conv_gn_mish.cu``, which serves the residual block only: conv 2
   needs every channel of h, a dependency across the whole grid. Each launch's
-  geometry comes from :func:`launch_geometry`.
+  geometry comes from :func:`launch_geometry`. At batch 1-2 a launch takes
+  the one-wave path where :func:`launch_path` allows it (the CTA's weight
+  slice fetched into shared memory at entry, with programmatic dependent
+  launch where the weights are a cached pack).
 
 The C side checks each geometry. What bounds the residual block on an H100
 is the weight bytes (at batch 1-2 each weight does 2 FLOPs per batch row);
@@ -30,7 +33,10 @@ five :data:`PHASES`, into an int64 tensor from :func:`phase_stamps`.
 
 A wrapper given CPU tensors computes the plain version, which autograd
 differentiates as it stands; given CUDA tensors it launches the kernel or
-raises. It adds one to its ``launches`` count for each call that launches.
+raises. It adds one to its ``launches`` count for each call that launches;
+``fused_residual_block`` also counts its kernel launches on the one-wave path
+(``one_wave``) and those of them launched with programmatic dependent launch
+(``pdl``), two launches a call (:func:`launch_counts`).
 
 Neither TPU kernel has a backward (the JAX package trains through the XLA
 composite, ``TPU.USE_PALLAS_CONV`` off). So when a CUDA call needs a gradient,
@@ -54,6 +60,8 @@ __all__ = [
     "fused_residual_block",
     "launch_geometry",
     "residual_block_geometry",
+    "one_wave_geometry",
+    "launch_path",
     "head_geometry",
     "phase_stamps",
     "rank_slice",
@@ -63,6 +71,8 @@ __all__ = [
     "reset_launch_counts",
     "launch_counts",
     "add_launch_counts",
+    "WRAPPERS",
+    "PATHS",
 ]
 
 SOURCE = "conv_gn_mish.cu"  # the residual block's template
@@ -76,6 +86,11 @@ MAX_SMEM = 232448  # bytes of shared memory a CTA may use
 MAX_SPLIT = 32  # threads sharing one channel's reduction inside a CTA
 MAX_CLUSTER = 8  # the portable cluster size
 MIN_RANK_CHANNELS = 8  # input channels a cluster's rank keeps at least
+# threads of a one-wave CTA at most: two such CTAs share an SM (64 registers
+# a thread, at most 111 KB of shared memory each on the main path), so a
+# launch's successor fits beside it (an H100 holds 15 clusters of eight
+# 1024-thread CTAs, 30 of 512)
+ONE_WAVE_THREADS = 512
 HEAD_P = 4  # positions of one output channel a head thread holds (the C side's P)
 HEAD_MAX_LANES = 8  # lanes sharing one head output's sum
 PHASES = ("entry", "loads landed", "outputs in shared memory", "statistics done", "stored")
@@ -142,9 +157,15 @@ def launch_geometry(B, L, Cin, C, K, groups, Ce, epi, cs=None) -> Geometry:
     A cluster of ``cs`` CTAs owns one (batch row, group); ``cs`` is the
     largest power of two up to 8 that leaves each rank ``MIN_RANK_CHANNELS``
     input channels. The shared memory is the C side's ``layout`` total."""
+    return _geometry(B, L, Cin, C, K, groups, Ce, epi, cs, MAX_THREADS)
+
+
+def _geometry(B, L, Cin, C, K, groups, Ce, epi, cs, max_threads) -> Geometry:
+    """:func:`launch_geometry` with S the largest that keeps S x cg within
+    ``max_threads``."""
     cg = C // groups
     S = 1
-    while S * 2 <= MAX_SPLIT and S * 2 * cg <= MAX_THREADS:
+    while S * 2 <= MAX_SPLIT and S * 2 * cg <= max_threads:
         S *= 2
     threads = _cdiv(S * cg, 32) * 32
     has_e = epi in (EPI_TBIAS, EPI_RES_CONV)
@@ -169,6 +190,34 @@ def residual_block_geometry(B, L, Cin, C, E, has_res, K=5, groups=8) -> tuple:
         launch_geometry(B, L, Cin, C, K, groups, E, EPI_TBIAS),
         launch_geometry(B, L, C, C, K, groups, Cin, EPI_RES_CONV if has_res else EPI_RES_ID),
     )
+
+
+def one_wave_geometry(geo: Geometry, L, Cin, C, K, groups, Ce, epi, p_bytes) -> Geometry:
+    """The one-wave path's geometry for a launch whose geometry is ``geo``:
+    its cluster size, at most :data:`ONE_WAVE_THREADS` threads a CTA (S
+    shrunk to fit), then the shared memory rounded up to 16 bytes and the
+    CTA's weight slice, ``K x ceil(Cin / cs)`` conv rows and ``ceil(Ce /
+    cs)`` epilogue rows of ``cg`` values of ``p_bytes`` each (the C side's
+    ``slice_bytes``)."""
+    B = geo.ctas // (groups * geo.cs)
+    base = _geometry(B, L, Cin, C, K, groups, Ce, epi, geo.cs, ONE_WAVE_THREADS)
+    has_e = epi in (EPI_TBIAS, EPI_RES_CONV)
+    rows = K * _cdiv(Cin, geo.cs) + (_cdiv(Ce, geo.cs) if has_e else 0)
+    return base._replace(smem=_cdiv(base.smem, 16) * 16 + rows * (C // groups) * p_bytes)
+
+
+def launch_path(geo: Geometry, clusters: int, cached: bool, rows16: bool = True) -> tuple:
+    """``(one_wave, pdl)`` of a launch whose one-wave geometry is ``geo``.
+
+    The one-wave path needs all ``B x groups`` clusters co-resident (the
+    card holds ``clusters`` of them at once, ``cudaOccupancyMaxActiveClusters``
+    of the one-wave instance), the slice in shared memory and weight rows
+    that copy in whole 16-byte pieces (``rows16``). It is launched with
+    programmatic dependent launch only when the weights are a cached pack
+    (``cached``): a pack made in this call was written by the kernel right
+    before, whose writes a launch that overlaps it could read stale."""
+    one_wave = rows16 and geo.smem <= MAX_SMEM and geo.ctas // geo.cs <= clusters
+    return one_wave, one_wave and cached
 
 
 class HeadGeometry(NamedTuple):
@@ -274,11 +323,51 @@ def _ptr(a: Optional[torch.Tensor]):
     return None if a is None else a.data_ptr()
 
 
+@functools.lru_cache(maxsize=None)  # one query per geometry and kernel instance
+def _max_active_clusters(device: int, B, L, Cin, C, K, groups, epi, Ce, x_code, p_code, out_code,
+                         geo: Geometry, stamped: bool) -> int:
+    """How many clusters of the one-wave launch at ``geo`` the card holds at
+    once (``cudaOccupancyMaxActiveClusters``)."""
+    import ctypes
+
+    from .build import library
+
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = library(SOURCE).adm_conv_gn_mish_clusters(
+            B, L, Cin, C, K, groups, epi, Ce, x_code, p_code, out_code,
+            geo.cs, geo.threads, geo.smem, 1, int(stamped), ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"conv_gn_mish occupancy query failed (error {err}, {geo})")
+    return n.value
+
+
+def _pick_path(geo: Geometry, x, w, out, epi, ein, ew, n_groups, cached: bool, stamped: bool) -> tuple:
+    """``(geometry, one_wave, pdl)`` of one launch of the template from
+    what it can observe: :func:`launch_path` at the one-wave geometry, the
+    card's answer asked once per geometry; ``geo`` itself off that path."""
+    B, L, Cin = x.shape
+    K, _, C = w.shape
+    Ce = ein.shape[-1] if ein is not None else 0
+    wide = one_wave_geometry(geo, L, Cin, C, K, n_groups, Ce, epi, w.element_size())
+    rows16 = ((C // n_groups) * w.element_size()) % 16 == 0 and _alignment(
+        *(a for a in (w, ew) if a is not None)) == 16
+    clusters = 0
+    if rows16 and wide.smem <= MAX_SMEM:
+        clusters = _max_active_clusters(x.device.index, B, L, Cin, C, K, n_groups, epi, Ce,
+                                        _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype], _DTYPE_CODE[out.dtype],
+                                        wide, stamped)
+    one_wave, pdl = launch_path(wide, clusters, cached, rows16)
+    return (wide, True, pdl) if one_wave else (geo, False, False)
+
+
 def _launch(geo: Geometry, x, w, b, gamma, beta, out, n_groups, eps, epi, ein=None, ew=None,
-            eb=None, stamps=None) -> None:
+            eb=None, stamps=None, one_wave=False, pdl=False) -> None:
     """One launch of the residual block's template at geometry ``geo``.
     ``ein``/``ew``/``eb``: the epilogue's input, weight and bias (t, tw, tb;
-    or xres, wres, bres; or xres alone)."""
+    or xres, wres, bres; or xres alone); ``one_wave``: the one-wave path, at
+    its geometry (:func:`one_wave_geometry`); ``pdl``: launched with
+    programmatic dependent launch."""
     from .build import library
 
     B, L, Cin = x.shape
@@ -293,14 +382,15 @@ def _launch(geo: Geometry, x, w, b, gamma, beta, out, n_groups, eps, epi, ein=No
             B, L, Cin, C, K, n_groups, float(eps), epi,
             _ptr(ein), Ce, _ptr(ew), _ptr(eb),
             _ptr(out), _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype], _DTYPE_CODE[out.dtype],
-            geo.cs, geo.threads, geo.smem, _ptr(stamps), stream,
+            geo.cs, geo.threads, geo.smem, int(one_wave), int(pdl), _ptr(stamps), stream,
         )
     if err == ERR_SHAPE:
         raise ValueError(
             f"conv_gn_mish takes L <= {MAX_L}, C a multiple of n_groups with C / n_groups <= 1024, "
-            f"rows that fit a CTA's shared memory, clusters of 1-{MAX_CLUSTER} (a power of two) "
-            f"and a residual-block epilogue; got L={L}, Cin={Cin}, C={C}, n_groups={n_groups}, "
-            f"K={K}, epi={epi}, {geo}"
+            f"rows that fit a CTA's shared memory, clusters of 1-{MAX_CLUSTER} (a power of two), "
+            f"a residual-block epilogue and, on the one-wave path, 16-byte weight rows; got L={L}, "
+            f"Cin={Cin}, C={C}, n_groups={n_groups}, K={K}, epi={epi}, {geo}, one_wave={one_wave}, "
+            f"pdl={pdl}"
         )
     if err != 0:
         # a refused cluster launch (cudaErrorClusterOutOfResources, ...) lands
@@ -412,18 +502,21 @@ def _conv1d_gn_mish_cuda(x, w, b, gamma, beta, n_groups, eps, stamps=None):
 
 def fused_residual_block(
     x, t, w1, b1, g1, be1, tw, tb, w2, b2, g2, be2, wres=None, bres=None,
-    n_groups: int = 8, eps: float = 1e-5, *, stamps=None,
+    n_groups: int = 8, eps: float = 1e-5, *, stamps=None, weights_cached: bool = False,
 ):
     """Whole ResidualTemporalMapBlock. x: (B, L, Cin); t: (B, E); w1 (K, Cin,
     C); w2 (K, C, C); tw (E, C); wres (1, Cin, C) or None (then Cin == C).
     ``stamps``: None, or a pair of :func:`phase_stamps` buffers, one for
-    each launch."""
+    each launch. ``weights_cached`` (the blocks' own, ``models/blocks.py``):
+    the weights and biases are a pack made before this call, which no kernel
+    right before it wrote; only then may a one-wave launch overlap the launch
+    before it (:func:`launch_path`)."""
     args = (x, t, w1, b1, g1, be1, tw, tb, w2, b2, g2, be2, wres, bres)
     if x.device.type == "cpu":
         if stamps is not None:
             raise ValueError("phase stamps come from the CUDA kernel: give CUDA tensors")
         return residual_block_plain(*args, n_groups=n_groups, eps=eps)
-    launch = functools.partial(_residual_block_cuda, stamps=stamps)
+    launch = functools.partial(_residual_block_cuda, stamps=stamps, weights_cached=weights_cached)
     kw = dict(n_groups=n_groups, eps=eps)
     if _needs_grad(*args):
         return Recompute.apply(launch, residual_block_plain, kw, *args)
@@ -431,7 +524,7 @@ def fused_residual_block(
 
 
 def _residual_block_cuda(x, t, w1, b1, g1, be1, tw, tb, w2, b2, g2, be2, wres, bres,
-                         n_groups, eps, stamps=None):
+                         n_groups, eps, stamps=None, weights_cached=False):
     B, L, Cin = x.shape
     K, _, C = w1.shape
     E = t.shape[1]
@@ -448,32 +541,47 @@ def _residual_block_cuda(x, t, w1, b1, g1, be1, tw, tb, w2, b2, g2, be2, wres, b
     h = torch.empty((B, L, C), dtype=torch.float32, device=x.device)  # stays fp32
     out = torch.empty((B, L, C), dtype=x.dtype, device=x.device)
     geo1, geo2 = residual_block_geometry(B, L, Cin, C, E, wres is not None, K, n_groups)
-    _launch(geo1, x, w1, b1, g1, be1, h, n_groups, eps, EPI_TBIAS, t, tw, tb, stamps=s1)
-    if wres is not None:
-        _launch(geo2, h, w2, b2, g2, be2, out, n_groups, eps, EPI_RES_CONV, x, wres[0], bres,
-                stamps=s2)
-    else:
-        _launch(geo2, h, w2, b2, g2, be2, out, n_groups, eps, EPI_RES_ID, x, stamps=s2)
+    epi2, ew2 = (EPI_RES_CONV, wres[0]) if wres is not None else (EPI_RES_ID, None)
+    for geo, xin, w, b, g, be, y, epi, ein, ew, eb, st in (
+            (geo1, x, w1, b1, g1, be1, h, EPI_TBIAS, t, tw, tb, s1),
+            (geo2, h, w2, b2, g2, be2, out, epi2, x, ew2, bres, s2)):
+        geo, one_wave, pdl = _pick_path(geo, xin, w, y, epi, ein, ew, n_groups, weights_cached,
+                                        st is not None)
+        _launch(geo, xin, w, b, g, be, y, n_groups, eps, epi, ein, ew, eb, stamps=st,
+                one_wave=one_wave, pdl=pdl)
+        fused_residual_block.one_wave += one_wave
+        fused_residual_block.pdl += pdl
     fused_residual_block.launches += 1
     return out
 
 
-fused_conv1d_gn_mish.launches = 0
-fused_residual_block.launches = 0
+WRAPPERS = ("fused_conv1d_gn_mish", "fused_residual_block")  # launch_counts' keys of calls
+# launch_counts' keys of the residual block's kernel launches (two a call) on
+# the one-wave path, and of those with programmatic dependent launch
+PATHS = ("fused_residual_block.one_wave", "fused_residual_block.pdl")
+
+
+# (key, wrapper, attribute) of every count
+_COUNTERS = tuple((f.__name__, f, "launches") for f in (fused_conv1d_gn_mish, fused_residual_block)) + tuple(
+    (key, fused_residual_block, key.split(".")[1]) for key in PATHS)
 
 
 def reset_launch_counts() -> None:
-    fused_conv1d_gn_mish.launches = 0
-    fused_residual_block.launches = 0
+    for _, f, attr in _COUNTERS:
+        setattr(f, attr, 0)
 
 
 def launch_counts() -> Dict[str, int]:
-    """Each wrapper's launch count, by the wrapper's name."""
-    return {f.__name__: f.launches for f in (fused_conv1d_gn_mish, fused_residual_block)}
+    """Each wrapper's launch count (calls), by the wrapper's name, and the
+    residual block's kernel launches on each path (:data:`PATHS`)."""
+    return {key: getattr(f, attr) for key, f, attr in _COUNTERS}
 
 
 def add_launch_counts(counts: Dict[str, int]) -> None:
-    """Add ``counts`` (by wrapper name) to the launch counts: the launches
-    of a replayed CUDA graph, which calls no wrapper."""
-    for f in (fused_conv1d_gn_mish, fused_residual_block):
-        f.launches += counts.get(f.__name__, 0)
+    """Add ``counts`` (by :func:`launch_counts`' keys) to the launch counts:
+    the launches of a replayed CUDA graph, which calls no wrapper."""
+    for key, f, attr in _COUNTERS:
+        setattr(f, attr, getattr(f, attr) + counts.get(key, 0))
+
+
+reset_launch_counts()

@@ -334,6 +334,14 @@ def counted(launches, run):
         raise AssertionError(f"a kernel of the path was not launched: {got}")
     return result, got
 
+def wrapper_calls(counts: dict) -> dict:
+    """The wrappers' call counts of a ``kernels.launch_counts()`` dict, its
+    counts of the residual block's launches by path left out."""
+    from autonomous_driving_with_diffusion_model_tpu_torch.ops import kernels
+
+    return {k: counts[k] for k in kernels.WRAPPERS}
+
+
 def card_rates(name: str):
     """(bytes/s, float32 FLOP/s, dense bf16 FLOP/s) from the data sheet of
     the named part."""
@@ -2469,9 +2477,9 @@ def compiled_plan(load_cfg, device_breakdown, launches, smi, dev="cuda") -> dict
         is_bf16 = cfg.TPU.COMPUTE_DTYPE == "bfloat16"
         tol = plan_tol(cfg)["atol"] if is_bf16 else GRAPH_TOL
         diff = float(np.abs(got - ref).max())
-        ok = (program is not None and diff <= tol and counts == want and np.isfinite(got).all()
+        ok = (program is not None and diff <= tol and wrapper_calls(counts) == want and np.isfinite(got).all()
               and (program.graph is not None) == (torch.device(dev).type == "cuda")
-              and (program.launches == want or torch.device(dev).type != "cuda"))
+              and (wrapper_calls(program.launches) == want or torch.device(dev).type != "cuda"))
         e_ms, g_ms = [], []
         for i in range(PLAN_REPS):
             for run, ms in ((eager, e_ms), (graph, g_ms)):
@@ -2668,8 +2676,8 @@ def _compiled_train(load_cfg, device_breakdown, launches, smi, dev, card) -> dic
             attempts.append(profiled)
             if profiled == recorded or any(profiled[k] > recorded[k] for k in recorded):
                 break
-        ok = (identical and all(c == eager_counts == want for c in counts)
-              and (prog.launches == want if card else prog.graph is None)
+        ok = (identical and all(c == eager_counts and wrapper_calls(c) == want for c in counts)
+              and (wrapper_calls(prog.launches) == want if card else prog.graph is None)
               and (profiled == recorded or not card) and np.isfinite(float(m_g["loss"])))
         row = dict(**extra, bit_identical=identical, losses_bit_identical=same_loss, launches_per_replay=counts[-1],
                    expected_launches=want, recorded_launches=prog.launches, eager_launches=eager_counts,
@@ -3067,7 +3075,10 @@ def main() -> int:
     gen = torch.Generator().manual_seed(1)
     cases = [case(m, a, 1, torch.float32, gen) for n, m, a in calls]
     cases16 = [case(m, a, 1, torch.bfloat16, gen) for n, m, a in calls]
-    kcall = lambda c: (lambda: c[0](*c[2]))
+    # the residual block as the blocks launch their cached packs: on the
+    # one-wave path with programmatic dependent launch where it applies
+    kcall = lambda c: ((lambda: c[0](*c[2], weights_cached=True)) if c[0] is kernels.fused_residual_block
+                       else (lambda: c[0](*c[2])))
     pcall = lambda c: (lambda: c[1](*c[2]))
     template_lib = build.library(kernels.SOURCE)
 
@@ -3082,6 +3093,54 @@ def main() -> int:
             if err != 0:
                 raise RuntimeError(f"empty launch failed (CUDA error {err}, {geo})")
         return f
+
+    def one_wave_paths(mine, geos, ms):
+        """The batch-1 forward's residual calls on each path: with PDL (the
+        ``ms`` above), on the one-wave path without it, and on today's path
+        (the card said to hold no one-wave cluster); the same at batch 2;
+        the launch floor at the one-wave geometries; each path's launches."""
+        def today(fns):
+            real = kernels._max_active_clusters
+            kernels._max_active_clusters = lambda *a, **kw: 0
+            try:
+                return graph_ms(fns)
+            finally:
+                kernels._max_active_clusters = real
+
+        plain_calls = [(lambda c=c: c[0](*c[2])) for c in mine]
+        gen2 = torch.Generator().manual_seed(2)
+        mine2 = [case(m, a, 2, torch.float32, gen2) for n, m, a in calls if isinstance(m, ResidualTemporalMapBlock)]
+        wide = []
+        for c, (g1, g2) in zip(mine, zip(geos[::2], geos[1::2])):
+            x, t, w1, w2, wres = c[2][0], c[2][1], c[2][2], c[2][8], c[2][12]
+            cin, C, E = x.shape[2], w1.shape[2], t.shape[1]
+            L = x.shape[1]
+            wide.append(kernels.one_wave_geometry(g1, L, cin, C, 5, 8, E, kernels.EPI_TBIAS, 4))
+            wide.append(kernels.one_wave_geometry(g2, L, C, C, 5, 8, cin, kernels.EPI_RES_CONV if wres is not None
+                                                  else kernels.EPI_RES_ID, 4))
+        kernels.reset_launch_counts()
+        for f in [kcall(c) for c in mine]:
+            f()
+        counts = kernels.launch_counts()
+        out = dict(ms_one_wave_no_pdl=graph_ms(plain_calls), ms_today=today([kcall(c) for c in mine]),
+                   ms_b2=graph_ms([kcall(c) for c in mine2]), ms_b2_today=today([kcall(c) for c in mine2]),
+                   floor_ms_one_wave=graph_ms([empty(g) for g in wide]),
+                   launches=2 * counts["fused_residual_block"],
+                   one_wave_launches=counts["fused_residual_block.one_wave"],
+                   pdl_launches=counts["fused_residual_block.pdl"])
+        kernels.reset_launch_counts()
+        for f in [kcall(c) for c in mine2]:
+            f()
+        counts = kernels.launch_counts()
+        out.update(one_wave_launches_b2=counts["fused_residual_block.one_wave"],
+                   pdl_launches_b2=counts["fused_residual_block.pdl"])
+        log(f"time fused_residual_block paths: batch 1 one forward ms: PDL {ms:.4f}, one-wave "
+            f"without PDL {out['ms_one_wave_no_pdl']:.4f}, today's path {out['ms_today']:.4f}, launch floor "
+            f"at the one-wave geometries {out['floor_ms_one_wave']:.4f}; launches {out['launches']}, one-wave "
+            f"{out['one_wave_launches']}, PDL {out['pdl_launches']}; batch 2: {out['ms_b2']:.4f} against "
+            f"today's {out['ms_b2_today']:.4f}, one-wave {out['one_wave_launches_b2']}, PDL "
+            f"{out['pdl_launches_b2']} of {out['launches']}, on {smi}")
+        return out
 
     summary = {}
     with torch.no_grad():
@@ -3099,6 +3158,8 @@ def main() -> int:
                 floor_ms=graph_ms([empty(g) for g in geos]),
                 calls=len(mine), ctas=sum(g.ctas for g in geos),
             )
+            if kname == "fused_residual_block":
+                summary[kname].update(one_wave_paths(mine, geos, summary[kname]["ms"]))
             log(f"time {kname}: one forward's {len(mine)} calls ({len(geos)} launches, "
                 f"{summary[kname]['ctas']} CTAs in all), device ms: kernel "
                 f"{summary[kname]['ms']:.4f}, plain {summary[kname]['plain_ms']:.4f}, "
@@ -3264,6 +3325,7 @@ def main() -> int:
                 f"(the training batch), recompute_backward_ms_b32 the autograd.Function's backward of "
                 f"those calls",
             library_note="no single PyTorch call computes this function",
+            paths={k: v for k, v in s.items() if k.endswith(("today", "no_pdl", "b2", "one_wave", "launches"))},
         ))
     report["kernels"] = kernels_line
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)

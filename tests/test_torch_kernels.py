@@ -239,6 +239,107 @@ def test_launch_geometry(B, L, cin, c, e):
         assert all(g.cs > 1 and g.ctas >= 64 for g in geos)
 
 
+# (id, B, (L, Cin, C), the card's co-resident clusters, cached pack, p_bytes,
+# (one_wave, pdl)): launch_path's rule on the first launch of a block. 16
+# clusters of 8 is what an H100 holds at one CTA an SM (the launch floor's
+# 128-CTA row in PERF.md); a cluster of one (Cin = 7) has 132 slots.
+PATH_CASES = [
+    ("one-wave-B1", 1, (2, 512, 512), 16, True, 4, (True, True)),
+    ("one-wave-B2", 2, (2, 512, 512), 16, True, 4, (True, True)),
+    ("one-wave-B1-bf16", 1, (2, 1024, 256), 16, True, 2, (True, True)),
+    ("one-wave-B2-cs1", 2, (16, 7, 64), 132, True, 4, (True, True)),
+    ("fresh-pack-B1", 1, (2, 512, 512), 16, False, 4, (True, False)),
+    ("multi-wave-B16", 16, (2, 512, 512), 16, True, 4, (False, False)),
+    ("multi-wave-B32", 32, (16, 64, 64), 16, True, 4, (False, False)),
+    ("clusters-short-B2", 2, (4, 128, 256), 15, True, 4, (False, False)),
+    ("slice-too-big-B1", 1, (2, 2048, 2048), 16, True, 4, (False, False)),
+]
+
+
+@pytest.mark.parametrize("B,shape,clusters,cached,p_bytes,want",
+                         [pytest.param(*a[1:], id=a[0]) for a in PATH_CASES])
+def test_launch_path(B, shape, clusters, cached, p_bytes, want):
+    """The one-wave dispatch rule as a pure function of the geometry, the
+    co-resident cluster count and the cache-hit flag: batch 1-2 takes the
+    one-wave path, with programmatic dependent launch only on a cached pack;
+    batch 16 and 32 need more clusters than the card holds; a slice past the
+    shared memory stays off it. Today's geometry is kept but for the slice."""
+    L, cin, c = shape
+    geo = kernels.residual_block_geometry(B, L, cin, c, 128, cin != c)[0]
+    wide = kernels.one_wave_geometry(geo, L, cin, c, 5, 8, 128, kernels.EPI_TBIAS, p_bytes)
+    base = kernels._geometry(B, L, cin, c, 5, 8, 128, kernels.EPI_TBIAS, geo.cs, kernels.ONE_WAVE_THREADS)
+    assert (wide.cs, wide.ctas) == (geo.cs, geo.ctas) and wide.threads <= max(geo.threads, kernels.ONE_WAVE_THREADS)
+    assert base._replace(smem=wide.smem) == wide
+    rows = 5 * -(-cin // geo.cs) + -(-128 // geo.cs)  # the conv's and the epilogue's
+    assert wide.smem == -(-base.smem // 16) * 16 + rows * (c // 8) * p_bytes
+    assert kernels.launch_path(wide, clusters, cached) == want
+    assert kernels.launch_path(wide, clusters, cached, rows16=False) == (False, False)
+
+
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("L,cin,c", MAIN_RES)
+def test_one_wave_slice_fits_every_main_path_launch(B, L, cin, c):
+    """Both launches of every main-path block hold their weight slice in
+    shared memory beside today's buffers, in float32 and bfloat16, with
+    16-byte weight rows (cg = C / 8 >= 8)."""
+    geos = kernels.residual_block_geometry(B, L, cin, c, 128, cin != c)
+    launches = [(cin, 128, kernels.EPI_TBIAS),
+                (c, cin, kernels.EPI_RES_CONV if cin != c else kernels.EPI_RES_ID)]
+    for geo, (rows, ce, epi) in zip(geos, launches):
+        for p_bytes in (4, 2):
+            wide = kernels.one_wave_geometry(geo, L, rows, c, 5, 8, ce, epi, p_bytes)
+            assert wide.smem <= kernels.MAX_SMEM and wide.threads <= kernels.ONE_WAVE_THREADS
+            assert (c // 8 * p_bytes) % 16 == 0
+            assert kernels.launch_path(wide, 16, True) == (True, True)
+
+
+def test_path_counts_pass_through_launch_counts():
+    """The one-wave and PDL counts sit beside the wrappers' counts in
+    launch_counts, and a graph's replay adds them through add_launch_counts
+    (a default replay: 1,600 calls, 3,200 launches on each path)."""
+    kernels.reset_launch_counts()
+    counts = kernels.launch_counts()
+    assert set(counts) == set(kernels.WRAPPERS) | set(kernels.PATHS) and not any(counts.values())
+    replay = {"fused_conv1d_gn_mish": 100, "fused_residual_block": 1600,
+              "fused_residual_block.one_wave": 3200, "fused_residual_block.pdl": 3200}
+    kernels.add_launch_counts(replay)
+    kernels.add_launch_counts(replay)
+    assert kernels.launch_counts() == {k: 2 * v for k, v in replay.items()}
+    assert (kernels.fused_residual_block.launches, kernels.fused_residual_block.one_wave,
+            kernels.fused_residual_block.pdl) == (3200, 6400, 6400)
+    kernels.add_launch_counts({"fused_residual_block": 1})  # keys it lacks add nothing
+    assert kernels.launch_counts()["fused_residual_block.pdl"] == 6400
+    kernels.reset_launch_counts()
+    assert not any(kernels.launch_counts().values())
+
+
+def test_block_passes_its_cache_hit(monkeypatch):
+    """ResidualTemporalMapBlock tells the wrapper whether its pack was made
+    before the call: not on the first call, after an in-place update of a
+    parameter, or under autograd; yes on a repeat."""
+    from autonomous_driving_with_diffusion_model_tpu_torch.models import blocks
+
+    seen = []
+    real = blocks.fused_residual_block
+
+    def spy(*args, weights_cached=False, **kw):
+        seen.append(weights_cached)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(blocks, "fused_residual_block", spy)
+    torch.manual_seed(0)
+    block = blocks.ResidualTemporalMapBlock(16, 32, 24)
+    x, t = torch.randn(1, 8, 16), torch.randn(1, 24)
+    with torch.no_grad():
+        first = block(x, t)
+        assert torch.equal(block(x, t), first)
+        block.blocks[0].block[0].weight.mul_(1.01)
+        block(x, t)
+        block(x, t)
+    block(x, t)  # under autograd: a pack in the graph, made now
+    assert seen == [False, True, False, True, False]
+
+
 def _head_cases():
     """(id, B, L, Cin, C) of the head on the main path and of the off-path
     conv shapes."""
@@ -561,3 +662,174 @@ def test_cuda_kernel_gradients_match_plain(B):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
         for a, b in zip(g_got, g_want):
             assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+
+
+def _paths():
+    return kernels.fused_residual_block.one_wave, kernels.fused_residual_block.pdl
+
+
+@pytest.fixture
+def multi_wave(monkeypatch):
+    """A context that sends every launch down today's path: the card is
+    said to hold no cluster of a one-wave launch."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        with monkeypatch.context() as m:
+            m.setattr(kernels, "_max_active_clusters", lambda *a, **kw: 0)
+            yield
+
+    return ctx
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_one_wave_matches_plain_on_card(dtype, multi_wave):
+    """The one-wave path, launched as the blocks launch a cached pack (with
+    programmatic dependent launch), at every main-path shape at B = 1 and 2:
+    against the plain version at the present tolerances, and bit for bit
+    against today's path where both split each sum over the same S threads
+    (the same sums in the same order). Every batch-1 launch takes it; a
+    batch-2 launch takes it where the card holds all its clusters at once."""
+    _need_card()
+    rng = np.random.default_rng(10)
+    dt = getattr(torch, dtype)
+    tol = dict(atol=1e-4, rtol=1e-4) if dtype == "float32" else dict(atol=3e-2, rtol=1.6e-2)
+    with torch.no_grad():
+        for B in (1, 2):
+            for L, cin, c in MAIN_RES:
+                args = _torch(_res_inputs(rng, B, L, cin, c, 128), "cuda", dt)
+                before = _paths()
+                got = kernels.fused_residual_block(*args, weights_cached=True)
+                one_wave, pdl = (a - b for a, b in zip(_paths(), before))
+                assert one_wave == pdl and (one_wave == 2 or B == 2)
+                with multi_wave():
+                    before = _paths()
+                    old = kernels.fused_residual_block(*args, weights_cached=True)
+                    assert _paths() == before
+                want = kernels.residual_block_plain(*args)
+                torch.cuda.synchronize()
+                geos = kernels.residual_block_geometry(B, L, cin, c, 128, cin != c)
+                if all(kernels.one_wave_geometry(g, L, rows, c, 5, 8, ce, epi, 4).S == g.S
+                       for g, (rows, ce, epi) in zip(geos, [(cin, 128, kernels.EPI_TBIAS),
+                                                            (c, cin, kernels.EPI_RES_CONV)])):
+                    assert torch.equal(got, old)
+                torch.testing.assert_close(old.float(), want.float(), **tol)
+                torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.gpu
+def test_one_wave_repeats_bit_for_bit_on_card():
+    """Two launches of one call on the one-wave path agree exactly, with and
+    without programmatic dependent launch."""
+    _need_card()
+    rng = np.random.default_rng(11)
+    with torch.no_grad():
+        for B in (1, 2):
+            for L, cin, c in MAIN_RES:
+                args = _torch(_res_inputs(rng, B, L, cin, c, 128), "cuda")
+                first = kernels.fused_residual_block(*args, weights_cached=True)
+                assert torch.equal(first, kernels.fused_residual_block(*args, weights_cached=True))
+                assert torch.equal(first, kernels.fused_residual_block(*args))
+
+
+@pytest.mark.gpu
+def test_one_wave_phase_stamps_on_card():
+    """A stamped one-wave launch, behind another launch with programmatic
+    dependent launch, gives the unstamped output, and each CTA's five
+    stamps run forward in time on both clocks (the entry stamp is taken at
+    entry and written after the wait)."""
+    _need_card()
+    rng = np.random.default_rng(12)
+    with torch.no_grad():
+        for L, cin, c in [(16, 64, 64), (2, 512, 512), (2, 1024, 256)]:
+            args = _torch(_res_inputs(rng, 1, L, cin, c, 128), "cuda")
+            geos = kernels.residual_block_geometry(1, L, cin, c, 128, cin != c)
+            pair = tuple(kernels.phase_stamps(g.ctas, "cuda") for g in geos)
+            want = kernels.fused_residual_block(*args, weights_cached=True)
+            before = _paths()
+            got = kernels.fused_residual_block(*args, stamps=pair, weights_cached=True)
+            assert tuple(a - b for a, b in zip(_paths(), before)) == (2, 2)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+            for s in pair:
+                s = s.cpu()
+                assert (s[:, 0, 0] > 0).all()
+                assert (s[:, 1:, :] >= s[:, :-1, :]).all()
+
+
+def _chain_blocks(rng, widths, L, B, device):
+    """Residual blocks' kernel arguments (without x) along ``widths``."""
+    blocks = []
+    for cin, c in zip(widths, widths[1:]):
+        arrays = _res_inputs(rng, B, L, cin, c, 128)
+        blocks.append((_torch(arrays[1:2], device)[0], _torch(arrays[2:], device)))
+    return blocks
+
+
+def _run_chain(x, blocks, fn, **kw):
+    for t, params in blocks:
+        x = fn(x, t, *params, **kw)
+    return x
+
+
+@pytest.mark.gpu
+def test_one_wave_chain_in_a_graph_on_card():
+    """16 chained blocks at B = 1 captured in one CUDA graph with
+    programmatic dependent launch (the attribute becomes programmatic
+    edges): the replay equals the same chain launched eagerly bit for bit,
+    and the plain chain within 16 blocks' rounding; every launch counted on
+    the one-wave path with PDL, in the eager chain and in the capture."""
+    _need_card()
+    rng = np.random.default_rng(13)
+    widths = [256, 512] + [512] * 14 + [256]  # a projection at each end, identities between
+    blocks = _chain_blocks(rng, widths, 2, 1, "cuda")
+    x0 = torch.from_numpy(rng.standard_normal((1, 2, 256)).astype(np.float32)).cuda()
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        eager = _run_chain(x0, blocks, kernels.fused_residual_block, weights_cached=True)
+        assert _paths() == (32, 32)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            _run_chain(x0, blocks, kernels.fused_residual_block, weights_cached=True)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        kernels.reset_launch_counts()
+        with torch.cuda.graph(graph):
+            out = _run_chain(x0, blocks, kernels.fused_residual_block, weights_cached=True)
+        assert _paths() == (32, 32)
+        graph.replay()
+        plain = _run_chain(x0, blocks, kernels.residual_block_plain)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        # each block's sums in another order than cuDNN's, over 16 blocks
+        torch.testing.assert_close(out, plain, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.gpu
+def test_fresh_pack_launches_without_pdl_on_card():
+    """A block whose weights a kernel wrote just before its call (a pack
+    made in the call): launched on the one-wave path without programmatic
+    dependent launch, equal to the plain version of the new weights; the
+    next call reuses the pack, with PDL, and gives the same bits."""
+    _need_card()
+    from autonomous_driving_with_diffusion_model_tpu_torch.models.blocks import ResidualTemporalMapBlock
+
+    torch.manual_seed(0)
+    block = ResidualTemporalMapBlock(512, 512, 128).cuda()
+    x, t = torch.randn(1, 2, 512, device="cuda"), torch.randn(1, 128, device="cuda")
+    with torch.no_grad():
+        block(x, t)
+        block.blocks[1].block[0].weight.mul_(1.5)  # a kernel writes the weights
+        before = _paths()
+        got = block(x, t)
+        assert tuple(a - b for a, b in zip(_paths(), before)) == (2, 0)
+        want = kernels.residual_block_plain(x, t, *block.kernel_params())
+        before = _paths()
+        again = block(x, t)
+        assert tuple(a - b for a, b in zip(_paths(), before)) == (2, 2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert torch.equal(again, got)

@@ -156,6 +156,19 @@ def _need_card():
     torch.backends.cudnn.allow_tf32 = False
 
 
+def _assert_replay_counts(eager_launches):
+    """The launches a replay counts: the eager body's calls of each wrapper
+    and one-wave launches; every one-wave launch of the graph with PDL (its
+    capture found every pack cached), the eager body's only where it did."""
+    got = kernels.launch_counts()
+    one_wave = "fused_residual_block.one_wave"
+    for k in kernels.WRAPPERS + (one_wave,):
+        assert got[k] == eager_launches[k]
+    assert all(eager_launches[k] for k in kernels.WRAPPERS)
+    assert got["fused_residual_block.pdl"] == got[one_wave] >= eager_launches["fused_residual_block.pdl"]
+    return got
+
+
 def _eager(planner, frame, target):
     """The eager body on the plan's inputs, with the launches it counts."""
     tgt = np.zeros((1, 2), np.float32) if target is None else target.reshape(1, 2)
@@ -187,12 +200,12 @@ def test_graph_equals_eager_on_card(mode, k, scheduler, dtype):
         want, want_best, eager_launches = _eager(planner, frame, target)
         kernels.reset_launch_counts()
         got, best = planner.plan_hypotheses(frame, target)
-        assert kernels.launch_counts() == eager_launches and all(eager_launches.values())
+        replay_launches = _assert_replay_counts(eager_launches)
         np.testing.assert_allclose(got, want, atol=1e-5 if dtype == "float32" else 1.0, rtol=0)
         if dtype == "float32":
             assert best == want_best
     prog = planner._program.programs[planner._program.key]
-    assert len(planner._program.programs) == 1 and prog.graph is not None and prog.launches == eager_launches
+    assert len(planner._program.programs) == 1 and prog.graph is not None and prog.launches == replay_launches
 
 
 @pytest.mark.gpu
@@ -213,7 +226,7 @@ def test_cfg_student_key_on_card():
         want, want_best, eager_launches = _eager(planner, frame, target)
         kernels.reset_launch_counts()
         got, best = planner.plan_hypotheses(frame, target)
-        assert kernels.launch_counts() == eager_launches and all(eager_launches.values())
+        _assert_replay_counts(eager_launches)
         assert eager_launches["fused_conv1d_gn_mish"] == 2  # one head a step
         np.testing.assert_array_equal(got, want)
         np.testing.assert_allclose(got, cpu.plan_hypotheses(frame, target)[0], atol=1.0, rtol=0)
