@@ -221,10 +221,10 @@ def sampler_from_cfg(model, schedule: DiffusionSchedule, cfg, *, for_training_ev
     ``for_training_eval=True`` is ``train.evaluate``'s (train.py:53-103): the
     training DDPM scheduler (clip, no thresholding), TRAIN.TIME_STEPS steps,
     no conditioning and no meters scaling. Otherwise the closed-loop agents'
-    (interact.py:81-94): thresholding on, EVAL.SCHEDULER, EVAL.SAMPLE_STEPS
-    or TPU.SAMPLE_TIMESTEPS."""
+    (interact.py:81-94): EVAL.SCHEDULER, EVAL.SAMPLE_STEPS
+    or TPU.SAMPLE_TIMESTEPS, thresholding as EVAL.THRESHOLDING says."""
     step = StepConfig(prediction_type=cfg.TRAIN.NOISE_SCHEDULER.PRED_TYPE, clip_sample=True,
-                      thresholding=not for_training_eval)
+                      thresholding=not for_training_eval and bool(cfg.EVAL.THRESHOLDING))
     if for_training_eval:
         scfg = SamplerConfig(
             scheduler="ddpm",

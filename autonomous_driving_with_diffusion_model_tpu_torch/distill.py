@@ -101,6 +101,9 @@ def main(args):
         merge_possible_with_base(cfg, args.config)
     if args.opts:
         cfg.merge_from_list(args.opts)
+    if cfg.MODEL.ARCH == "conditional_unet1d":
+        raise NotImplementedError("the distill CLI distills MODEL.ARCH temporal_map_unet only: conditional_unet1d "
+                                  "(Diffusion Policy's CNN) serves, and its distillation loss is not written")
     dev = resolve_device(args.device)
     os.makedirs(args.workdir, exist_ok=True)
 

@@ -23,6 +23,17 @@ once, under ``TPU.HOIST_PERCEPTION``), ``plan.denoise`` (the sampler: every
 step's U-Net forward, the guidance's combine and the update) and
 ``plan.score`` (the scorer and the argmin).
 
+Under ``MODEL.ARCH`` ``conditional_unet1d`` (Diffusion Policy's CNN,
+``models/conditional_unet1d.py``) a plan conditions on the last
+``MODEL.N_OBS_STEPS`` requests: the planner keeps their (frame, target)
+pairs, oldest first, and the first request after construction or
+:meth:`DiffusionPlanner.reset_history` fills the history with copies of
+itself, as Diffusion Policy's env runner pads its first observation. The
+program takes the history as its frame (N_OBS_STEPS, H, W, 3) and target
+(N_OBS_STEPS, 2) inputs; ``plan.encode`` scales the frames to [0, 1] (uint8
+/ 255, as Diffusion Policy feeds images) and encodes both, with their
+targets, into the plan's conditioning.
+
 Random numbers come from the planner's CPU generator, so the GPU and the CPU
 planner of one seed draw the same: the init trajectories, and the step noise
 of the samplers that need it (DDPM, DDIM with eta > 0, inpainting), both
@@ -36,6 +47,7 @@ from __future__ import annotations
 
 import math
 import os
+from collections import deque
 from typing import Optional
 
 import numpy as np
@@ -120,6 +132,12 @@ class DiffusionPlanner:
 
         self._needs_target = self.use_guidance_type != GuidanceType.NO_GUIDANCE
         self._hoisted = bool(cfg.TPU.HOIST_PERCEPTION)
+        # the observation history of Diffusion Policy's CNN; 0: none (one frame)
+        self._obs_steps = (int(cfg.MODEL.N_OBS_STEPS) if cfg.MODEL.ARCH == "conditional_unet1d"
+                           else 0)
+        if self._obs_steps and (not self._hoisted or self._needs_target):
+            raise ValueError("MODEL.ARCH conditional_unet1d plans with TPU.HOIST_PERCEPTION on and no guidance")
+        self._history: deque = deque(maxlen=max(1, self._obs_steps))
         self._scorer = str(cfg.TPU.HYPOTHESIS_SCORER).lower()
         if self._scorer not in ("auto", "guidance_loss", "jerk", "learned"):
             raise ValueError(
@@ -146,14 +164,35 @@ class DiffusionPlanner:
             return init, None
         return init, torch.randn(self._noise_shape, generator=self._generator)
 
+    def reset_history(self) -> None:
+        """Forget the observation history (a new episode); the next request
+        pads it with copies of itself."""
+        self._history.clear()
+
+    def _observe(self, frame: np.ndarray, target: np.ndarray):
+        """Add one request to the history: the (N_OBS_STEPS, H, W, 3) frames
+        and (N_OBS_STEPS, 2) targets of the plan, oldest first."""
+        if not self._history:
+            self._history.extend([(frame, target)] * (self._history.maxlen - 1))
+        self._history.append((frame, target))
+        frames = np.stack([f for f, _ in self._history])
+        targets = np.concatenate([t for _, t in self._history])
+        self._history.extend(zip(frames, targets[:, None]))  # rows of these copies, not the caller's buffers
+        return frames, targets
+
     @torch.no_grad()
     def _plan(self, init_trajs: torch.Tensor, rgb_u8: torch.Tensor, target: torch.Tensor,
               step_noise: Optional[torch.Tensor]):
         """The plan's body, eagerly: the program ``plan_begin`` runs, and the
         plain version it is held against."""
         profiling.mark("plan.encode" if self._hoisted else "plan.denoise", steps=self._sample.num_steps)
-        image = normalize_images(rgb_u8)[None]  # (1, H, W, 3)
         K = init_trajs.shape[0]
+        if self._obs_steps:  # the history's frames and targets: the plan's conditioning
+            obs = self.model.encode_obs(rgb_u8.to(torch.float32) / 255.0, target)
+            profiling.mark("plan.denoise")
+            trajs = self._sample(init_trajs, noise_seq=step_noise, img_feature=obs.repeat(K, 1))
+            return self._choose(trajs, target[-1:])
+        image = normalize_images(rgb_u8)[None]  # (1, H, W, 3)
         if self._hoisted:
             kwargs = dict(img_feature=self.model.encode_image(image).repeat(K, 1))
             profiling.mark("plan.denoise")
@@ -163,6 +202,11 @@ class DiffusionPlanner:
             init_trajs, target=target.repeat(K, 1) if self._needs_target else None,
             noise_seq=step_noise, **kwargs
         )
+        return self._choose(trajs, target)
+
+    def _choose(self, trajs: torch.Tensor, target: torch.Tensor):
+        """(trajs, the index of the best): the scorer's choice among the K
+        hypotheses, inside the ``plan.score`` span."""
         profiling.mark("plan.score")
         if self._scorer == "learned":
             score = self._scorer_net(trajs, target[0])
@@ -202,8 +246,10 @@ class DiffusionPlanner:
             else:
                 init, noise = self._draw(self.init_trajs.shape)
             tgt = np.zeros((1, 2), np.float32) if target is None else np.asarray(target, np.float32).reshape(1, 2)
-            out = self._program(self._plan, init, torch.from_numpy(np.ascontiguousarray(rgb_u8, np.uint8)),
-                                torch.from_numpy(tgt), noise)
+            frame = np.ascontiguousarray(rgb_u8, np.uint8)
+            if self._obs_steps:
+                frame, tgt = self._observe(frame, tgt)
+            out = self._program(self._plan, init, torch.from_numpy(frame), torch.from_numpy(tgt), noise)
             if sp:
                 prog = self._program
                 sp.set(key=describe(prog.key), launches=dict(prog.programs[prog.key].launches))

@@ -127,9 +127,13 @@ class ResidualTemporalMapBlock(nn.Module):
         self.time_mlp = nn.Sequential(nn.Mish(), nn.Linear(embed_dim, cout))
         self.residual_conv = nn.Conv1d(cin, cout, 1) if cin != cout else nn.Identity()
 
+    def _cond_linear(self) -> nn.Linear:
+        """The conditioning's projection."""
+        return self.time_mlp[1]
+
     def _build(self) -> Tuple:
         (c1, _, n1), (c2, _, n2) = self.blocks[0].block, self.blocks[1].block
-        lin = self.time_mlp[1]
+        lin = self._cond_linear()
         res = self.residual_conv
         has_res = isinstance(res, nn.Conv1d)
         return (

@@ -8,6 +8,11 @@ resnext50_32x4d and wide_resnet50_2, under torchvision's ``state_dict`` names
 (``layerN.i.conv3``, ``downsample.0/1``). The encoders take NHWC images, like
 the JAX package, and run channels-first inside.
 
+``resnet18_gn_keypoints`` (:class:`KeypointResNet`) is Diffusion Policy's
+image encoder (robomimic's ``VisualCore``): ResNet-18 with every BatchNorm a
+``GroupNorm(C / 16, C)``, no pooling and no head, then a spatial softmax
+over ``num_keypoints`` keypoints and a linear layer to the feature.
+
 BatchNorm is JAX ``resnet.py:59-96``'s: in eval mode it normalizes with the
 running statistics; a BatchNorm module in training mode normalizes with the
 batch mean and biased variance in float32 and moves ``running_mean`` and
@@ -48,6 +53,7 @@ __all__ = [
     "resnext50_32x4d",
     "wide_resnet50_2",
     "TinyEncoder",
+    "KeypointResNet",
     "PERCEPTION_BUILDERS",
 ]
 
@@ -82,6 +88,13 @@ def _bn(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def _norm(norm: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A BatchNorm (:func:`_bn`) or a GroupNorm, in float32, cast back."""
+    if isinstance(norm, nn.GroupNorm):
+        return F.group_norm(x.to(torch.float32), norm.num_groups, norm.weight, norm.bias, norm.eps).to(x.dtype)
+    return _bn(norm, x)
+
+
 def _downsample(cin: int, cout: int, stride: int):
     if stride == 1 and cin == cout:
         return None
@@ -91,7 +104,7 @@ def _downsample(cin: int, cout: int, stride: int):
 def _residual(block, out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     identity = x
     if block.downsample is not None:
-        identity = _bn(block.downsample[1], _conv(block.downsample[0], x))
+        identity = _norm(block.downsample[1], _conv(block.downsample[0], x))
     return F.relu(out + identity)
 
 
@@ -109,8 +122,8 @@ class BasicBlock(nn.Module):
         self.downsample = _downsample(cin, planes, stride)
 
     def forward(self, x):
-        out = F.relu(_bn(self.bn1, _conv(self.conv1, x)))
-        return _residual(self, _bn(self.bn2, _conv(self.conv2, out)), x)
+        out = F.relu(_norm(self.bn1, _conv(self.conv1, x)))
+        return _residual(self, _norm(self.bn2, _conv(self.conv2, out)), x)
 
 
 class Bottleneck(nn.Module):
@@ -155,12 +168,15 @@ class ResNet(nn.Module):
             setattr(self, f"layer{stage + 1}", nn.Sequential(*mods))
         self.fc = nn.Linear(512 * block.expansion, num_classes)
 
-    def forward(self, x):
+    def trunk(self, x):
+        """(B, H, W, 3) -> the last stage's (B, C, H / 32, W / 32) map."""
         x = x.permute(0, 3, 1, 2)
-        x = F.relu(_bn(self.bn1, _conv(self.conv1, x)))
+        x = F.relu(_norm(self.bn1, _conv(self.conv1, x)))
         x = F.max_pool2d(x, 3, 2, 1)
-        x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
-        return dense(x.mean(dim=(2, 3)), self.fc.weight, self.fc.bias)
+        return self.layer4(self.layer3(self.layer2(self.layer1(x))))
+
+    def forward(self, x):
+        return dense(self.trunk(x).mean(dim=(2, 3)), self.fc.weight, self.fc.bias)
 
 
 def resnet18(num_classes: int = 1000) -> ResNet:
@@ -207,7 +223,38 @@ class TinyEncoder(nn.Module):
         return dense(x.mean(dim=(2, 3)), self.fc.weight, self.fc.bias)
 
 
-# JAX ``models/temporal_unet.py:74-83``
+class KeypointResNet(ResNet):
+    """Diffusion Policy's image encoder (``obs_encoder_group_norm``,
+    robomimic ``VisualCore`` with ``ResNet18Conv`` and ``SpatialSoftmax``):
+    the ResNet-18 trunk with ``GroupNorm(C / 16, C)`` in place of every
+    BatchNorm, a 1x1 convolution to ``num_keypoints`` maps, a softmax over
+    each map's positions, each map's expected (x, y) on a [-1, 1] grid,
+    flattened as (x0, y0, x1, y1, ...), then ``fc`` to ``num_classes``.
+    x: (B, H, W, 3)."""
+
+    def __init__(self, num_classes: int = 64, num_keypoints: int = 32):
+        super().__init__(BasicBlock, [2, 2, 2, 2], num_classes)
+        for mod in list(self.modules()):
+            for name, child in mod.named_children():
+                if isinstance(child, nn.BatchNorm2d):
+                    setattr(mod, name, nn.GroupNorm(child.num_features // 16, child.num_features))
+        self.keypoints = nn.Conv2d(512, num_keypoints, 1)
+        self.fc = nn.Linear(2 * num_keypoints, num_classes)
+
+    def forward(self, x):
+        kp = self.keypoints
+        maps = F.conv2d(self.trunk(x), kp.weight.to(x.dtype), kp.bias.to(x.dtype))
+        B, K, H, W = maps.shape
+        attn = torch.softmax(maps.reshape(B, K, H * W).to(torch.float32), dim=-1)
+        # the grid in float64, as robomimic builds it with numpy, stored float32
+        grid = lambda n: torch.linspace(-1.0, 1.0, n, dtype=torch.float64, device=x.device).to(torch.float32)
+        gy, gx = torch.meshgrid(grid(H), grid(W), indexing="ij")
+        xy = torch.stack([(attn * gx.reshape(-1)).sum(-1), (attn * gy.reshape(-1)).sum(-1)], dim=-1)
+        return dense(xy.reshape(B, 2 * K).to(x.dtype), self.fc.weight, self.fc.bias)
+
+
+# JAX ``models/temporal_unet.py:74-83``; ``resnet18_gn_keypoints`` is the
+# port's own, for Diffusion Policy's CNN (``models/conditional_unet1d.py``)
 PERCEPTION_BUILDERS = {
     "resnet18": resnet18,
     "resnet34": resnet34,
@@ -217,4 +264,5 @@ PERCEPTION_BUILDERS = {
     "resnext50_32x4d": resnext50_32x4d,
     "wide_resnet50_2": wide_resnet50_2,
     "tiny": TinyEncoder,
+    "resnet18_gn_keypoints": KeypointResNet,
 }

@@ -51,7 +51,7 @@ from .blocks import (
 )
 from .resnet import PERCEPTION_BUILDERS
 
-__all__ = ["TemporalMapUnet", "build_model", "init_parameters", "BN_MODES"]
+__all__ = ["TemporalMapUnet", "build_model", "init_parameters", "BN_MODES", "ARCHS"]
 
 BN_MODES = ("train", "frozen")
 
@@ -244,6 +244,9 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
         if isinstance(mod, nn.Conv2d):
             std = math.sqrt(2.0 / (mod.out_channels * mod.kernel_size[0] * mod.kernel_size[1]))
             fill(mod.weight, lambda t: t.normal_(0.0, std, generator=generator))
+            if mod.bias is not None:  # the keypoint maps' (resnet18_gn_keypoints)
+                bound = 1.0 / math.sqrt(mod.weight[0].numel())
+                fill(mod.bias, uniform(bound))
         elif isinstance(mod, (nn.Conv1d, nn.ConvTranspose1d, nn.Linear)):
             bound = 1.0 / math.sqrt(mod.weight[0].numel())  # torch's fan_in
             fill(mod.weight, uniform(bound))
@@ -261,11 +264,17 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
-def build_model(cfg, device=None, seed: int = 0) -> TemporalMapUnet:
+ARCHS = ("temporal_map_unet", "conditional_unet1d")
+
+
+def build_model(cfg, device=None, seed: int = 0) -> nn.Module:
     """Construct the denoiser from a config (reference: modeling/temporal.py:248-258),
     weights drawn from ``seed``, in eval mode on ``device`` (None: the card).
-    On the card it turns TF32 off (``utils.device.use_float32_math``), so a
-    float32 model serves and trains in float32."""
+    ``MODEL.ARCH`` picks the family: the reference's :class:`TemporalMapUnet`
+    or Diffusion Policy's ``ConditionalUnet1D`` (``models/conditional_unet1d.py``,
+    float32, no guidance). On the card it turns TF32 off
+    (``utils.device.use_float32_math``), so a float32 model serves and trains
+    in float32."""
     dev = resolve_device(device)
     use_float32_math(dev)
     if cfg.MODEL.DIFFUSER_BUILDING_BLOCK != "concat":
@@ -273,6 +282,26 @@ def build_model(cfg, device=None, seed: int = 0) -> TemporalMapUnet:
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     if cfg.TPU.COMPUTE_DTYPE not in dtypes:
         raise ValueError(f"TPU.COMPUTE_DTYPE={cfg.TPU.COMPUTE_DTYPE!r}: expected float32 | bfloat16")
+    arch = cfg.MODEL.ARCH
+    if arch not in ARCHS:
+        raise ValueError(f"MODEL.ARCH={arch!r}: expected one of {', '.join(ARCHS)}")
+    if arch == "conditional_unet1d":
+        from .conditional_unet1d import ConditionalUnet1D
+
+        if cfg.TPU.COMPUTE_DTYPE != "float32" or cfg.TRAIN.USE_COND != "NO_GUIDANCE" or cfg.MODEL.USE_ATTN:
+            raise ValueError("MODEL.ARCH conditional_unet1d runs in float32, with no guidance and no attention")
+        model = ConditionalUnet1D(
+            transition_dim=cfg.MODEL.TRANSITION_DIM,
+            dim=cfg.MODEL.DIM,
+            dim_mults=tuple(cfg.MODEL.DIM_MULTS),
+            step_embed_dim=cfg.MODEL.STEP_EMBED_DIM,
+            n_obs_steps=cfg.MODEL.N_OBS_STEPS,
+            feature_dim=cfg.MODEL.OBS_FEATURE_DIM,
+            num_keypoints=cfg.MODEL.NUM_KEYPOINTS,
+            perception_name=cfg.MODEL.PERCEPTION,
+        )
+        init_parameters(model, torch.Generator().manual_seed(seed))
+        return model.to(dev).eval()
     model = TemporalMapUnet(
         horizon=cfg.MODEL.HORIZON,
         transition_dim=cfg.MODEL.TRANSITION_DIM,

@@ -6,6 +6,10 @@
 //   fused_residual_block  = h   = conv_gn_mish(x) + mish(t) tw + tb  launch 1
 //                           out = conv_gn_mish(h) + residual(x)      launch 2
 //
+// or, with FiLM conditioning (Diffusion Policy's ConditionalResidualBlock1D),
+// launch 1 is h = s * conv_gn_mish(x) + b, [s | b] = mish(t) tw + tb with tw
+// (E, 2C): the scale's C columns, then the shift's.
+//
 // Replaces: autonomous_driving_with_diffusion_model_tpu/ops/pallas_kernels.py:106
 // `fused_residual_block` (_residual_kernel + _conv_gn_mish_inline).
 //
@@ -89,6 +93,7 @@ enum Epilogue : int {
   EPI_TBIAS = 1,     // out += mish(t[b]) . tw[:, c] + tb[c]
   EPI_RES_CONV = 2,  // out += xres[b, l, :] . wres[:, c] + bres[c]
   EPI_RES_ID = 3,    // out += xres[b, l, c]
+  EPI_FILM = 4,      // out = (mish(t[b]) . ew[:, c] + eb[c]) out + mish(t[b]) . ew[:, C + c] + eb[C + c]
 };
 
 constexpr int MAX_SPLIT = 32;      // S: threads sharing one channel's reduction
@@ -111,24 +116,35 @@ struct Layout {
   int red, sp, sy, sye, yc, sres, sx, se, part, parte, total;
 };
 
+__host__ __device__ inline bool reduces(int epi) {  // the epilogue has a projection
+  return epi == EPI_TBIAS || epi == EPI_RES_CONV || epi == EPI_FILM;
+}
+// Weight columns of the epilogue's projection per output channel: FiLM's
+// scale and shift, else one.
+__host__ __device__ inline int heads(int epi) { return epi == EPI_FILM ? 2 : 1; }
+
 // Bytes of the one-wave path's weight slice: K x ceil(Cin / cs) conv rows and
-// ceil(Ce / cs) epilogue rows of cg values (ops/kernels.py:one_wave_geometry).
+// heads x ceil(Ce / cs) epilogue rows of cg values
+// (ops/kernels.py:one_wave_geometry).
 __host__ __device__ inline int slice_bytes(int Cin, int cg, int K, int cs, int epi, int Ce,
                                            int p_bytes) {
-  const bool has_e = epi == EPI_TBIAS || epi == EPI_RES_CONV;
-  return (K * ((Cin + cs - 1) / cs) + (has_e ? (Ce + cs - 1) / cs : 0)) * cg * p_bytes;
+  return (K * ((Cin + cs - 1) / cs) + (reduces(epi) ? heads(epi) * ((Ce + cs - 1) / cs) : 0)) *
+         cg * p_bytes;
 }
 
 __host__ __device__ inline Layout layout(int L, int Cin, int cg, int K, int S, int cs, int epi,
                                          int Ce) {
-  const bool has_e = epi == EPI_TBIAS || epi == EPI_RES_CONV;
-  const int erows = epi == EPI_TBIAS ? 1 : L;  // t is one row for every position
+  const bool has_e = reduces(epi);
+  // t is one row for every position; FiLM's two output rows are its scale
+  // and its shift
+  const int erows = epi == EPI_RES_CONV ? L : 1;
   if (!has_e) Ce = 0;
-  const int n = L * cg, ne = has_e ? erows * cg : 0;
+  const int n = L * cg, ne = has_e ? heads(epi) * erows * cg : 0;
   Layout o;
   o.red = 0;                                      // (32,) block_sum scratch
-  o.sp = o.red + 32;                              // (4, cg) bias, gamma, beta, epilogue bias
-  o.sy = o.sp + 4 * cg;                           // (n,) this rank's conv partial
+  o.sp = o.red + 32;                              // (3 + heads, cg) bias, gamma, beta,
+                                                  // epilogue bias(es)
+  o.sy = o.sp + (3 + heads(epi)) * cg;            // (n,) this rank's conv partial
   o.sye = o.sy + n;                               // (ne,) this rank's epilogue partial
   o.yc = o.sye + ne;                              // (n,) conv + bias of the whole group
   o.sres = o.yc + n;                              // the chunk's residual (EPI_RES_ID)
@@ -268,10 +284,10 @@ __device__ __forceinline__ float rank_sum(float v, At at, int cs) {
 
 // TX: conv input; TP: weights, biases and the epilogue input; TO: output.
 // ein/ew/eb: the epilogue's input, weight and bias: t (B, Ce), tw, tb for
-// EPI_TBIAS; xres (B, L, Ce), wres, bres for EPI_RES_CONV; xres (B, L, C)
-// alone for EPI_RES_ID. Launched in clusters of cs along x. STAMP: record
-// the phase stamps; a normal launch compiles without them. ONE_WAVE: the
-// one-wave path (see the header).
+// EPI_TBIAS; t (B, Ce), tw (Ce, 2C), tb (2C,) for EPI_FILM; xres (B, L, Ce),
+// wres, bres for EPI_RES_CONV; xres (B, L, C) alone for EPI_RES_ID. Launched
+// in clusters of cs along x. STAMP: record the phase stamps; a normal launch
+// compiles without them. ONE_WAVE: the one-wave path (see the header).
 template <int LMAX, bool STAMP, typename TX, typename TP, typename TO, bool ONE_WAVE = false>
 __global__ void __launch_bounds__(MAX_THREADS)
     conv_gn_mish_kernel(const TX* __restrict__ x, const TP* __restrict__ w,
@@ -301,10 +317,12 @@ __global__ void __launch_bounds__(MAX_THREADS)
   const int pad = K / 2;
   const int Lp = L + K - 1;
   const int tid = threadIdx.x, nt = blockDim.x;
-  const bool has_e = epi == EPI_TBIAS || epi == EPI_RES_CONV;
-  const int erows = epi == EPI_TBIAS ? 1 : L;
+  const bool has_e = reduces(epi);
+  const bool film = epi == EPI_FILM;
+  const int erows = epi == EPI_RES_CONV ? L : 1;
   const int Cs = has_e ? Ce : 0;  // epilogue rows that are reduced
-  const int ne = has_e ? erows * cg : 0;
+  const int ne = has_e ? heads(epi) * erows * cg : 0;
+  const int epitch = film ? 2 * C : C;  // the epilogue weight's row
 
   const Layout lay = layout(L, Cin, cg, K, S, cs, epi, Ce);
   float* red = smem + lay.red;
@@ -327,10 +345,12 @@ __global__ void __launch_bounds__(MAX_THREADS)
   auto peer = [&](float* p, int q) { return q == r ? p : cluster.map_shared_rank(p, q); };
 
   // the one-wave path's weight slice: rows j = k * nc + ci of the conv, then
-  // the nce epilogue rows, cg values each, issued before the wait
+  // the nce epilogue rows (FiLM: the scale's, then the shift's), cg values
+  // each, issued before the wait
   TP* ws = nullptr;
   TP* wse = nullptr;
-  float pv[4] = {0.f, 0.f, 0.f, 0.f};  // this thread's bias, gamma, beta, epilogue bias
+  // this thread's bias, gamma, beta and epilogue bias(es)
+  float pv[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
   if constexpr (ONE_WAVE) {
     ws = reinterpret_cast<TP*>(smem + (lay.total + 3) / 4 * 4);
     wse = ws + K * nc * cg;
@@ -339,8 +359,10 @@ __global__ void __launch_bounds__(MAX_THREADS)
     copy_rows(reinterpret_cast<char*>(ws), reinterpret_cast<const char*>(w + (int64_t)c0 * C + g * cg),
               K * nc, nc, Cin * pitch, pitch, row);
     if (has_e)
-      copy_rows(reinterpret_cast<char*>(wse),
-                reinterpret_cast<const char*>(ew + (int64_t)e0 * C + g * cg), nce, nce, 0, pitch, row);
+      for (int hd = 0; hd < heads(epi); ++hd)
+        copy_rows(reinterpret_cast<char*>(wse + hd * nce * cg),
+                  reinterpret_cast<const char*>(ew + (int64_t)e0 * epitch + hd * C + g * cg), nce, nce, 0,
+                  (int64_t)epitch * sizeof(TP), row);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
     if (tid < cg) {
       const int c = g * cg + tid;
@@ -348,6 +370,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
       pv[1] = load(gamma, c);
       pv[2] = load(beta, c);
       pv[3] = has_e ? load(eb, c) : 0.f;
+      pv[4] = film ? load(eb, C + c) : 0.f;
     }
     grid_dependency_wait();
     if constexpr (STAMP) stamp_at(stamps, 0, entry_ns, entry_cycles);
@@ -358,7 +381,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
     const int l = i / nc - pad;
     sx[i] = (l >= 0 && l < L) ? load(xb, (int64_t)l * Cin + i % nc) : 0.f;
   }
-  if (epi == EPI_TBIAS)
+  if (epi == EPI_TBIAS || film)
     for (int e = tid; e < nce; e += nt) se[e] = mish(load(ein, (int64_t)b * Ce + e0 + e));
   else if (epi == EPI_RES_CONV)
     for (int i = tid; i < L * nce; i += nt)
@@ -366,7 +389,9 @@ __global__ void __launch_bounds__(MAX_THREADS)
   // the epilogue's operands, loaded now so that no later step waits on memory
   if constexpr (ONE_WAVE) {
     if (tid < cg)
-      for (int p = 0; p < 4; ++p) sp[p * cg + tid] = pv[p];
+#pragma unroll
+      for (int p = 0; p < 5; ++p)  // pv stays in registers
+        if (p < 3 + heads(epi)) sp[p * cg + tid] = pv[p];
   } else {
     for (int i = tid; i < cg; i += nt) {
       const int c = g * cg + i;
@@ -374,6 +399,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
       sp[cg + i] = load(gamma, c);
       sp[2 * cg + i] = load(beta, c);
       sp[3 * cg + i] = has_e ? load(eb, c) : 0.f;
+      if (film) sp[4 * cg + i] = load(eb, C + c);
     }
   }
   if (epi == EPI_RES_ID)
@@ -397,17 +423,21 @@ __global__ void __launch_bounds__(MAX_THREADS)
 #pragma unroll
     for (int l = 0; l < LMAX; ++l)
       if (l < L) part[s * n + l * cg + cl] = acc[l];
-    if (has_e) {
+    // the epilogue's projection: erows rows of one weight column, or
+    // FiLM's one row of two (the scale's, then the shift's)
+    if (has_e)
+      for (int hd = 0; hd < heads(epi); ++hd) {
 #pragma unroll
-      for (int l = 0; l < LMAX; ++l) acc[l] = 0.f;
-      if constexpr (ONE_WAVE)
-        split_dot_smem<LMAX, U>(acc, se, nce, erows, nce, wse + cl, cg, s, S);
-      else
-        split_dot<LMAX, U>(acc, se, nce, erows, nce, ew + (int64_t)e0 * C + c, 0, C, s, S);
+        for (int l = 0; l < LMAX; ++l) acc[l] = 0.f;
+        if constexpr (ONE_WAVE)
+          split_dot_smem<LMAX, U>(acc, se, nce, erows, nce, wse + hd * nce * cg + cl, cg, s, S);
+        else
+          split_dot<LMAX, U>(acc, se, nce, erows, nce, ew + (int64_t)e0 * epitch + hd * C + c, 0,
+                             epitch, s, S);
 #pragma unroll
-      for (int l = 0; l < LMAX; ++l)
-        if (l < erows) parte[s * ne + l * cg + cl] = acc[l];
-    }
+        for (int l = 0; l < LMAX; ++l)
+          if (l < erows) parte[s * ne + (hd + l) * cg + cl] = acc[l];
+      }
   }
   __syncthreads();
   // past its wait and its weights: a dependent launch may start
@@ -469,7 +499,17 @@ __global__ void __launch_bounds__(MAX_THREADS)
   for (int o = o0 + tid; o < o1; o += nt) {
     const int l = o / cg, ol = o % cg, c = g * cg + ol;
     float y = mish((yc[o] - mean) * rstd * sp[cg + ol] + sp[2 * cg + ol]);
-    if (has_e) {
+    if (film) {
+      float sc = sp[3 * cg + ol], sh = sp[4 * cg + ol];
+      if constexpr (ONE_WAVE) {
+        sc = rank_sum(sc, [&](int q) { return peer(sye, q)[ol]; }, cs);
+        sh = rank_sum(sh, [&](int q) { return peer(sye, q)[cg + ol]; }, cs);
+      } else {
+        for (int q = 0; q < cs; ++q) sc += peer(sye, q)[ol];
+        for (int q = 0; q < cs; ++q) sh += peer(sye, q)[cg + ol];
+      }
+      y = fmaf(sc, y, sh);
+    } else if (has_e) {
       const int eo = (epi == EPI_TBIAS ? 0 : l) * cg + ol;
       float e = sp[3 * cg + ol];
       if constexpr (ONE_WAVE)
@@ -547,7 +587,7 @@ int launch(const void* x, const void* w, const void* bias, const void* gamma, co
            bool one_wave, bool pdl, bool stamped, int* clusters, unsigned long long* stamps,
            cudaStream_t stream) {
   if (groups <= 0 || C % groups != 0 || L < 1 || L > MAX_L || K < 1) return -2;
-  if (epi != EPI_TBIAS && epi != EPI_RES_CONV && epi != EPI_RES_ID) return -2;
+  if (epi != EPI_TBIAS && epi != EPI_RES_CONV && epi != EPI_RES_ID && epi != EPI_FILM) return -2;
   const int cg = C / groups;
   if (cs < 1 || cs > MAX_CLUSTER || (cs & (cs - 1)) != 0) return -2;
   if (threads < cg || threads > MAX_THREADS || threads % 32 != 0) return -2;
@@ -557,7 +597,7 @@ int launch(const void* x, const void* w, const void* bias, const void* gamma, co
   if (one_wave) {
     // whole 16-byte copies of every weight row, from 16-byte aligned rows
     if ((cg * (int)sizeof(TP)) % 16 != 0) return -2;
-    if (!clusters && (!aligned16(w) || ((epi == EPI_TBIAS || epi == EPI_RES_CONV) && !aligned16(ew))))
+    if (!clusters && (!aligned16(w) || (reduces(epi) && !aligned16(ew))))
       return -2;
     want = (want + 15) / 16 * 16 + slice_bytes(Cin, cg, K, cs, epi, Ce, (int)sizeof(TP));
   } else if (pdl) {

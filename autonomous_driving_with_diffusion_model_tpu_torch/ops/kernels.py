@@ -11,7 +11,10 @@ Each kernel has its own CUDA source:
 * ``fused_residual_block`` replaces ``pallas_kernels.py:fused_residual_block``
   (a whole ``ResidualTemporalMapBlock``), two launches of the template
   ``ops/csrc/conv_gn_mish.cu``, which serves the residual block only: conv 2
-  needs every channel of h, a dependency across the whole grid. Each launch's
+  needs every channel of h, a dependency across the whole grid. Given a
+  conditioning projection of 2C outputs it is Diffusion Policy's
+  ``ConditionalResidualBlock1D`` instead: FiLM, the first C outputs scaling
+  conv 1's activation and the last C shifting it (``EPI_FILM``). Each launch's
   geometry comes from :func:`launch_geometry`. At batch 1-2 a launch takes
   the one-wave path where :func:`launch_path` allows it (the CTA's weight
   slice fetched into shared memory at entry, with programmatic dependent
@@ -36,7 +39,8 @@ differentiates as it stands; given CUDA tensors it launches the kernel or
 raises. It adds one to its ``launches`` count for each call that launches;
 ``fused_residual_block`` also counts its kernel launches on the one-wave path
 (``one_wave``) and those of them launched with programmatic dependent launch
-(``pdl``), two launches a call (:func:`launch_counts`).
+(``pdl``), two launches a call, and its launches with the FiLM epilogue
+(``film``, one a FiLM call) (:func:`launch_counts`).
 
 Neither TPU kernel has a backward (the JAX package trains through the XLA
 composite, ``TPU.USE_PALLAS_CONV`` off). So when a CUDA call needs a gradient,
@@ -73,11 +77,13 @@ __all__ = [
     "add_launch_counts",
     "WRAPPERS",
     "PATHS",
+    "FILM",
 ]
 
 SOURCE = "conv_gn_mish.cu"  # the residual block's template
 HEAD_SOURCE = "conv1d_gn_mish.cu"
-EPI_TBIAS, EPI_RES_CONV, EPI_RES_ID = 1, 2, 3
+EPI_TBIAS, EPI_RES_CONV, EPI_RES_ID, EPI_FILM = 1, 2, 3, 4
+_REDUCES = (EPI_TBIAS, EPI_RES_CONV, EPI_FILM)  # epilogues with a projection
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 ERR_SHAPE = -2  # the C function's code for a shape or geometry it does not take
 MAX_L = 16  # positions a kernel thread holds in registers
@@ -117,10 +123,14 @@ def residual_block_plain(
     n_groups: int = 8, eps: float = 1e-5,
 ):
     """``CGM2(CGM1(x) + mish(t) tw + tb) + (x wres + bres, or x)`` in float32
-    (h stays float32 between the two), returned in ``x.dtype``."""
+    (h stays float32 between the two), returned in ``x.dtype``. With tw
+    (E, 2C), FiLM: ``[s | b] = mish(t) tw + tb`` and conv 2 takes
+    ``s * CGM1(x) + b``."""
     f = lambda a: a.to(torch.float32)
     h = _cgm32(x, w1, b1, g1, be1, n_groups, eps)
-    h = h + (mish(f(t)) @ f(tw) + f(tb))[:, None, :]
+    e = (mish(f(t)) @ f(tw) + f(tb))[:, None, :]
+    C = h.shape[-1]
+    h = e[..., :C] * h + e[..., C:] if e.shape[-1] == 2 * C else h + e
     out = _cgm32(h, w2, b2, g2, be2, n_groups, eps)
     res = f(x) @ f(wres[0]) + f(bres) if wres is not None else f(x)
     return (out + res).to(x.dtype)
@@ -150,9 +160,9 @@ def _cdiv(a: int, b: int) -> int:
 
 def launch_geometry(B, L, Cin, C, K, groups, Ce, epi, cs=None) -> Geometry:
     """The geometry of one launch of the residual block's template: ``Ce`` is
-    the epilogue's reduced length (E for ``EPI_TBIAS``, the residual's Cin
-    for ``EPI_RES_CONV``, ignored for ``EPI_RES_ID``); ``cs`` forces a cluster
-    size.
+    the epilogue's reduced length (E for ``EPI_TBIAS`` and ``EPI_FILM``, the
+    residual's Cin for ``EPI_RES_CONV``, ignored for ``EPI_RES_ID``); ``cs``
+    forces a cluster size.
 
     A cluster of ``cs`` CTAs owns one (batch row, group); ``cs`` is the
     largest power of two up to 8 that leaves each rank ``MIN_RANK_CHANNELS``
@@ -168,26 +178,27 @@ def _geometry(B, L, Cin, C, K, groups, Ce, epi, cs, max_threads) -> Geometry:
     while S * 2 <= MAX_SPLIT and S * 2 * cg <= max_threads:
         S *= 2
     threads = _cdiv(S * cg, 32) * 32
-    has_e = epi in (EPI_TBIAS, EPI_RES_CONV)
+    has_e = epi in _REDUCES
     Ce = Ce if has_e else 0
     if cs is None:
         cs = 1
         while cs * 2 <= MAX_CLUSTER and Cin // (cs * 2) >= MIN_RANK_CHANNELS:
             cs *= 2
-    erows = 1 if epi == EPI_TBIAS else L
-    n, ne = L * cg, (erows * cg if has_e else 0)
+    erows = L if epi == EPI_RES_CONV else 1  # input rows of the epilogue
+    heads = 2 if epi == EPI_FILM else 1  # FiLM's scale and shift
+    n, ne = L * cg, (heads * erows * cg if has_e else 0)
     chunk = _cdiv(n, cs)  # outputs a rank finishes
-    floats = (32 + 4 * cg + n + ne + n + (chunk if epi == EPI_RES_ID else 0)
+    floats = (32 + (3 + heads) * cg + n + ne + n + (chunk if epi == EPI_RES_ID else 0)
               + (L + K - 1) * _cdiv(Cin, cs) + erows * _cdiv(Ce, cs) + S * (n + ne))
     return Geometry(cs, S, threads, 4 * floats, B * groups * cs)
 
 
-def residual_block_geometry(B, L, Cin, C, E, has_res, K=5, groups=8) -> tuple:
+def residual_block_geometry(B, L, Cin, C, E, has_res, K=5, groups=8, film=False) -> tuple:
     """The geometries of ``fused_residual_block``'s two launches: conv 1 with
-    the time projection, conv 2 with the residual (a projection when
-    ``has_res``, else the identity)."""
+    the time projection (FiLM's where ``film``), conv 2 with the residual (a
+    projection when ``has_res``, else the identity)."""
     return (
-        launch_geometry(B, L, Cin, C, K, groups, E, EPI_TBIAS),
+        launch_geometry(B, L, Cin, C, K, groups, E, EPI_FILM if film else EPI_TBIAS),
         launch_geometry(B, L, C, C, K, groups, Cin, EPI_RES_CONV if has_res else EPI_RES_ID),
     )
 
@@ -197,12 +208,12 @@ def one_wave_geometry(geo: Geometry, L, Cin, C, K, groups, Ce, epi, p_bytes) -> 
     its cluster size, at most :data:`ONE_WAVE_THREADS` threads a CTA (S
     shrunk to fit), then the shared memory rounded up to 16 bytes and the
     CTA's weight slice, ``K x ceil(Cin / cs)`` conv rows and ``ceil(Ce /
-    cs)`` epilogue rows of ``cg`` values of ``p_bytes`` each (the C side's
-    ``slice_bytes``)."""
+    cs)`` epilogue rows (twice as many under FiLM) of ``cg`` values of
+    ``p_bytes`` each (the C side's ``slice_bytes``)."""
     B = geo.ctas // (groups * geo.cs)
     base = _geometry(B, L, Cin, C, K, groups, Ce, epi, geo.cs, ONE_WAVE_THREADS)
-    has_e = epi in (EPI_TBIAS, EPI_RES_CONV)
-    rows = K * _cdiv(Cin, geo.cs) + (_cdiv(Ce, geo.cs) if has_e else 0)
+    heads = 2 if epi == EPI_FILM else 1
+    rows = K * _cdiv(Cin, geo.cs) + (heads * _cdiv(Ce, geo.cs) if epi in _REDUCES else 0)
     return base._replace(smem=_cdiv(base.smem, 16) * 16 + rows * (C // groups) * p_bytes)
 
 
@@ -364,8 +375,9 @@ def _pick_path(geo: Geometry, x, w, out, epi, ein, ew, n_groups, cached: bool, s
 def _launch(geo: Geometry, x, w, b, gamma, beta, out, n_groups, eps, epi, ein=None, ew=None,
             eb=None, stamps=None, one_wave=False, pdl=False) -> None:
     """One launch of the residual block's template at geometry ``geo``.
-    ``ein``/``ew``/``eb``: the epilogue's input, weight and bias (t, tw, tb;
-    or xres, wres, bres; or xres alone); ``one_wave``: the one-wave path, at
+    ``ein``/``ew``/``eb``: the epilogue's input, weight and bias (t, tw, tb,
+    of 2C columns under FiLM; or xres, wres, bres; or xres alone);
+    ``one_wave``: the one-wave path, at
     its geometry (:func:`one_wave_geometry`); ``pdl``: launched with
     programmatic dependent launch."""
     from .build import library
@@ -505,7 +517,9 @@ def fused_residual_block(
     n_groups: int = 8, eps: float = 1e-5, *, stamps=None, weights_cached: bool = False,
 ):
     """Whole ResidualTemporalMapBlock. x: (B, L, Cin); t: (B, E); w1 (K, Cin,
-    C); w2 (K, C, C); tw (E, C); wres (1, Cin, C) or None (then Cin == C).
+    C); w2 (K, C, C); tw (E, C), or (E, 2C) with tb (2C,) for FiLM (Diffusion
+    Policy's ConditionalResidualBlock1D: the scale's C columns, then the
+    shift's); wres (1, Cin, C) or None (then Cin == C).
     ``stamps``: None, or a pair of :func:`phase_stamps` buffers, one for
     each launch. ``weights_cached`` (the blocks' own, ``models/blocks.py``):
     the weights and biases are a pack made before this call, which no kernel
@@ -530,20 +544,22 @@ def _residual_block_cuda(x, t, w1, b1, g1, be1, tw, tb, w2, b2, g2, be2, wres, b
     E = t.shape[1]
     if (wres is None) != (bres is None) or (wres is None and Cin != C):
         raise ValueError("wres/bres are needed exactly when Cin != C")
+    film = tw.shape[-1] == 2 * C
+    CE = 2 * C if film else C
     _check_cuda(
         x,
         dict(x=x, t=t, w1=w1, b1=b1, g1=g1, be1=be1, tw=tw, tb=tb, w2=w2, b2=b2, g2=g2,
              be2=be2, wres=wres, bres=bres),
-        dict(x=(B, L, Cin), t=(B, E), w1=(K, Cin, C), b1=(C,), g1=(C,), be1=(C,), tw=(E, C),
-             tb=(C,), w2=(K, C, C), b2=(C,), g2=(C,), be2=(C,), wres=(1, Cin, C), bres=(C,)),
+        dict(x=(B, L, Cin), t=(B, E), w1=(K, Cin, C), b1=(C,), g1=(C,), be1=(C,), tw=(E, CE),
+             tb=(CE,), w2=(K, C, C), b2=(C,), g2=(C,), be2=(C,), wres=(1, Cin, C), bres=(C,)),
     )
     s1, s2 = (None, None) if stamps is None else stamps
     h = torch.empty((B, L, C), dtype=torch.float32, device=x.device)  # stays fp32
     out = torch.empty((B, L, C), dtype=x.dtype, device=x.device)
-    geo1, geo2 = residual_block_geometry(B, L, Cin, C, E, wres is not None, K, n_groups)
+    geo1, geo2 = residual_block_geometry(B, L, Cin, C, E, wres is not None, K, n_groups, film)
     epi2, ew2 = (EPI_RES_CONV, wres[0]) if wres is not None else (EPI_RES_ID, None)
     for geo, xin, w, b, g, be, y, epi, ein, ew, eb, st in (
-            (geo1, x, w1, b1, g1, be1, h, EPI_TBIAS, t, tw, tb, s1),
+            (geo1, x, w1, b1, g1, be1, h, EPI_FILM if film else EPI_TBIAS, t, tw, tb, s1),
             (geo2, h, w2, b2, g2, be2, out, epi2, x, ew2, bres, s2)):
         geo, one_wave, pdl = _pick_path(geo, xin, w, y, epi, ein, ew, n_groups, weights_cached,
                                         st is not None)
@@ -552,6 +568,7 @@ def _residual_block_cuda(x, t, w1, b1, g1, be1, tw, tb, w2, b2, g2, be2, wres, b
         fused_residual_block.one_wave += one_wave
         fused_residual_block.pdl += pdl
     fused_residual_block.launches += 1
+    fused_residual_block.film += film
     return out
 
 
@@ -559,11 +576,14 @@ WRAPPERS = ("fused_conv1d_gn_mish", "fused_residual_block")  # launch_counts' ke
 # launch_counts' keys of the residual block's kernel launches (two a call) on
 # the one-wave path, and of those with programmatic dependent launch
 PATHS = ("fused_residual_block.one_wave", "fused_residual_block.pdl")
+# launch_counts' key of the residual block's launches with the FiLM epilogue
+# (one a FiLM call)
+FILM = "fused_residual_block.film"
 
 
 # (key, wrapper, attribute) of every count
 _COUNTERS = tuple((f.__name__, f, "launches") for f in (fused_conv1d_gn_mish, fused_residual_block)) + tuple(
-    (key, fused_residual_block, key.split(".")[1]) for key in PATHS)
+    (key, fused_residual_block, key.split(".")[1]) for key in (*PATHS, FILM))
 
 
 def reset_launch_counts() -> None:
@@ -572,8 +592,9 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> Dict[str, int]:
-    """Each wrapper's launch count (calls), by the wrapper's name, and the
-    residual block's kernel launches on each path (:data:`PATHS`)."""
+    """Each wrapper's launch count (calls), by the wrapper's name, the
+    residual block's kernel launches on each path (:data:`PATHS`) and its
+    FiLM launches (:data:`FILM`)."""
     return {key: getattr(f, attr) for key, f, attr in _COUNTERS}
 
 

@@ -162,6 +162,18 @@ def create_cfg() -> CfgNode:
     # resnet34 (modeling/temporal.py:83); torch-checkpoint conversion requires
     # "resnet34". "tiny" is a 2-conv encoder for tests/experiments.
     cfg.MODEL.PERCEPTION = "resnet34"
+    # Port extension: the denoiser family. "temporal_map_unet", the
+    # reference's (modeling/temporal.py); "conditional_unet1d", Diffusion
+    # Policy's CNN (Chi et al., RSS 2023; models/conditional_unet1d.py): FiLM
+    # residual blocks on [step embedding | the last N_OBS_STEPS
+    # observations], an observation [image feature | target point], DIM x
+    # DIM_MULTS its down_dims, PERCEPTION "resnet18_gn_keypoints"; serving
+    # only, no guidance. The next four keys are its own.
+    cfg.MODEL.ARCH = "temporal_map_unet"
+    cfg.MODEL.STEP_EMBED_DIM = 128  # diffusion_step_embed_dim
+    cfg.MODEL.N_OBS_STEPS = 2  # the requests a plan conditions on
+    cfg.MODEL.OBS_FEATURE_DIM = 64  # one frame's image feature
+    cfg.MODEL.NUM_KEYPOINTS = 32  # the spatial softmax's keypoints
 
     # ======= Train =======
     cfg.TRAIN = CfgNode()
@@ -244,6 +256,10 @@ def create_cfg() -> CfgNode:
     # interact.py:92-94, but its registry lacks the entry; live here)
     cfg.EVAL.SCHEDULER = "ddim"
     cfg.EVAL.SAMPLE_STEPS = 100
+    # Port extension: the agents' x0 post-processing. Dynamic thresholding,
+    # as the reference's agents sample (interact.py:81-94), or, False,
+    # clipping to [-1, 1] (Diffusion Policy's DDPMScheduler).
+    cfg.EVAL.THRESHOLDING = True
 
     # ======= TPU-native extensions (absent from the reference) =======
     cfg.TPU = CfgNode()

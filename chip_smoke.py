@@ -135,13 +135,22 @@ Phases, each of which fails the run (nonzero exit, no result line):
    capture's record; the profiler's count of one replay's kernels equal to
    the record; step p50 of both, warm and capture seconds, peak memory,
    busy shares), then a plan and a sample after replayed steps against a
-   fresh model loaded with the trained weights.
+   fresh model loaded with the trained weights;
+15. Diffusion Policy's CNN (``MODEL.ARCH conditional_unet1d``) at its
+   published widths: the 12 FiLM residual-block calls of one batch-1
+   forward (10 distinct geometries, Cin up to 4096, C up to 2048) and the
+   512-wide head, each against its plain version at KERNEL_TOL's float32
+   tolerance, launched as the blocks launch them; the launches by path and
+   FiLM counted from that pass, the counts zeroed just before; each call's
+   device time beside the plain version's and its bound, and the forward's
+   calls in one graph against the summed bound and the card's bandwidth.
 
 The last two lines of standard output are the card (nvidia-smi) and the
 kernels as JSON, then ``{"ok": true, "device": ...}``. Per-shape numbers and
 phase 6's results (under ``agents``), phase 11's (under ``carla``), phase
 12's (under ``learnability``), phase 13's (under ``compiled_plan``) and
-phase 14's (under ``compiled_train``) go to chiprun_out/chip_smoke.json.
+phase 14's (under ``compiled_train``) and phase 15's (under ``film``) go to
+chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -156,8 +165,12 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PKG = "autonomous_driving_with_diffusion_model_tpu_torch"
 CONFIGS = ("configs/default.yaml", "configs/guidance/free_guidance.yaml",
            "configs/guidance/classifier_guidance.yaml")
+# phase 15: Diffusion Policy's CNN at its published widths (down_dims 512,
+# 1024, 2048; perfbench/configs/diffusion_policy_cnn.json)
+FILM_OPTS = ("MODEL.ARCH", "conditional_unet1d", "MODEL.DIM", "512", "MODEL.DIM_MULTS", "[1, 2, 4]",
+             "MODEL.PERCEPTION", "resnet18_gn_keypoints")
 KERNEL_TOL = {
-    # fp32: the conv sums up to 5 * 1024 products in another order than cuDNN
+    # fp32: the conv sums up to 5 * 4096 products in another order than cuDNN
     "float32": dict(atol=1e-4, rtol=1e-4),
     # bf16: same bf16 inputs and fp32 math on both sides; the outputs may
     # round to neighbouring bf16 values (2^-8 relative), twice over
@@ -2842,6 +2855,103 @@ def _compiled_train(load_cfg, device_breakdown, launches, smi, dev, card) -> dic
     return out
 
 
+def film(case, graph_ms, bound_ms, smi, dev="cuda", extra_opts=()) -> dict:
+    """Phase 15: the FiLM residual block and the head at Diffusion Policy's
+    published widths, batch 1 (``FILM_OPTS``; ``extra_opts`` narrow it for
+    a rehearsal on the CPU). ``case``, ``graph_ms`` and ``bound_ms`` are
+    phase 5's."""
+    import torch
+
+    from autonomous_driving_with_diffusion_model_tpu_torch.models import Conv1dBlock, build_model
+    from autonomous_driving_with_diffusion_model_tpu_torch.models.conditional_unet1d import (
+        ConditionalResidualBlock1D,
+    )
+    from autonomous_driving_with_diffusion_model_tpu_torch.ops import kernels
+    from autonomous_driving_with_diffusion_model_tpu_torch.utils.config import create_cfg
+
+    cfg = create_cfg()
+    cfg.merge_from_list(list(FILM_OPTS) + list(extra_opts))
+    model = build_model(cfg, device=dev, seed=0)
+    calls = []
+    hooks = [m.register_forward_hook(lambda mod, args, out, n=n: calls.append((n, mod, args)))
+             for n, m in model.named_modules() if isinstance(m, (ConditionalResidualBlock1D, Conv1dBlock))]
+    obs = cfg.MODEL.N_OBS_STEPS * (cfg.MODEL.OBS_FEATURE_DIM + 2)
+    with torch.no_grad():
+        model(torch.zeros(1, cfg.MODEL.HORIZON, cfg.MODEL.TRANSITION_DIM, device=dev),
+              torch.ones(1, device=dev), torch.zeros(1, obs, device=dev))
+    for h in hooks:
+        h.remove()
+    blocks = [a for _, m, a in calls if isinstance(m, ConditionalResidualBlock1D)]
+    shapes = {(a[0].shape[1], a[0].shape[2], m.blocks[0].block[0].out_channels) for _, m, a in calls
+              if isinstance(m, ConditionalResidualBlock1D)}
+    if len(blocks) != 12 or len(calls) != 13 or len(shapes) != 10:
+        raise AssertionError(f"film: {len(blocks)} blocks, {len(calls)} calls, {len(shapes)} geometries "
+                             f"in one forward; expected 12, 13 and 10")
+
+    gen = torch.Generator().manual_seed(15)
+    cases = [case(m, a, 1, torch.float32, gen) for n, m, a in calls]
+    # as the blocks launch their cached packs: one-wave and PDL where they apply
+    kcall = lambda c: ((lambda: c[0](*c[2], weights_cached=True)) if c[0] is kernels.fused_residual_block
+                       else (lambda: c[0](*c[2])))
+    pcall = lambda c: (lambda: c[1](*c[2]))
+    rows, max_err = [], {"fused_residual_block": 0.0, "fused_conv1d_gn_mish": 0.0}
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        for (n, m, a), c in zip(calls, cases):
+            fn, plain, args = c
+            before = kernels.launch_counts()
+            got = kcall(c)()
+            want = plain(*args)
+            torch.cuda.synchronize()
+            after = kernels.launch_counts()
+            err = (got - want).abs().max().item()
+            ok = torch.allclose(got, want, **KERNEL_TOL["float32"]) and bool(torch.isfinite(got).all())
+            max_err[fn.__name__] = max(max_err[fn.__name__], err)
+            C = int(args[2 if fn is kernels.fused_residual_block else 1].shape[-1])
+            row = dict(kernel=fn.__name__, block=n, shape=list(args[0].shape), C=C, max_abs_err=err,
+                       one_wave=after[kernels.PATHS[0]] - before[kernels.PATHS[0]],
+                       pdl=after[kernels.PATHS[1]] - before[kernels.PATHS[1]],
+                       film=after[kernels.FILM] - before[kernels.FILM])
+            rows.append(row)
+            log(f"film check {fn.__name__:22s} {n:22s} L={row['shape'][1]:2d} {row['shape'][2]:4d}->{C:4d} "
+                f"max_abs_err={err:.3e} launches one-wave {row['one_wave']} PDL {row['pdl']} FiLM {row['film']} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"film: {fn.__name__} at {n}: max_abs_err {err}")
+        counts = kernels.launch_counts()
+        want_counts = {"fused_residual_block": 12, kernels.FILM: 12, "fused_conv1d_gn_mish": 1}
+        if {k: counts[k] for k in want_counts} != want_counts:
+            raise AssertionError(f"film: launch counts {counts}, expected {want_counts}")
+        log(f"film launches of one forward's calls: {counts}")
+
+        # each call 20 times in one graph; the forward's calls in one graph
+        # (1.0 GB of weights: none stay in the 50 MB L2 between passes)
+        reps = 20
+        for row, c in zip(rows, cases):
+            b, by = bound_ms(c[0], c[2])
+            row.update(kernel_us=graph_ms([kcall(c)] * reps) / reps * 1e3,
+                       plain_us=graph_ms([pcall(c)] * reps) / reps * 1e3, bound_us=b * 1e3, bound_by=by)
+            log(f"film time {row['kernel']:22s} {row['block']:22s} L={row['shape'][1]:2d} "
+                f"{row['shape'][2]:4d}->{row['C']:4d}: kernel_us={row['kernel_us']:.2f} "
+                f"plain_us={row['plain_us']:.2f} bound_us={row['bound_us']:.2f} ({by}) on {smi}")
+        out = {"rows": rows, "launches": {k: counts[k] for k in counts}}
+        for kname in max_err:
+            mine = [c for c in cases if c[0].__name__ == kname]
+            first = 2 if kname == "fused_residual_block" else 1  # the weights follow x (and t)
+            nbytes = sum(a.numel() * a.element_size() for c in mine for a in c[2][first:] if a is not None)
+            ms = graph_ms([kcall(c) for c in mine])
+            out[kname] = dict(calls=len(mine), max_abs_err=max_err[kname], ms=ms,
+                              plain_ms=graph_ms([pcall(c) for c in mine]),
+                              bound_ms=sum(bound_ms(c[0], c[2])[0] for c in mine), weight_bytes=nbytes,
+                              weight_tb_s=nbytes / (ms / 1e3) / 1e12)
+            log(f"film time {kname}: one forward's {len(mine)} calls, device ms: kernel {ms:.4f}, plain "
+                f"{out[kname]['plain_ms']:.4f}, bound {out[kname]['bound_ms']:.4f}; weights "
+                f"{nbytes / 1e9:.4f} GB at {out[kname]['weight_tb_s']:.3f} TB/s on {smi}")
+    del model, cases
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3063,7 +3173,9 @@ def main() -> int:
         tensors = [a for a in args if a is not None]
         if fn is kernels.fused_residual_block:
             C, E = args[2].shape[2], args[1].shape[1]
-            ops = 2 * B * (L * 5 * cin * C + L * 5 * C * C + E * C + (L * cin * C if args[12] is not None else 0))
+            # E x C for the time bias, E x 2C for FiLM's scale and shift
+            ops = 2 * B * (L * 5 * cin * C + L * 5 * C * C + E * args[6].shape[1]
+                           + (L * cin * C if args[12] is not None else 0))
         else:
             C = args[1].shape[2]
             ops = 2 * B * L * 5 * cin * C
@@ -3305,6 +3417,9 @@ def main() -> int:
     # ----------------------------------- 14. the training-side steps compiled
     report["compiled_train"] = compiled_train(load_cfg, device_breakdown, launches, smi)
     phase_done(14)
+    # ----------------------- 15. Diffusion Policy's FiLM blocks and head
+    report["film"] = film(case, graph_ms, bound_ms, smi)
+    phase_done(15)
     report["phase_done_s"] = phase_s
 
     kernels_line = []
@@ -3323,9 +3438,11 @@ def main() -> int:
             per=f"one U-Net forward at batch 1, device time: its {s['calls']} calls; ms, plain_ms, "
                 f"bound_ms in float32, the *_bf16 keys in bfloat16, the *_b32 keys float32 at batch 32 "
                 f"(the training batch), recompute_backward_ms_b32 the autograd.Function's backward of "
-                f"those calls",
+                f"those calls; diffusion_policy_cnn: phase 15's, Diffusion Policy's CNN at its published "
+                f"widths, one batch-1 forward's calls in float32",
             library_note="no single PyTorch call computes this function",
             paths={k: v for k, v in s.items() if k.endswith(("today", "no_pdl", "b2", "one_wave", "launches"))},
+            diffusion_policy_cnn=report["film"][kname],
         ))
     report["kernels"] = kernels_line
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)

@@ -18,6 +18,7 @@ from autonomous_driving_with_diffusion_model_tpu.driving.pid import PIDControlle
 from autonomous_driving_with_diffusion_model_tpu.driving.plan import DiffusionPlanner as JPlanner
 from autonomous_driving_with_diffusion_model_tpu.driving.planner import RoutePlanner as JRoutePlanner
 from autonomous_driving_with_diffusion_model_tpu.utils.config import create_cfg as jax_create_cfg
+from port_jax_cfg import jax_cfg_of
 from autonomous_driving_with_diffusion_model_tpu_torch import driving as tdrv
 from autonomous_driving_with_diffusion_model_tpu_torch.driving import fake_env as tfake
 from autonomous_driving_with_diffusion_model_tpu_torch.driving import gps as tgps
@@ -57,9 +58,7 @@ def _cfg(mode="NO_GUIDANCE", transition_dim=7, perception="resnet34"):
 
 
 def _jcfg(cfg):
-    jcfg = jax_create_cfg()
-    jcfg.merge_from_other_cfg(cfg)
-    return jcfg
+    return jax_cfg_of(cfg)
 
 
 def _pair_pth(cfg, tmp_path):

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 
 from autonomous_driving_with_diffusion_model_tpu.models import build_model as jax_build_model
 from autonomous_driving_with_diffusion_model_tpu.models.temporal_unet import TemporalMapUnet as JaxUnet
-from autonomous_driving_with_diffusion_model_tpu.utils.config import create_cfg as jax_create_cfg
+from port_jax_cfg import jax_cfg_of
 from autonomous_driving_with_diffusion_model_tpu_torch import diffusion as tdiff
 from autonomous_driving_with_diffusion_model_tpu_torch.models import (
     Conv1dBlock,
@@ -43,9 +43,7 @@ def _cfg(mode, dtype="bfloat16"):
 
 
 def _jax_cfg(cfg):
-    jcfg = jax_create_cfg()
-    jcfg.merge_from_other_cfg(cfg)
-    return jcfg
+    return jax_cfg_of(cfg)
 
 
 def _jax_tree(model, cfg):

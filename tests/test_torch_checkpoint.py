@@ -19,7 +19,7 @@ from autonomous_driving_with_diffusion_model_tpu.train import (
     export_torch_checkpoint as jax_export,
     import_torch_checkpoint as jax_import,
 )
-from autonomous_driving_with_diffusion_model_tpu.utils.config import create_cfg as jax_create_cfg
+from port_jax_cfg import jax_cfg_of
 from autonomous_driving_with_diffusion_model_tpu_torch.diffusion import make_schedule
 from autonomous_driving_with_diffusion_model_tpu_torch.models import (
     build_model,
@@ -54,9 +54,7 @@ def _cfg(perception="resnet34"):
 
 
 def _jax_cfg(cfg):
-    jcfg = jax_create_cfg()
-    jcfg.merge_from_other_cfg(cfg)
-    return jcfg
+    return jax_cfg_of(cfg)
 
 
 def _jax_state(cfg, seed=0):

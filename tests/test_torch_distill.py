@@ -40,7 +40,7 @@ from autonomous_driving_with_diffusion_model_tpu.diffusion import (
     make_schedule as jax_make_schedule,
 )
 from autonomous_driving_with_diffusion_model_tpu.models import build_model as jax_build_model
-from autonomous_driving_with_diffusion_model_tpu.utils.config import create_cfg as jax_create_cfg
+from port_jax_cfg import jax_cfg_of
 from autonomous_driving_with_diffusion_model_tpu.utils.constants import GuidanceType as JaxGuidance
 from autonomous_driving_with_diffusion_model_tpu_torch.diffusion import (
     DistillDraws,
@@ -108,8 +108,7 @@ def _np(tree):
 def jax_run(use_cond, snr_weight, dtype="float32"):
     """The teacher's variables and N_STEPS jitted JAX distill steps, the
     model computing in ``dtype``."""
-    jcfg = jax_create_cfg()
-    jcfg.merge_from_other_cfg(port_cfg(use_cond))
+    jcfg = jax_cfg_of(port_cfg(use_cond))
     model = jax_build_model(jcfg, dtype=getattr(jnp, dtype))
     variables = model.init(jax.random.PRNGKey(0), jnp.zeros((1, 16, 7)), img=jnp.zeros((1, *HW, 3)),
                            time=jnp.asarray([1.0]))

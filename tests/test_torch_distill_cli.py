@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from autonomous_driving_with_diffusion_model_tpu.driving.plan import DiffusionPlanner as JaxPlanner
-from autonomous_driving_with_diffusion_model_tpu.utils.config import create_cfg as jax_create_cfg
+from port_jax_cfg import jax_cfg_of
 from autonomous_driving_with_diffusion_model_tpu_torch import distill
 from autonomous_driving_with_diffusion_model_tpu_torch.driving import DiffusionPlanner
 from autonomous_driving_with_diffusion_model_tpu_torch.models import build_model
@@ -93,8 +93,7 @@ def test_two_stages_write_students_that_both_planners_load(tmp_path, capsys):
         pcfg.merge_from_list(opts(tmp_path))
         pcfg.TPU.SAMPLE_TIMESTEPS = stage["timesteps"]
         port = DiffusionPlanner(pcfg, checkpoint=stage["checkpoint"], device="cpu")
-        jcfg = jax_create_cfg()
-        jcfg.merge_from_other_cfg(pcfg)
+        jcfg = jax_cfg_of(pcfg)
         theirs = JaxPlanner(jcfg, checkpoint=stage["checkpoint"])
         port.init_trajs = torch.from_numpy(np.array(theirs.init_trajs))
         np.testing.assert_allclose(port.plan(frame), np.asarray(theirs.plan(frame)), **TOL)
@@ -174,8 +173,7 @@ def test_cfg_stage_loop_matches_jax_cli(tmp_path, monkeypatch):
     write_dataset(str(tmp_path / "data"))
     cfg = create_cfg()
     cfg.merge_from_list(_cfg_opts(tmp_path))
-    jcfg = jax_create_cfg()
-    jcfg.merge_from_other_cfg(cfg)
+    jcfg = jax_cfg_of(cfg)
     H, W = cfg.TRAIN.IMAGE_HEIGHT, cfg.TRAIN.IMAGE_WIDTH
     jmodel = jax_build_model(jcfg)
     variables = jmodel.init(jax.random.PRNGKey(7), jnp.zeros((1, 16, 7)), img=jnp.zeros((1, H, W, 3)),

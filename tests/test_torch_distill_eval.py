@@ -34,12 +34,11 @@ def test_fixture_is_the_jax_planners_seed0_draw():
     evaluation config (its draw depends on the trajectory shape alone, which
     the full-size config shares)."""
     from autonomous_driving_with_diffusion_model_tpu.driving.plan import DiffusionPlanner as JaxPlanner
-    from autonomous_driving_with_diffusion_model_tpu.utils.config import create_cfg as jax_create_cfg
+    from port_jax_cfg import jax_cfg_of
 
     full = tl.make_cfg("FREE_GUIDANCE")
     shape = (full.TPU.NUM_HYPOTHESES, full.MODEL.HORIZON, full.MODEL.TRANSITION_DIM)
-    jcfg = jax_create_cfg()
-    jcfg.merge_from_other_cfg(tl.make_cfg("FREE_GUIDANCE", hw=HW, quick=True))
+    jcfg = jax_cfg_of(tl.make_cfg("FREE_GUIDANCE", hw=HW, quick=True))
     want = np.asarray(JaxPlanner(jcfg, seed=0).init_trajs)
     got = np.load(FIXTURE)
     assert got.shape == want.shape == shape == (1, 16, 7) and got.dtype == np.float32

@@ -63,7 +63,8 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "sim.terminal", "sim.traffic_lights", "sim.expert", "sim.route_planner",
                 "sim.scenario_actors", "sim.scenario_injection", "sim.birdview", "sim.map_raster",
                 "sim.carla_env", "sim.create_agent", "sim.obs_handler", "sim.noiser", "sim.collector",
-                "sim.collect_loop", "sim.collect_cli", "learnability", "entry", "driving.program"):
+                "sim.collect_loop", "sim.collect_cli", "learnability", "entry", "driving.program",
+                "models.conditional_unet1d"):
         assert f"autonomous_driving_with_diffusion_model_tpu_torch.{sub}" in result["imported"]
     assert result["jax_side"] == []
     assert result["jax"] == []

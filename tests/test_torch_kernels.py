@@ -294,14 +294,17 @@ def test_one_wave_slice_fits_every_main_path_launch(B, L, cin, c):
 
 
 def test_path_counts_pass_through_launch_counts():
-    """The one-wave and PDL counts sit beside the wrappers' counts in
-    launch_counts, and a graph's replay adds them through add_launch_counts
-    (a default replay: 1,600 calls, 3,200 launches on each path)."""
+    """The one-wave and PDL counts and the FiLM launches sit beside the
+    wrappers' counts in launch_counts, and a graph's replay adds them through
+    add_launch_counts (a default replay: 1,600 calls, 3,200 launches on each
+    path, no FiLM launch)."""
     kernels.reset_launch_counts()
     counts = kernels.launch_counts()
-    assert set(counts) == set(kernels.WRAPPERS) | set(kernels.PATHS) and not any(counts.values())
+    keys = set(kernels.WRAPPERS) | set(kernels.PATHS) | {kernels.FILM}
+    assert set(counts) == keys and not any(counts.values())
     replay = {"fused_conv1d_gn_mish": 100, "fused_residual_block": 1600,
-              "fused_residual_block.one_wave": 3200, "fused_residual_block.pdl": 3200}
+              "fused_residual_block.one_wave": 3200, "fused_residual_block.pdl": 3200,
+              "fused_residual_block.film": 0}
     kernels.add_launch_counts(replay)
     kernels.add_launch_counts(replay)
     assert kernels.launch_counts() == {k: 2 * v for k, v in replay.items()}

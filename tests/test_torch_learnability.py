@@ -227,15 +227,14 @@ def test_heldout_l2_matches_the_jax_planner(use_target):
     noise injected, MODEL.DIM 8, tiny perception, DDIM-2, float32 (a bf16
     forward rounds at other places on the two sides)."""
     from autonomous_driving_with_diffusion_model_tpu.driving.plan import DiffusionPlanner as JaxPlanner
-    from autonomous_driving_with_diffusion_model_tpu.utils.config import create_cfg as jax_create_cfg
+    from port_jax_cfg import jax_cfg_of
     from autonomous_driving_with_diffusion_model_tpu_torch.driving import DiffusionPlanner
     from autonomous_driving_with_diffusion_model_tpu_torch.models.convert import from_jax_variables
 
     cfg = tl.make_cfg(hw=HW, quick=True)
     cfg.EVAL.SAMPLE_STEPS = 2
     cfg.TPU.COMPUTE_DTYPE = "float32"
-    jcfg = jax_create_cfg()
-    jcfg.merge_from_other_cfg(cfg)
+    jcfg = jax_cfg_of(cfg)
     jax_planner = JaxPlanner(jcfg, seed=1)
     port = DiffusionPlanner(cfg, device="cpu")
     port.model.load_state_dict(from_jax_variables(jax_planner.variables, cfg), strict=True)
@@ -269,15 +268,14 @@ def test_cfg_student_closed_loop_matches_the_jax_planner():
     noise injected: every tick's plan within 1e-4 m, and the completion and
     mean |lateral| too."""
     from autonomous_driving_with_diffusion_model_tpu.driving.plan import DiffusionPlanner as JaxPlanner
-    from autonomous_driving_with_diffusion_model_tpu.utils.config import create_cfg as jax_create_cfg
+    from port_jax_cfg import jax_cfg_of
     from autonomous_driving_with_diffusion_model_tpu_torch.driving import DiffusionPlanner
     from autonomous_driving_with_diffusion_model_tpu_torch.models.convert import from_jax_variables
 
     cfg = tl.make_cfg("FREE_GUIDANCE", hw=HW, quick=True, SAMPLE_TIMESTEPS=[98, 34])
     cfg.GUIDANCE.FREE_SCALE = 1.0
     cfg.TPU.COMPUTE_DTYPE = "float32"
-    jcfg = jax_create_cfg()
-    jcfg.merge_from_other_cfg(cfg)
+    jcfg = jax_cfg_of(cfg)
     jax_planner = RecordingPlanner(JaxPlanner(jcfg, seed=2))
     port = DiffusionPlanner(cfg, device="cpu")
     port.model.load_state_dict(from_jax_variables(jax_planner.planner.variables, cfg), strict=True)

@@ -21,7 +21,7 @@ from autonomous_driving_with_diffusion_model_tpu.models.torch_convert import (
     torch_state_dict_to_variables,
     variables_to_torch_state_dict,
 )
-from autonomous_driving_with_diffusion_model_tpu.utils.config import create_cfg as jax_create_cfg
+from port_jax_cfg import jax_cfg_of
 from autonomous_driving_with_diffusion_model_tpu_torch.models import (
     build_mapping,
     build_model,
@@ -48,9 +48,7 @@ def _cfg(mode, perception="tiny", dim=None, attention=False):
 
 
 def _jax_cfg(cfg):
-    jcfg = jax_create_cfg()
-    jcfg.merge_from_other_cfg(cfg)
-    return jcfg
+    return jax_cfg_of(cfg)
 
 
 def _jax_tree(model, cfg):

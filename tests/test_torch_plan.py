@@ -12,7 +12,7 @@ import jax
 from autonomous_driving_with_diffusion_model_tpu.driving.plan import DiffusionPlanner as JaxPlanner
 from autonomous_driving_with_diffusion_model_tpu.models.scorer import init_scorer as jax_init_scorer
 from autonomous_driving_with_diffusion_model_tpu.models.scorer import save_scorer as jax_save_scorer
-from autonomous_driving_with_diffusion_model_tpu.utils.config import create_cfg as jax_create_cfg
+from port_jax_cfg import jax_cfg_of
 from autonomous_driving_with_diffusion_model_tpu_torch.driving import DiffusionPlanner
 from autonomous_driving_with_diffusion_model_tpu_torch.utils.config import create_cfg
 
@@ -51,8 +51,7 @@ def _pair(cfg, tmp_path):
     port = DiffusionPlanner(cfg, seed=0, device="cpu")
     path = tmp_path / "weights.pth"
     torch.save({"state_dict": port.model.state_dict()}, path)
-    jcfg = jax_create_cfg()
-    jcfg.merge_from_other_cfg(cfg)
+    jcfg = jax_cfg_of(cfg)
     jax_planner = JaxPlanner(jcfg, checkpoint=str(path))
     port.init_trajs = torch.from_numpy(np.array(jax_planner.init_trajs))
     if port.step_noise is not None:

@@ -53,12 +53,11 @@ def _frames(n, hw=HW, seed=0):
 def _jax_planner(cfg, port, tmp_path, name="weights.pth"):
     """The JAX planner on the port planner's weights (a reference .pth both load)."""
     from autonomous_driving_with_diffusion_model_tpu.driving.plan import DiffusionPlanner as JaxPlanner
-    from autonomous_driving_with_diffusion_model_tpu.utils.config import create_cfg as jax_create_cfg
+    from port_jax_cfg import jax_cfg_of
 
     path = tmp_path / name
     torch.save({"state_dict": port.model.state_dict()}, path)
-    jcfg = jax_create_cfg()
-    jcfg.merge_from_other_cfg(cfg)
+    jcfg = jax_cfg_of(cfg)
     return JaxPlanner(jcfg, checkpoint=str(path))
 
 

@@ -16,7 +16,7 @@ import jax.numpy as jnp
 from autonomous_driving_with_diffusion_model_tpu import diffusion as jdiff
 from autonomous_driving_with_diffusion_model_tpu.models import build_model as jax_build_model
 from autonomous_driving_with_diffusion_model_tpu.models import torch_convert as jax_torch_convert
-from autonomous_driving_with_diffusion_model_tpu.utils.config import create_cfg as jax_create_cfg
+from port_jax_cfg import jax_cfg_of
 from autonomous_driving_with_diffusion_model_tpu.utils.constants import GuidanceType as JG
 from autonomous_driving_with_diffusion_model_tpu_torch import diffusion as tdiff
 from autonomous_driving_with_diffusion_model_tpu_torch.models import (
@@ -44,9 +44,7 @@ def _cfg(mode, dim=None, mults=(1, 2)):
 
 
 def _jax_cfg(cfg):
-    jcfg = jax_create_cfg()
-    jcfg.merge_from_other_cfg(cfg)
-    return jcfg
+    return jax_cfg_of(cfg)
 
 
 def _jax_tree(model, cfg):

@@ -44,7 +44,7 @@ from autonomous_driving_with_diffusion_model_tpu.train import (
     make_train_step as jax_make_step,
 )
 from autonomous_driving_with_diffusion_model_tpu.train.state import make_optimizer as jax_make_optimizer
-from autonomous_driving_with_diffusion_model_tpu.utils.config import create_cfg as jax_create_cfg
+from port_jax_cfg import jax_cfg_of
 from autonomous_driving_with_diffusion_model_tpu_torch.diffusion import make_schedule
 from autonomous_driving_with_diffusion_model_tpu_torch.models import (
     Conv1dBlock,
@@ -93,9 +93,7 @@ def port_cfg(use_cond="NO_GUIDANCE", perception="tiny", **opts):
 
 
 def jax_cfg(cfg):
-    jcfg = jax_create_cfg()
-    jcfg.merge_from_other_cfg(cfg)
-    return jcfg
+    return jax_cfg_of(cfg)
 
 
 def make_batch(seed=1, batch=B):
