@@ -39,6 +39,14 @@ SIGNATURES = {
             _I, _I,  # one-wave path, programmatic dependent launch
             _P, _P,  # phase stamps (or null), stream
         ],
+        "adm_conv_gn_mish_streamed": [
+            _P, _P, _P, _P, _P,  # x, w, bias, gamma, beta
+            _I, _I, _I, _I, _I, _I, _F, _I,  # B, L, Cin, C, K, groups, eps, epi
+            _P, _I, _P, _P,  # epilogue input, Ce, its weight, its bias
+            _P, _P, _I, _I, _I,  # out, scratch, x_dtype, p_dtype, out_dtype
+            _I, _I, _I, _I, _I,  # parts, threads, shared-memory bytes; the finishing CTA's threads, bytes
+            _I, _P,  # programmatic dependent launch, stream
+        ],
         "adm_conv_gn_mish_clusters": [
             _I, _I, _I, _I, _I, _I, _I, _I,  # B, L, Cin, C, K, groups, epi, Ce
             _I, _I, _I,  # x_dtype, p_dtype, out_dtype

@@ -75,6 +75,40 @@
 // successor starts, every kernel before this one has completed. Without the
 // attribute the wait and the trigger do nothing.
 //
+// The streamed path (ops/kernels.py:streamed_geometry; batch 1-2 where the
+// one-wave slice does not fit shared memory: Diffusion Policy's 1024- and
+// 2048-wide blocks, up to 88 MB of weights a launch). Clusters of 8 a group
+// put 64 SMs to such a launch, each holding about 32 KB of 4-byte loads in
+// flight: a fifth of HBM's rate. Here a launch is two kernels.
+// conv_gn_mish_kernel_streamed cuts each group's weight rows (the conv's
+// K x Cin, then the epilogue's Ce rows of each head, cg columns each) into
+// `parts` contiguous slices, one CTA each: groups x parts CTAs, one an SM.
+// A CTA streams its slice through a ring of STREAM_STAGES tiles of 16 KB in
+// shared memory with 16-byte cp.async copies, nine tiles (144 KB) in
+// flight; the first nine are issued before griddepcontrol.wait, since no
+// weight depends on the launch before. After the wait it gathers the input
+// value of each of its rows for all B x L (batch row, position) pairs into
+// shared memory, so each weight is read from device memory once and used
+// B x L times from registers. Thread (s, q) owns four columns (q) and every
+// S-th row of a tile (s: S adjacent lanes); at the end of each segment the S
+// lanes add their sums by a butterfly and one writes the CTA's partial sums
+// of the segment, (B x L, cg), to a scratch in device memory (at most a few
+// MB; it stays in L2). It lets its dependent launch once its last tile is
+// under way. conv_gn_mish_kernel_finish, a cluster of FINISH_CLUSTER CTAs a
+// (b, g), launched with programmatic dependent launch, stages its
+// parameters, waits for the streaming half to end, lets the next launch
+// start (its CTAs then arrive together and fill their rings meanwhile), adds
+// the bias and every part's sums in part order for its slice of the
+// outputs, meets its peers in distributed shared memory for the group's
+// statistics (two-pass, fp32), and applies Mish and the epilogue (its
+// projection summed the same way). Every sum runs in a fixed order, with no
+// atomics, so a result repeats bit for bit. (Measured against this design
+// on an H100: a ring of 6 slots, 1.2x slower on the widest launches; bulk
+// (TMA) copies of 512-byte rows; prefetching further tiles into L2; fewer
+// tiles before the wait; the finishing half as one CTA a (b, g) or letting
+// the next launch start at its entry or end; both halves at the largest
+// shared-memory carveout; each segment cut over all the parts.)
+//
 // Plain C interface for ctypes; the launch goes on the caller's stream and
 // the function returns the launch's CUDA error, or -1 for an unsupported
 // dtype mix and -2 for a shape or geometry the kernel does not take.
@@ -527,11 +561,348 @@ __global__ void __launch_bounds__(MAX_THREADS)
   if constexpr (STAMP) stamp(stamps, 4);
 }
 
+// ---------------------------------------------------------------- the streamed path
+
+constexpr int STREAM_STAGES = 10;         // ring slots of weight tiles
+constexpr int FINISH_CLUSTER = 8;         // CTAs finishing one (batch row, group)
+constexpr int STREAM_TILE_BYTES = 16384;  // weight bytes a tile holds, before the rows' skew
+constexpr int STREAM_THREADS = 512;       // threads of a streaming CTA at most
+constexpr int STREAM_MAX_ROWS = 16;       // B x L a streaming thread sums at most
+constexpr int MAX_SEGS = 3;               // the conv, then one or two epilogue heads
+
+// The weight rows of a streamed launch, in the order its CTAs cut them: the
+// conv's K x Cin rows (row k Cin + ci of the (K, Cin, C) weights), then each
+// epilogue head's Ce rows (FiLM: the scale's columns, then the shift's).
+// Segment s holds rows [begin[s], begin[s + 1]); its input has pos[s]
+// positions a batch row (L, or 1 for the time projection's one row).
+struct Segments {
+  int n, rows, begin[MAX_SEGS + 1], pos[MAX_SEGS];
+};
+
+__host__ __device__ inline Segments segments(int L, int Cin, int K, int epi, int Ce) {
+  Segments sg;
+  const int nh = reduces(epi) ? heads(epi) : 0;
+  sg.n = 1 + nh;
+  sg.begin[0] = 0;
+  sg.pos[0] = L;
+  for (int s = 1; s <= MAX_SEGS; ++s) {
+    sg.begin[s] = s == 1 ? K * Cin : sg.begin[s - 1] + (s - 1 <= nh ? Ce : 0);
+    if (s < MAX_SEGS) sg.pos[s] = epi == EPI_RES_CONV ? L : 1;
+  }
+  sg.rows = sg.begin[sg.n];
+  return sg;
+}
+
+// S: the adjacent lanes of a warp that share one column quad's rows, the
+// largest power of two up to 32 that keeps a CTA within STREAM_THREADS
+__host__ __device__ inline int stream_split(int cq) {
+  int S = 1;
+  while (S * 2 <= 32 && S * 2 * cq <= STREAM_THREADS) S *= 2;
+  return S;
+}
+// rows of a tile: those of STREAM_TILE_BYTES, a multiple of S
+__host__ __device__ inline int stream_tile_rows(int row_bytes, int S) {
+  const int r = STREAM_TILE_BYTES / row_bytes / S * S;
+  return r > S ? r : S;
+}
+// bytes of a ring row: its weights, then a skew that puts the rows that a
+// warp's quarter reads at once (16-byte loads) in different banks
+__host__ __device__ inline int stream_pitch(int row_bytes, int S) {
+  return row_bytes + 16 * (S < 8 ? 8 / S : 1);
+}
+// the (batch row, position) pairs a thread sums: 4, 8 or 16 (a template argument)
+__host__ __device__ inline int stream_nr(int rows) { return rows <= 4 ? 4 : rows <= 8 ? 8 : 16; }
+// shared memory of a streaming CTA: the ring, then its rows' inputs
+// (ops/kernels.py:streamed_geometry computes the same)
+__host__ __device__ inline int stream_smem(int row_bytes, int S, int rows, int parts, int nr) {
+  return STREAM_STAGES * stream_tile_rows(row_bytes, S) * stream_pitch(row_bytes, S) +
+         (rows + parts - 1) / parts * nr * 4;
+}
+// the slice (slice_begin over `parts`) of n rows that holds row j
+__host__ __device__ inline int part_of(int j, int n, int parts) {
+  return (int)(((int64_t)(j + 1) * parts - 1) / n);
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four consecutive weights of a ring row, as floats
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 a = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a.y));
+  v[0] = lo.x, v[1] = lo.y, v[2] = hi.x, v[3] = hi.y;
+}
+
+// The streaming half of a streamed launch (see the header): CTA g * parts + p
+// sums slice p of group g's weight rows over all B x L pairs into
+// part_out[((seg * groups + g) * parts + p) * B * L + b * pos + l][cg] for
+// every segment it touches. NR >= B x L.
+template <int NR, typename TX, typename TP>
+__global__ void __launch_bounds__(STREAM_THREADS, 1)
+    conv_gn_mish_kernel_streamed(const TX* __restrict__ x, const TP* __restrict__ w, int B, int L,
+                                 int Cin, int C, int K, int groups, int epi,
+                                 const TP* __restrict__ ein, int Ce, const TP* __restrict__ ew,
+                                 int parts, float* __restrict__ part_out) {
+  extern __shared__ float smem[];
+  const int g = blockIdx.x / parts, p = blockIdx.x - g * parts;
+  const int cg = C / groups, cq = cg / 4;
+  const int S = stream_split(cq);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int s = tid % S, q = tid / S;  // a row phase and a column quad
+  const Segments sg = segments(L, Cin, K, epi, Ce);
+  const int row_bytes = cg * (int)sizeof(TP);
+  const int pitch = stream_pitch(row_bytes, S), tile_rows = stream_tile_rows(row_bytes, S);
+  const int stage = tile_rows * pitch;
+  char* ring = reinterpret_cast<char*>(smem);
+  float* xs = reinterpret_cast<float*>(ring + STREAM_STAGES * stage);  // (its rows, NR)
+  const int epitch = heads(epi) * C;  // an epilogue weight row, in elements
+
+  // this CTA's rows [r0, r1) of all the segments' rows; of each segment,
+  // [lo, hi), and the tiles before each
+  const int r0 = slice_begin(sg.rows, parts, p), r1 = slice_begin(sg.rows, parts, p + 1);
+  int lo[MAX_SEGS], hi[MAX_SEGS], first[MAX_SEGS + 1];
+  first[0] = 0;
+#pragma unroll
+  for (int k = 0; k < MAX_SEGS; ++k) {
+    lo[k] = max(r0, sg.begin[k]);
+    hi[k] = max(lo[k], min(r1, sg.begin[k + 1]));
+    first[k + 1] = first[k] + (hi[k] - lo[k] + tile_rows - 1) / tile_rows;
+  }
+  const int ntiles = first[MAX_SEGS];
+  // tile t: its segment k, its first row j0 and its n rows
+  auto tile = [&](int t, int& k, int& j0, int& n) {
+    k = t >= first[1] ? (t >= first[2] ? 2 : 1) : 0;
+    j0 = lo[k] + (t - first[k]) * tile_rows;
+    n = min(tile_rows, hi[k] - j0);
+  };
+  const int pieces = row_bytes / 16;
+  auto issue = [&](int t) {
+    int k, j0, n;
+    tile(t, k, j0, n);
+    const char* src = k == 0 ? reinterpret_cast<const char*>(w + (int64_t)j0 * C + g * cg)
+                             : reinterpret_cast<const char*>(ew + (int64_t)(j0 - sg.begin[k]) * epitch +
+                                                             (k - 1) * C + g * cg);
+    const int64_t spitch = (int64_t)(k == 0 ? C : epitch) * sizeof(TP);
+    char* dst = ring + (t % STREAM_STAGES) * stage;
+    for (int i = tid; i < n * pieces; i += nt) {
+      const int r = i / pieces, pc = i - r * pieces;
+      cp_async16(dst + r * pitch + pc * 16, src + r * spitch + pc * 16);
+    }
+  };
+
+  // the first tiles do not depend on the launch before
+  for (int t = 0; t < STREAM_STAGES - 1; ++t) {
+    if (t < ntiles) issue(t);
+    cp_async_commit();
+  }
+  grid_dependency_wait();
+
+  // every row's input for each (b, l): xs[r][b * pos + l], zero past B
+  const int nrow = r1 - r0, pad = K / 2, total = nrow * NR;
+  auto xval = [&](int i) -> float {
+    const int nr = i / nrow, j = r0 + (i - nr * nrow);
+    const int k = j >= sg.begin[1] ? (j >= sg.begin[2] ? 2 : 1) : 0;
+    const int lp = k == 0 ? L : sg.pos[k];
+    const int b = nr / lp, l = nr - b * lp;
+    if (b >= B) return 0.f;
+    if (k == 0) {
+      const int tap = j / Cin, ci = j - tap * Cin, ll = l + tap - pad;
+      return ll >= 0 && ll < L ? load(x, ((int64_t)b * L + ll) * Cin + ci) : 0.f;
+    }
+    const int e = j - sg.begin[k];
+    return epi == EPI_RES_CONV ? load(ein, ((int64_t)b * L + l) * Ce + e)
+                               : mish(load(ein, (int64_t)b * Ce + e));
+  };
+  for (int i0 = tid; i0 < total; i0 += 8 * nt) {  // rows fastest: neighbours read neighbouring channels
+    float v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) v[u] = i0 + u * nt < total ? xval(i0 + u * nt) : 0.f;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int i = i0 + u * nt, nr = i / nrow;
+      if (i < total) xs[(i - nr * nrow) * NR + nr] = v[u];
+    }
+  }
+
+  float acc[NR][4];
+#pragma unroll
+  for (int m = 0; m < NR; ++m)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[m][v] = 0.f;
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<STREAM_STAGES - 2>();
+    __syncthreads();  // tile t in every thread's view; every thread done with tile t - 1's slot
+    if (t + STREAM_STAGES - 1 < ntiles) issue(t + STREAM_STAGES - 1);
+    cp_async_commit();
+    int k, j0, n;
+    tile(t, k, j0, n);
+    if (t + 1 == ntiles) launch_dependents();  // past its last weight
+    if (q < cq) {
+      const char* wt = ring + (t % STREAM_STAGES) * stage + q * 4 * (int)sizeof(TP);
+      const float* xt = xs + (j0 - r0) * NR;
+      for (int r = s; r < n; r += S) {
+        float wv[4];
+        load4(reinterpret_cast<const TP*>(wt + r * pitch), wv);
+        const float4* xr = reinterpret_cast<const float4*>(xt + r * NR);
+#pragma unroll
+        for (int m = 0; m < NR / 4; ++m) {
+          const float4 xv = xr[m];
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            acc[4 * m][v] = fmaf(xv.x, wv[v], acc[4 * m][v]);
+            acc[4 * m + 1][v] = fmaf(xv.y, wv[v], acc[4 * m + 1][v]);
+            acc[4 * m + 2][v] = fmaf(xv.z, wv[v], acc[4 * m + 2][v]);
+            acc[4 * m + 3][v] = fmaf(xv.w, wv[v], acc[4 * m + 3][v]);
+          }
+        }
+      }
+    }
+    if (t + 1 == first[k + 1]) {  // the segment's last tile: its sums out
+#pragma unroll
+      for (int m = 0; m < NR; ++m)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          float a = acc[m][v];
+          for (int o = 1; o < S; o <<= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+          acc[m][v] = a;
+        }
+      const int nrs = B * (k == 0 ? L : sg.pos[k]);
+      if (s == 0 && q < cq) {
+        float* dst = part_out + (((int64_t)k * groups + g) * parts + p) * B * L * cg + 4 * q;
+#pragma unroll
+        for (int m = 0; m < NR; ++m)
+          if (m < nrs)
+            *reinterpret_cast<float4*>(dst + (int64_t)m * cg) =
+                make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+      }
+#pragma unroll
+      for (int m = 0; m < NR; ++m)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[m][v] = 0.f;
+    }
+  }
+}
+
+// The finishing half of a streamed launch: a cluster of FINISH_CLUSTER
+// CTAs a (batch row, group), b * groups + g; rank r adds the bias and every
+// part's sums (conv and epilogue) of its slice of the group's L x cg
+// outputs, in part order, one output a thread with all its loads in flight;
+// the ranks' sums meet in distributed shared memory, in rank order, for the
+// group's statistics (two-pass, fp32, the same in every rank); then each
+// rank writes mish(gn(.)) with the epilogue for its slice. Launched with
+// programmatic dependent launch behind the streaming half: it stages its
+// parameters before the wait and lets the next launch start once the
+// streaming half is over, so that launch's CTAs arrive together and fill
+// their rings while this one works.
+template <typename TP, typename TO>
+__global__ void __launch_bounds__(MAX_THREADS)
+    conv_gn_mish_kernel_finish(const float* part, const TP* __restrict__ bias,
+                               const TP* __restrict__ gamma, const TP* __restrict__ beta, int B,
+                               int L, int Cin, int C, int K, int groups, int parts, float eps,
+                               int epi, const TP* __restrict__ ein, int Ce,
+                               const TP* __restrict__ eb, TO* __restrict__ out) {
+  extern __shared__ float smem[];
+  coop::cluster_group cluster = coop::this_cluster();
+  const int cs = (int)cluster.num_blocks(), r = (int)cluster.block_rank();
+  const int bg = blockIdx.x / cs, b = bg / groups, g = bg % groups;
+  const int cg = C / groups, n = L * cg, nrs = B * L;
+  const int o0 = slice_begin(n, cs, r), o1 = slice_begin(n, cs, r + 1);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const bool film = epi == EPI_FILM;
+  float* red = smem;
+  float* stat = smem + 32;   // (4,) this rank's sum, then its sum of squares
+  float* sp = smem + 36;     // (5, cg) bias, gamma, beta, the epilogue bias(es)
+  float* yc = sp + 5 * cg;   // (o1 - o0,) conv + bias
+  float* ye = yc + (n + cs - 1) / cs;  // (2, o1 - o0) the epilogue's terms
+  const int chunk = (n + cs - 1) / cs;
+  for (int i = tid; i < cg; i += nt) {  // the parameters do not depend on the launch before
+    const int c = g * cg + i;
+    sp[i] = load(bias, c);
+    sp[cg + i] = load(gamma, c);
+    sp[2 * cg + i] = load(beta, c);
+    sp[3 * cg + i] = reduces(epi) ? load(eb, c) : 0.f;
+    sp[4 * cg + i] = film ? load(eb, C + c) : 0.f;
+  }
+  grid_dependency_wait();  // the partial sums are the launch before's
+  launch_dependents();
+  __syncthreads();
+  const Segments sg = segments(L, Cin, K, epi, Ce);
+  // v + segment k's sums of pair nr, channel c, over the parts that hold
+  // any of its rows, in part order, 16 loads in flight
+  auto sum = [&](int k, int nr, int c, float v) {
+    const int p0 = part_of(sg.begin[k], sg.rows, parts);
+    const int p1 = part_of(sg.begin[k + 1] - 1, sg.rows, parts);
+    const float* src = part + (((int64_t)k * groups + g) * parts * nrs + nr) * cg + c;
+    const int64_t stride = (int64_t)nrs * cg;
+    for (int pp = p0; pp <= p1; pp += 16) {
+      float t[16];
+#pragma unroll
+      for (int u = 0; u < 16; ++u) t[u] = pp + u <= p1 ? src[(pp + u) * stride] : 0.f;
+#pragma unroll
+      for (int u = 0; u < 16; ++u)
+        if (pp + u <= p1) v += t[u];
+    }
+    return v;
+  };
+  float lsum = 0.f;
+  for (int o = o0 + tid; o < o1; o += nt) {
+    const int l = o / cg, c = o - l * cg;
+    const float v = sum(0, b * L + l, c, sp[c]);
+    float e0 = 0.f, e1 = 0.f;
+    if (film) {
+      e0 = sum(1, b, c, sp[3 * cg + c]);
+      e1 = sum(2, b, c, sp[4 * cg + c]);
+    } else if (epi == EPI_TBIAS) {
+      e0 = sum(1, b, c, sp[3 * cg + c]);
+    } else if (epi == EPI_RES_CONV) {
+      e0 = sum(1, b * L + l, c, sp[3 * cg + c]);
+    } else {
+      e0 = load(ein, ((int64_t)b * L + l) * C + g * cg + c);
+    }
+    yc[o - o0] = v;
+    ye[o - o0] = e0;
+    ye[chunk + o - o0] = e1;
+    lsum += v;
+  }
+  // the group's statistics: every rank adds the ranks' sums in rank order
+  auto all_ranks = [&](float mine, int slot) {
+    mine = block_sum(mine, red);
+    if (tid == 0) stat[slot] = mine;
+    cluster.sync();
+    float v = 0.f;
+    for (int q = 0; q < cs; ++q) v += *cluster.map_shared_rank(stat + slot, q);
+    return v;
+  };
+  const float mean = all_ranks(lsum, 0) / n;
+  float lsq = 0.f;
+  for (int o = o0 + tid; o < o1; o += nt) {
+    const float d = yc[o - o0] - mean;
+    lsq += d * d;
+  }
+  const float rstd = rsqrtf(all_ranks(lsq, 1) / n + eps);
+  for (int o = o0 + tid; o < o1; o += nt) {
+    const int l = o / cg, c = o - l * cg;
+    const float y = mish((yc[o - o0] - mean) * rstd * sp[cg + c] + sp[2 * cg + c]);
+    const float e0 = ye[o - o0], e1 = ye[chunk + o - o0];
+    store(out, ((int64_t)b * L + l) * C + g * cg + c, film ? fmaf(e0, y, e1) : y + e0);
+  }
+  cluster.sync();  // peers may still read this CTA's statistics
+}
+
 __global__ void empty_kernel(int) {}
 
-// A launch of `kernel` on `ctas` CTAs in clusters of cs along x; with `pdl`,
-// a programmatic dependent launch. With `clusters` set, nothing is launched:
-// *clusters gets how many such clusters the card holds at once.
+// A launch of `kernel` on `ctas` CTAs in clusters of cs along x (cs = 0: no
+// cluster); with `pdl`, a programmatic dependent launch. With `clusters`
+// set, nothing is launched: *clusters gets how many such clusters the card
+// holds at once.
 template <typename... Params, typename... Args>
 int launch_clusters(void (*kernel)(Params...), int ctas, int threads, size_t smem, int cs,
                     bool pdl, int* clusters, cudaStream_t stream, Args... args) {
@@ -541,14 +912,21 @@ int launch_clusters(void (*kernel)(Params...), int ctas, int threads, size_t sme
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[2];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  int na = 0;
+  if (cs > 0) {
+    attr[na].id = cudaLaunchAttributeClusterDimension;
+    attr[na].val.clusterDim.x = cs;
+    attr[na].val.clusterDim.y = 1;
+    attr[na].val.clusterDim.z = 1;
+    ++na;
+  }
+  if (pdl) {
+    attr[na].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[na].val.programmaticStreamSerializationAllowed = 1;
+    ++na;
+  }
   cfg.attrs = attr;
-  cfg.numAttrs = pdl ? 2 : 1;
+  cfg.numAttrs = na;
   const cudaError_t err = clusters ? cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg)
                                    : cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) {
@@ -627,6 +1005,71 @@ int launch(const void* x, const void* w, const void* bias, const void* gamma, co
 #undef ADM_L
 }
 
+template <int NR, typename TX, typename TP, typename TO>
+int launch_streamed_nr(const void* x, const void* w, const void* bias, const void* gamma,
+                       const void* beta, int B, int L, int Cin, int C, int K, int groups, float eps,
+                       int epi, const void* ein, int Ce, const void* ew, const void* eb, void* out,
+                       void* scratch, int parts, int threads, int smem, int fin_threads,
+                       int fin_smem, bool pdl, cudaStream_t stream) {
+  auto stream_k = conv_gn_mish_kernel_streamed<NR, TX, TP>;
+  auto finish_k = conv_gn_mish_kernel_finish<TP, TO>;
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024)
+    err = cudaFuncSetAttribute(stream_k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && fin_smem > 48 * 1024)
+    err = cudaFuncSetAttribute(finish_k, cudaFuncAttributeMaxDynamicSharedMemorySize, fin_smem);
+  if (err != cudaSuccess) return (int)err;
+  const int rc = launch_clusters(stream_k, groups * parts, threads, (size_t)smem, 0, pdl, nullptr,
+                                 stream, static_cast<const TX*>(x), static_cast<const TP*>(w), B, L,
+                                 Cin, C, K, groups, epi, static_cast<const TP*>(ein), Ce,
+                                 static_cast<const TP*>(ew), parts, static_cast<float*>(scratch));
+  if (rc != 0) return rc;
+  return launch_clusters(finish_k, B * groups * FINISH_CLUSTER, fin_threads, (size_t)fin_smem,
+                         FINISH_CLUSTER, true, nullptr,
+                         stream, static_cast<const float*>(scratch), static_cast<const TP*>(bias),
+                         static_cast<const TP*>(gamma), static_cast<const TP*>(beta), B, L, Cin, C,
+                         K, groups, parts, eps, epi, static_cast<const TP*>(ein), Ce,
+                         static_cast<const TP*>(eb), static_cast<TO*>(out));
+}
+
+// The streamed path's two launches, after checking the geometry that
+// ops/kernels.py:streamed_geometry gave against the same formulas.
+template <typename TX, typename TP, typename TO>
+int launch_streamed(const void* x, const void* w, const void* bias, const void* gamma,
+                    const void* beta, int B, int L, int Cin, int C, int K, int groups, float eps,
+                    int epi, const void* ein, int Ce, const void* ew, const void* eb, void* out,
+                    void* scratch, int parts, int threads, int smem, int fin_threads, int fin_smem,
+                    bool pdl, cudaStream_t stream) {
+  if (groups <= 0 || C % groups != 0 || L < 1 || L > MAX_L || K < 1 || B < 1 ||
+      B * L > STREAM_MAX_ROWS)
+    return -2;
+  if (epi != EPI_TBIAS && epi != EPI_RES_CONV && epi != EPI_RES_ID && epi != EPI_FILM) return -2;
+  const int cg = C / groups, row_bytes = cg * (int)sizeof(TP);
+  if (row_bytes % 16 != 0 || !aligned16(w) || (reduces(epi) && !aligned16(ew)) ||
+      !aligned16(scratch))
+    return -2;
+  const int cq = cg / 4, S = stream_split(cq);
+  if (threads != (S * cq + 31) / 32 * 32 || threads > STREAM_THREADS) return -2;
+  const Segments sg = segments(L, Cin, K, epi, Ce);
+  if (parts < 1 || parts > sg.rows) return -2;
+  if (smem != stream_smem(row_bytes, S, sg.rows, parts, stream_nr(B * L)) || smem > MAX_SMEM)
+    return -2;
+  const int n = L * cg;
+  const int chunk = (n + FINISH_CLUSTER - 1) / FINISH_CLUSTER, fin_want = (chunk + 31) / 32 * 32;
+  if (fin_threads != (fin_want < MAX_THREADS ? fin_want : MAX_THREADS) ||
+      fin_smem != 4 * (36 + 5 * cg + 3 * chunk) ||
+      fin_smem > MAX_SMEM)
+    return -2;
+#define ADM_NR(NR)                                                                               \
+  return launch_streamed_nr<NR, TX, TP, TO>(x, w, bias, gamma, beta, B, L, Cin, C, K, groups, eps, \
+                                            epi, ein, Ce, ew, eb, out, scratch, parts, threads,   \
+                                            smem, fin_threads, fin_smem, pdl, stream)
+  if (B * L <= 4) ADM_NR(4);
+  if (B * L <= 8) ADM_NR(8);
+  ADM_NR(16);
+#undef ADM_NR
+}
+
 template <typename Fn>
 int by_dtype(int x_dtype, int p_dtype, int out_dtype, Fn&& fn) {
   if (p_dtype == DT_F32 && x_dtype == DT_F32 && out_dtype == DT_F32)
@@ -662,6 +1105,27 @@ extern "C" int adm_conv_gn_mish(const void* x, const void* w, const void* bias,
     return launch<decltype(tx), decltype(tp), decltype(to)>(
         x, w, bias, gamma, beta, B, L, Cin, C, K, groups, eps, epi, ein, Ce, ew, eb, out, cs,
         threads, smem, one_wave != 0, pdl != 0, stamps != nullptr, nullptr, stamps, s);
+  });
+}
+
+// The streamed path (ops/kernels.py:streamed_geometry): the arguments of
+// adm_conv_gn_mish, then `scratch`, (segments, groups, parts, B x L, cg)
+// floats for the partial sums (segments: the conv and the epilogue's heads); `parts`, the CTAs a group's rows are cut over; threads
+// and shared-memory bytes of a streaming and of a finishing CTA; pdl: the
+// streaming launch with programmatic dependent launch (the finishing launch
+// always has it, behind its own streaming launch).
+extern "C" int adm_conv_gn_mish_streamed(const void* x, const void* w, const void* bias,
+                                         const void* gamma, const void* beta, int B, int L,
+                                         int Cin, int C, int K, int groups, float eps, int epi,
+                                         const void* ein, int Ce, const void* ew, const void* eb,
+                                         void* out, void* scratch, int x_dtype, int p_dtype,
+                                         int out_dtype, int parts, int threads, int smem,
+                                         int fin_threads, int fin_smem, int pdl, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return by_dtype(x_dtype, p_dtype, out_dtype, [&](auto tx, auto tp, auto to) {
+    return launch_streamed<decltype(tx), decltype(tp), decltype(to)>(
+        x, w, bias, gamma, beta, B, L, Cin, C, K, groups, eps, epi, ein, Ce, ew, eb, out, scratch,
+        parts, threads, smem, fin_threads, fin_smem, pdl != 0, s);
   });
 }
 

@@ -18,7 +18,10 @@ Each kernel has its own CUDA source:
   geometry comes from :func:`launch_geometry`. At batch 1-2 a launch takes
   the one-wave path where :func:`launch_path` allows it (the CTA's weight
   slice fetched into shared memory at entry, with programmatic dependent
-  launch where the weights are a cached pack).
+  launch where the weights are a cached pack), and else the streamed path
+  where :func:`streamed_geometry` gives one (each group's weight rows cut
+  over one CTA an SM and streamed through a ring in shared memory, a second
+  kernel finishing the group: weights too wide for a one-wave slice).
 
 The C side checks each geometry. What bounds the residual block on an H100
 is the weight bytes (at batch 1-2 each weight does 2 FLOPs per batch row);
@@ -37,10 +40,11 @@ five :data:`PHASES`, into an int64 tensor from :func:`phase_stamps`.
 A wrapper given CPU tensors computes the plain version, which autograd
 differentiates as it stands; given CUDA tensors it launches the kernel or
 raises. It adds one to its ``launches`` count for each call that launches;
-``fused_residual_block`` also counts its kernel launches on the one-wave path
-(``one_wave``) and those of them launched with programmatic dependent launch
-(``pdl``), two launches a call, and its launches with the FiLM epilogue
-(``film``, one a FiLM call) (:func:`launch_counts`).
+``fused_residual_block`` also counts its launches (two a call) on the
+one-wave path (``one_wave``), on the streamed path (``streamed``; each a
+streaming kernel and its finishing kernel) and those of either launched with
+programmatic dependent launch (``pdl``), and its launches with the FiLM
+epilogue (``film``, one a FiLM call) (:func:`launch_counts`).
 
 Neither TPU kernel has a backward (the JAX package trains through the XLA
 composite, ``TPU.USE_PALLAS_CONV`` off). So when a CUDA call needs a gradient,
@@ -66,6 +70,7 @@ __all__ = [
     "residual_block_geometry",
     "one_wave_geometry",
     "launch_path",
+    "streamed_geometry",
     "head_geometry",
     "phase_stamps",
     "rank_slice",
@@ -97,6 +102,15 @@ MIN_RANK_CHANNELS = 8  # input channels a cluster's rank keeps at least
 # launch's successor fits beside it (an H100 holds 15 clusters of eight
 # 1024-thread CTAs, 30 of 512)
 ONE_WAVE_THREADS = 512
+# the streamed path (the C side's STREAM_*): ring slots of weight tiles, the
+# weight bytes of a tile, threads of a streaming CTA at most, the batch rows
+# it takes and the B x L pairs a thread sums at most
+STREAM_STAGES = 10
+STREAM_TILE_BYTES = 16384
+STREAM_THREADS = 512
+STREAM_MAX_B = 2
+STREAM_MAX_ROWS = 16
+FINISH_CLUSTER = 8  # CTAs finishing one (batch row, group) on the streamed path
 HEAD_P = 4  # positions of one output channel a head thread holds (the C side's P)
 HEAD_MAX_LANES = 8  # lanes sharing one head output's sum
 PHASES = ("entry", "loads landed", "outputs in shared memory", "statistics done", "stored")
@@ -231,6 +245,63 @@ def launch_path(geo: Geometry, clusters: int, cached: bool, rows16: bool = True)
     return one_wave, one_wave and cached
 
 
+class StreamGeometry(NamedTuple):
+    parts: int  # CTAs a group's weight rows are cut over
+    S: int  # adjacent lanes sharing one column quad's rows
+    threads: int  # threads of a streaming CTA
+    tile_rows: int  # weight rows of a ring slot
+    smem: int  # shared-memory bytes of a streaming CTA
+    ctas: int  # streaming CTAs: groups x parts
+    fin_threads: int  # threads of a finishing CTA, FINISH_CLUSTER of them per (batch row, group)
+    fin_smem: int  # its shared-memory bytes
+    scratch: int  # float32 partial sums: (segments, groups, parts, B x L, cg)
+
+
+def streamed_geometry(B, L, Cin, C, K, groups, Ce, epi, p_bytes, sms) -> Optional[StreamGeometry]:
+    """The streamed path's geometry for a launch on a card of ``sms`` SMs,
+    or None where the path does not take it: more than
+    :data:`STREAM_MAX_B` batch rows or :data:`STREAM_MAX_ROWS` (batch row,
+    position) pairs, weight rows of ``cg = C / groups`` values that do not
+    copy in whole 16-byte pieces, a CTA past :data:`STREAM_THREADS` threads
+    or past the shared memory.
+
+    The rows are the conv's ``K x Cin``, then ``Ce`` for each epilogue head
+    (two under FiLM, none for the identity residual), cut into ``sms //
+    groups`` contiguous slices a group, one CTA each (at most one a row). A
+    streaming thread owns four columns and every S-th row of a tile, S the
+    largest power of two up to 32 that keeps ``S x cg / 4`` within
+    :data:`STREAM_THREADS`. Its shared memory is the C side's
+    ``stream_smem``: :data:`STREAM_STAGES` slots of ``tile_rows`` rows (the
+    rows of :data:`STREAM_TILE_BYTES`, a multiple of S), each row skewed by
+    16 bytes (``16 x 8 / S`` below S = 8), then each of its rows' inputs for
+    4, 8 or 16 pairs in float32. :data:`FINISH_CLUSTER` finishing CTAs a
+    (batch row, group) take a slice of its ``L x cg`` outputs each, a thread
+    an output."""
+    cg = C // groups
+    if B > STREAM_MAX_B or B * L > STREAM_MAX_ROWS or C % groups or (cg * p_bytes) % 16:
+        return None
+    cq = cg // 4
+    S = 1
+    while S * 2 <= 32 and S * 2 * cq <= STREAM_THREADS:
+        S *= 2
+    threads = _cdiv(S * cq, 32) * 32
+    heads = (2 if epi == EPI_FILM else 1) if epi in _REDUCES else 0
+    rows = K * Cin + heads * Ce
+    parts = min(max(1, sms // groups), rows)
+    row_bytes = cg * p_bytes
+    tile_rows = max(S, STREAM_TILE_BYTES // row_bytes // S * S)
+    pitch = row_bytes + 16 * (8 // S if S < 8 else 1)
+    nr = next(n for n in (4, 8, 16) if n >= B * L)
+    smem = STREAM_STAGES * tile_rows * pitch + _cdiv(rows, parts) * nr * 4
+    n = L * cg
+    chunk = _cdiv(n, FINISH_CLUSTER)  # outputs a finishing CTA takes
+    fin_smem = 4 * (36 + 5 * cg + 3 * chunk)
+    if threads > STREAM_THREADS or smem > MAX_SMEM or fin_smem > MAX_SMEM:
+        return None
+    return StreamGeometry(parts, S, threads, tile_rows, smem, groups * parts,
+                          min(MAX_THREADS, _cdiv(chunk, 32) * 32), fin_smem, (1 + heads) * groups * parts * B * n)
+
+
 class HeadGeometry(NamedTuple):
     S: int  # adjacent lanes of a warp sharing one output's K x Cin sum
     threads: int  # threads of a CTA
@@ -353,10 +424,20 @@ def _max_active_clusters(device: int, B, L, Cin, C, K, groups, epi, Ce, x_code, 
     return n.value
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+    """The card's SMs."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _pick_path(geo: Geometry, x, w, out, epi, ein, ew, n_groups, cached: bool, stamped: bool) -> tuple:
-    """``(geometry, one_wave, pdl)`` of one launch of the template from
-    what it can observe: :func:`launch_path` at the one-wave geometry, the
-    card's answer asked once per geometry; ``geo`` itself off that path."""
+    """``(geometry, path, pdl)`` of one launch of the template from what it
+    can observe, ``path`` one of ``"one_wave"``, ``"streamed"`` and
+    ``"multi_wave"``: :func:`launch_path` at the one-wave geometry, the
+    card's answer asked once per geometry; where it refuses, the streamed
+    path at batch 1-2 where :func:`streamed_geometry` gives one (16-byte
+    aligned weight rows; unstamped: phase stamps are the other paths'), with
+    programmatic dependent launch on a cached pack; else ``geo`` itself."""
     B, L, Cin = x.shape
     K, _, C = w.shape
     Ce = ein.shape[-1] if ein is not None else 0
@@ -369,7 +450,13 @@ def _pick_path(geo: Geometry, x, w, out, epi, ein, ew, n_groups, cached: bool, s
                                         _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype], _DTYPE_CODE[out.dtype],
                                         wide, stamped)
     one_wave, pdl = launch_path(wide, clusters, cached, rows16)
-    return (wide, True, pdl) if one_wave else (geo, False, False)
+    if one_wave:
+        return wide, "one_wave", pdl
+    if rows16 and not stamped:
+        sgeo = streamed_geometry(B, L, Cin, C, K, n_groups, Ce, epi, w.element_size(), _sm_count(x.device.index))
+        if sgeo is not None:
+            return sgeo, "streamed", cached
+    return geo, "multi_wave", False
 
 
 def _launch(geo: Geometry, x, w, b, gamma, beta, out, n_groups, eps, epi, ein=None, ew=None,
@@ -408,6 +495,33 @@ def _launch(geo: Geometry, x, w, b, gamma, beta, out, n_groups, eps, epi, ein=No
         # a refused cluster launch (cudaErrorClusterOutOfResources, ...) lands
         # here: there is no retry at another geometry
         raise RuntimeError(f"conv_gn_mish launch failed (CUDA error {err}, {geo})")
+
+
+def _launch_streamed(geo: StreamGeometry, x, w, b, gamma, beta, out, n_groups, eps, epi, ein=None,
+                     ew=None, eb=None, pdl=False) -> None:
+    """One launch of the residual block's template on the streamed path at
+    geometry ``geo`` (:func:`streamed_geometry`): its streaming kernel, then
+    its finishing kernel, with a scratch for the partial sums between them."""
+    from .build import library
+
+    B, L, Cin = x.shape
+    K, _, C = w.shape
+    Ce = ein.shape[-1] if ein is not None else 0
+    scratch = torch.empty(geo.scratch, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = library(SOURCE).adm_conv_gn_mish_streamed(
+            _ptr(x), _ptr(w), _ptr(b), _ptr(gamma), _ptr(beta),
+            B, L, Cin, C, K, n_groups, float(eps), epi,
+            _ptr(ein), Ce, _ptr(ew), _ptr(eb), _ptr(out), _ptr(scratch),
+            _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype], _DTYPE_CODE[out.dtype],
+            geo.parts, geo.threads, geo.smem, geo.fin_threads, geo.fin_smem, int(pdl), stream,
+        )
+    if err == ERR_SHAPE:
+        raise ValueError(f"conv_gn_mish's streamed path does not take L={L}, Cin={Cin}, C={C}, "
+                         f"n_groups={n_groups}, K={K}, epi={epi}, {geo}")
+    if err != 0:
+        raise RuntimeError(f"conv_gn_mish streamed launch failed (CUDA error {err}, {geo})")
 
 
 def _alignment(*tensors: torch.Tensor) -> int:
@@ -523,8 +637,8 @@ def fused_residual_block(
     ``stamps``: None, or a pair of :func:`phase_stamps` buffers, one for
     each launch. ``weights_cached`` (the blocks' own, ``models/blocks.py``):
     the weights and biases are a pack made before this call, which no kernel
-    right before it wrote; only then may a one-wave launch overlap the launch
-    before it (:func:`launch_path`)."""
+    right before it wrote; only then may a one-wave or streamed launch
+    overlap the launch before it (:func:`launch_path`)."""
     args = (x, t, w1, b1, g1, be1, tw, tb, w2, b2, g2, be2, wres, bres)
     if x.device.type == "cpu":
         if stamps is not None:
@@ -561,11 +675,15 @@ def _residual_block_cuda(x, t, w1, b1, g1, be1, tw, tb, w2, b2, g2, be2, wres, b
     for geo, xin, w, b, g, be, y, epi, ein, ew, eb, st in (
             (geo1, x, w1, b1, g1, be1, h, EPI_FILM if film else EPI_TBIAS, t, tw, tb, s1),
             (geo2, h, w2, b2, g2, be2, out, epi2, x, ew2, bres, s2)):
-        geo, one_wave, pdl = _pick_path(geo, xin, w, y, epi, ein, ew, n_groups, weights_cached,
-                                        st is not None)
-        _launch(geo, xin, w, b, g, be, y, n_groups, eps, epi, ein, ew, eb, stamps=st,
-                one_wave=one_wave, pdl=pdl)
-        fused_residual_block.one_wave += one_wave
+        geo, path, pdl = _pick_path(geo, xin, w, y, epi, ein, ew, n_groups, weights_cached,
+                                    st is not None)
+        if path == "streamed":
+            _launch_streamed(geo, xin, w, b, g, be, y, n_groups, eps, epi, ein, ew, eb, pdl=pdl)
+        else:
+            _launch(geo, xin, w, b, g, be, y, n_groups, eps, epi, ein, ew, eb, stamps=st,
+                    one_wave=path == "one_wave", pdl=pdl)
+        fused_residual_block.one_wave += path == "one_wave"
+        fused_residual_block.streamed += path == "streamed"
         fused_residual_block.pdl += pdl
     fused_residual_block.launches += 1
     fused_residual_block.film += film
@@ -573,9 +691,10 @@ def _residual_block_cuda(x, t, w1, b1, g1, be1, tw, tb, w2, b2, g2, be2, wres, b
 
 
 WRAPPERS = ("fused_conv1d_gn_mish", "fused_residual_block")  # launch_counts' keys of calls
-# launch_counts' keys of the residual block's kernel launches (two a call) on
-# the one-wave path, and of those with programmatic dependent launch
-PATHS = ("fused_residual_block.one_wave", "fused_residual_block.pdl")
+# launch_counts' keys of the residual block's launches (two a call) on the
+# one-wave path, of those with programmatic dependent launch (on either
+# path), and of those on the streamed path
+PATHS = ("fused_residual_block.one_wave", "fused_residual_block.pdl", "fused_residual_block.streamed")
 # launch_counts' key of the residual block's launches with the FiLM epilogue
 # (one a FiLM call)
 FILM = "fused_residual_block.film"
@@ -593,8 +712,9 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     """Each wrapper's launch count (calls), by the wrapper's name, the
-    residual block's kernel launches on each path (:data:`PATHS`) and its
-    FiLM launches (:data:`FILM`)."""
+    residual block's launches on the one-wave and streamed paths and with
+    programmatic dependent launch (:data:`PATHS`) and its FiLM launches
+    (:data:`FILM`)."""
     return {key: getattr(f, attr) for key, f, attr in _COUNTERS}
 
 

@@ -155,6 +155,7 @@ chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -2855,11 +2856,29 @@ def _compiled_train(load_cfg, device_breakdown, launches, smi, dev, card) -> dic
     return out
 
 
+@contextlib.contextmanager
+def multi_wave_only():
+    """Every launch of the residual block on its multi-wave code: the card
+    is said to hold no one-wave cluster, and no launch has a streamed
+    geometry."""
+    from autonomous_driving_with_diffusion_model_tpu_torch.ops import kernels
+
+    real = kernels._max_active_clusters, kernels.streamed_geometry
+    kernels._max_active_clusters = lambda *a, **kw: 0
+    kernels.streamed_geometry = lambda *a, **kw: None
+    try:
+        yield
+    finally:
+        kernels._max_active_clusters, kernels.streamed_geometry = real
+
+
 def film(case, graph_ms, bound_ms, smi, dev="cuda", extra_opts=()) -> dict:
     """Phase 15: the FiLM residual block and the head at Diffusion Policy's
     published widths, batch 1 (``FILM_OPTS``; ``extra_opts`` narrow it for
     a rehearsal on the CPU). ``case``, ``graph_ms`` and ``bound_ms`` are
-    phase 5's."""
+    phase 5's. Each call is checked and timed as the blocks launch it (its
+    path, one-wave or streamed) and on the multi-wave code at the same
+    shape; the streamed launches of a forward are counted at capture."""
     import torch
 
     from autonomous_driving_with_diffusion_model_tpu_torch.models import Conv1dBlock, build_model
@@ -2911,15 +2930,20 @@ def film(case, graph_ms, bound_ms, smi, dev="cuda", extra_opts=()) -> dict:
             row = dict(kernel=fn.__name__, block=n, shape=list(args[0].shape), C=C, max_abs_err=err,
                        one_wave=after[kernels.PATHS[0]] - before[kernels.PATHS[0]],
                        pdl=after[kernels.PATHS[1]] - before[kernels.PATHS[1]],
+                       streamed=after[kernels.PATHS[2]] - before[kernels.PATHS[2]],
                        film=after[kernels.FILM] - before[kernels.FILM])
+            row["path"] = ("head" if fn is not kernels.fused_residual_block else
+                           "+".join(p for p, k in (("one-wave", row["one_wave"]), ("streamed", row["streamed"]),
+                                                   ("multi-wave", 2 - row["one_wave"] - row["streamed"])) if k))
             rows.append(row)
             log(f"film check {fn.__name__:22s} {n:22s} L={row['shape'][1]:2d} {row['shape'][2]:4d}->{C:4d} "
-                f"max_abs_err={err:.3e} launches one-wave {row['one_wave']} PDL {row['pdl']} FiLM {row['film']} "
-                f"{'ok' if ok else 'FAIL'}")
+                f"max_abs_err={err:.3e} path {row['path']}: launches one-wave {row['one_wave']} streamed "
+                f"{row['streamed']} PDL {row['pdl']} FiLM {row['film']} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"film: {fn.__name__} at {n}: max_abs_err {err}")
         counts = kernels.launch_counts()
-        want_counts = {"fused_residual_block": 12, kernels.FILM: 12, "fused_conv1d_gn_mish": 1}
+        want_counts = {"fused_residual_block": 12, kernels.FILM: 12, "fused_conv1d_gn_mish": 1,
+                       kernels.PATHS[0]: 7, kernels.PATHS[2]: 17}
         if {k: counts[k] for k in want_counts} != want_counts:
             raise AssertionError(f"film: launch counts {counts}, expected {want_counts}")
         log(f"film launches of one forward's calls: {counts}")
@@ -2927,14 +2951,55 @@ def film(case, graph_ms, bound_ms, smi, dev="cuda", extra_opts=()) -> dict:
         # each call 20 times in one graph; the forward's calls in one graph
         # (1.0 GB of weights: none stay in the 50 MB L2 between passes)
         reps = 20
+        weights = lambda c: sum(a.numel() * a.element_size() for a in c[2][2 if c[0] is kernels.fused_residual_block
+                                                                            else 1:] if a is not None)
         for row, c in zip(rows, cases):
             b, by = bound_ms(c[0], c[2])
-            row.update(kernel_us=graph_ms([kcall(c)] * reps) / reps * 1e3,
-                       plain_us=graph_ms([pcall(c)] * reps) / reps * 1e3, bound_us=b * 1e3, bound_by=by)
+            with multi_wave_only():
+                multi_us = graph_ms([kcall(c)] * reps) / reps * 1e3
+            row.update(kernel_us=graph_ms([kcall(c)] * reps) / reps * 1e3, multi_wave_us=multi_us,
+                       plain_us=graph_ms([pcall(c)] * reps) / reps * 1e3, bound_us=b * 1e3, bound_by=by,
+                       weight_bytes=weights(c))
+            row["tb_s"] = row["weight_bytes"] / row["kernel_us"] / 1e6
+            row["multi_wave_tb_s"] = row["weight_bytes"] / multi_us / 1e6
             log(f"film time {row['kernel']:22s} {row['block']:22s} L={row['shape'][1]:2d} "
-                f"{row['shape'][2]:4d}->{row['C']:4d}: kernel_us={row['kernel_us']:.2f} "
+                f"{row['shape'][2]:4d}->{row['C']:4d} {row['path']:20s}: kernel_us={row['kernel_us']:.2f} "
+                f"({row['tb_s']:.3f} TB/s) multi-wave_us={multi_us:.2f} ({row['multi_wave_tb_s']:.3f} TB/s) "
                 f"plain_us={row['plain_us']:.2f} bound_us={row['bound_us']:.2f} ({by}) on {smi}")
         out = {"rows": rows, "launches": {k: counts[k] for k in counts}}
+        # the calls with a streamed launch, one after the other as in a
+        # forward: per call and in one graph, against the multi-wave code
+        wide = [(r, c) for r, c in zip(rows, cases) if r["streamed"]]
+        nbytes = sum(r["weight_bytes"] for r, _ in wide)
+        wide_ms = graph_ms([kcall(c) for _, c in wide])
+        with multi_wave_only():
+            wide_multi_ms = graph_ms([kcall(c) for _, c in wide])
+        out["wide"] = dict(calls=len(wide), weight_bytes=nbytes, ms=wide_ms, multi_wave_ms=wide_multi_ms,
+                           tb_s=nbytes / wide_ms / 1e9, multi_wave_tb_s=nbytes / wide_multi_ms / 1e9,
+                           sum_of_calls_ms=sum(r["kernel_us"] for r, _ in wide) / 1e3,
+                           sum_of_calls_multi_wave_ms=sum(r["multi_wave_us"] for r, _ in wide) / 1e3)
+        log(f"film time the {len(wide)} calls with streamed launches in one graph: {wide_ms:.4f} ms "
+            f"({out['wide']['tb_s']:.3f} TB/s) against {wide_multi_ms:.4f} ms ({out['wide']['multi_wave_tb_s']:.3f} "
+            f"TB/s) on the multi-wave code; {nbytes / 1e9:.4f} GB on {smi}")
+        # the forward's residual calls captured in one graph: launches by path at capture
+        mine = [c for c in cases if c[0] is kernels.fused_residual_block]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for c in mine:
+                kcall(c)()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        kernels.reset_launch_counts()
+        with torch.cuda.graph(graph):
+            for c in mine:
+                kcall(c)()
+        captured = kernels.launch_counts()
+        out["captured"] = {k: captured[k] for k in ("fused_residual_block", *kernels.PATHS, kernels.FILM)}
+        log(f"film launches captured in one forward's graph: {out['captured']}")
+        if captured[kernels.PATHS[2]] != 17 or captured[kernels.PATHS[0]] != 7:
+            raise AssertionError(f"film: captured launches {out['captured']}, expected 17 streamed and 7 one-wave")
+        del graph
         for kname in max_err:
             mine = [c for c in cases if c[0].__name__ == kname]
             first = 2 if kname == "fused_residual_block" else 1  # the weights follow x (and t)
@@ -3212,12 +3277,8 @@ def main() -> int:
         (the card said to hold no one-wave cluster); the same at batch 2;
         the launch floor at the one-wave geometries; each path's launches."""
         def today(fns):
-            real = kernels._max_active_clusters
-            kernels._max_active_clusters = lambda *a, **kw: 0
-            try:
+            with multi_wave_only():
                 return graph_ms(fns)
-            finally:
-                kernels._max_active_clusters = real
 
         plain_calls = [(lambda c=c: c[0](*c[2])) for c in mine]
         gen2 = torch.Generator().manual_seed(2)

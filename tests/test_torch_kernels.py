@@ -293,27 +293,138 @@ def test_one_wave_slice_fits_every_main_path_launch(B, L, cin, c):
             assert kernels.launch_path(wide, 16, True) == (True, True)
 
 
-def test_path_counts_pass_through_launch_counts():
-    """The one-wave and PDL counts and the FiLM launches sit beside the
-    wrappers' counts in launch_counts, and a graph's replay adds them through
-    add_launch_counts (a default replay: 1,600 calls, 3,200 launches on each
-    path, no FiLM launch)."""
+# replays' launch counts: a default plan (1,600 calls, 3,200 launches
+# one-wave with PDL) and a Diffusion Policy plan (1,200 FiLM calls, 700
+# one-wave and 1,700 streamed launches, all with PDL)
+REPLAYS = {
+    "default": {"fused_conv1d_gn_mish": 100, "fused_residual_block": 1600,
+                "fused_residual_block.one_wave": 3200, "fused_residual_block.pdl": 3200,
+                "fused_residual_block.streamed": 0, "fused_residual_block.film": 0},
+    "diffusion_policy": {"fused_conv1d_gn_mish": 100, "fused_residual_block": 1200,
+                         "fused_residual_block.one_wave": 700, "fused_residual_block.pdl": 2400,
+                         "fused_residual_block.streamed": 1700, "fused_residual_block.film": 1200},
+}
+
+
+@pytest.mark.parametrize("replay", list(REPLAYS), ids=list(REPLAYS))
+def test_path_counts_pass_through_launch_counts(replay):
+    """The one-wave, PDL and streamed counts and the FiLM launches sit
+    beside the wrappers' counts in launch_counts, and a graph's replay adds
+    them through add_launch_counts."""
+    replay = REPLAYS[replay]
     kernels.reset_launch_counts()
     counts = kernels.launch_counts()
     keys = set(kernels.WRAPPERS) | set(kernels.PATHS) | {kernels.FILM}
-    assert set(counts) == keys and not any(counts.values())
-    replay = {"fused_conv1d_gn_mish": 100, "fused_residual_block": 1600,
-              "fused_residual_block.one_wave": 3200, "fused_residual_block.pdl": 3200,
-              "fused_residual_block.film": 0}
+    assert set(counts) == keys == set(replay) and not any(counts.values())
+    assert "fused_residual_block.streamed" in kernels.PATHS
     kernels.add_launch_counts(replay)
     kernels.add_launch_counts(replay)
     assert kernels.launch_counts() == {k: 2 * v for k, v in replay.items()}
-    assert (kernels.fused_residual_block.launches, kernels.fused_residual_block.one_wave,
-            kernels.fused_residual_block.pdl) == (3200, 6400, 6400)
+    f = kernels.fused_residual_block
+    assert (f.launches, f.one_wave, f.pdl, f.streamed) == tuple(
+        2 * replay[k] for k in ("fused_residual_block", *kernels.PATHS))
     kernels.add_launch_counts({"fused_residual_block": 1})  # keys it lacks add nothing
-    assert kernels.launch_counts()["fused_residual_block.pdl"] == 6400
+    assert kernels.launch_counts()["fused_residual_block.pdl"] == 2 * replay["fused_residual_block.pdl"]
     kernels.reset_launch_counts()
     assert not any(kernels.launch_counts().values())
+
+
+# Diffusion Policy's CNN at its published widths (MODEL.DIM 512, DIM_MULTS
+# (1, 2, 4), a 260-wide conditioning): the (L, Cin, C) of the 12 FiLM calls
+# of a forward, in order, and the launches (call, 0: conv 1 with FiLM, 1:
+# conv 2 with the residual) that the one-wave path refuses (their slice
+# does not fit shared memory): 17 of the 24
+DP_E = 260
+DP_FILM = [(16, 7, 512), (16, 512, 512), (8, 512, 1024), (8, 1024, 1024), (4, 1024, 2048),
+           (4, 2048, 2048), (4, 2048, 2048), (4, 2048, 2048), (4, 4096, 1024), (4, 1024, 1024),
+           (8, 2048, 512), (8, 512, 512)]
+DP_STREAMED = [(i, j) for i in range(2, 10) for j in (0, 1)] + [(10, 0)]
+
+
+def _launch(B, L, cin, c, e, j, film):
+    """(Cin, Ce, epi) of launch j of a call: conv 1 with the time
+    projection (FiLM's), or conv 2 with the residual."""
+    if j == 0:
+        return cin, e, kernels.EPI_FILM if film else kernels.EPI_TBIAS
+    return c, cin, kernels.EPI_RES_CONV if cin != c else kernels.EPI_RES_ID
+
+
+def _path(monkeypatch, B, L, rows, c, ce, epi, cached=True, stamped=False):
+    """_pick_path on meta tensors of a launch's shapes, on a card modelled
+    as an H100: 132 SMs, each holding two one-wave CTAs of at most 512
+    threads (30 clusters of eight; the card said 15 of 1024-thread CTAs,
+    PERF.md)."""
+    monkeypatch.setattr(kernels, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(kernels, "_max_active_clusters", lambda *a, **kw: {8: 30}.get(a[-2].cs, 264 // a[-2].cs))
+    meta = lambda *shape: torch.empty(shape, device="meta")
+    x, w, out = meta(B, L, rows), meta(5, rows, c), meta(B, L, c)
+    heads = 2 if epi == kernels.EPI_FILM else 1
+    ein = ew = None
+    if epi in (kernels.EPI_TBIAS, kernels.EPI_FILM):
+        ein, ew = meta(B, ce), meta(ce, heads * c)
+    elif epi == kernels.EPI_RES_CONV:
+        ein, ew = meta(B, L, ce), meta(ce, c)
+    elif epi == kernels.EPI_RES_ID:
+        ein = meta(B, L, c)
+    geo = kernels.launch_geometry(B, L, rows, c, 5, 8, ce, epi)
+    return kernels._pick_path(geo, x, w, out, epi, ein, ew, 8, cached, stamped)
+
+
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("call,j", DP_STREAMED, ids=[f"{DP_FILM[i]}-conv{j + 1}" for i, j in DP_STREAMED])
+def test_streamed_path_takes_diffusion_policy_wide_launches(monkeypatch, B, call, j):
+    """Each of the 17 launches of a Diffusion Policy forward that the
+    one-wave path refuses takes the streamed path at batch 1 and 2, with
+    programmatic dependent launch on a cached pack only, never when phase
+    stamps are asked for; its geometry cuts the rows over one CTA an SM."""
+    L, cin, c = DP_FILM[call]
+    rows, ce, epi = _launch(B, L, cin, c, DP_E, j, True)
+    geo, path, pdl = _path(monkeypatch, B, L, rows, c, ce, epi)
+    assert (path, pdl) == ("streamed", True)
+    assert _path(monkeypatch, B, L, rows, c, ce, epi, cached=False)[1:] == ("streamed", False)
+    assert _path(monkeypatch, B, L, rows, c, ce, epi, stamped=True)[1:] == ("multi_wave", False)
+    assert geo == kernels.streamed_geometry(B, L, rows, c, 5, 8, ce, epi, 4, 132)
+    assert geo.ctas == 8 * geo.parts == 128 and geo.threads == kernels.STREAM_THREADS
+    chunk = -(-L * c // 8 // kernels.FINISH_CLUSTER)
+    assert geo.smem <= kernels.MAX_SMEM and geo.fin_smem == 4 * (36 + 5 * c // 8 + 3 * chunk)
+    assert geo.fin_threads == -(-chunk // 32) * 32
+    nseg = 1 + (2 if epi == kernels.EPI_FILM else epi != kernels.EPI_RES_ID)
+    assert geo.scratch == nseg * 8 * geo.parts * B * L * (c // 8)
+    # 16 KB tiles, whole S-row steps, and no more than two rows a thread a tile
+    assert geo.tile_rows % geo.S == 0 and geo.tile_rows * (c // 8) * 4 == kernels.STREAM_TILE_BYTES
+    assert geo.tile_rows // geo.S == 2
+
+
+@pytest.mark.parametrize("B", [1, 2, 8, 16, 32, 64])
+def test_streamed_path_never_takes_default_widths(monkeypatch, B):
+    """The default U-Net's launches never take the streamed path: one-wave
+    at batch 1-2 (both launches of every block), the multi-wave code at
+    batch 8-64 (but the Cin = 7 first launch, whose clusters of one the
+    card may hold all at once)."""
+    for L, cin, c in MAIN_RES:
+        for j in (0, 1):
+            rows, ce, epi = _launch(B, L, cin, c, 128, j, False)
+            path = _path(monkeypatch, B, L, rows, c, ce, epi)[1]
+            if B <= 2:
+                assert path == "one_wave", (L, cin, c, j)
+            elif rows != 7:
+                assert path == "multi_wave", (L, cin, c, j)
+            assert path != "streamed"
+            if B > 2:
+                assert kernels.streamed_geometry(B, L, rows, c, 5, 8, ce, epi, 4, 132) is None
+
+
+@pytest.mark.parametrize("B,L,p_bytes,why", [
+    (3, 4, 4, "batch 3"), (2, 16, 4, "32 pairs"), (1, 16, 2, None), (2, 8, 2, None), (1, 4, 4, None)])
+def test_streamed_geometry_limits(B, L, p_bytes, why):
+    """The streamed path takes batch 1-2 up to 16 (batch row, position)
+    pairs, in float32 and bfloat16, and nothing past them."""
+    geo = kernels.streamed_geometry(B, L, 2048, 2048, 5, 8, DP_E, kernels.EPI_FILM, p_bytes, 132)
+    assert (geo is None) == (why is not None)
+    if geo is not None:
+        assert geo.tile_rows * 256 * p_bytes == kernels.STREAM_TILE_BYTES and geo.smem <= kernels.MAX_SMEM
+    # rows that do not copy in 16-byte pieces
+    assert kernels.streamed_geometry(1, 4, 2048, 8 * 6, 5, 8, DP_E, kernels.EPI_FILM, 4, 132) is None
 
 
 def test_block_passes_its_cache_hit(monkeypatch):
@@ -531,6 +642,7 @@ def test_cuda_kernels_match_plain_at_each_cluster_size(monkeypatch, cs):
     _need_card()
     pick = kernels.launch_geometry
     monkeypatch.setattr(kernels, "launch_geometry", lambda *a, **kw: pick(*a, cs=cs))
+    monkeypatch.setattr(kernels, "streamed_geometry", lambda *a, **kw: None)  # the cluster paths only
     rng = np.random.default_rng(2)
     with torch.no_grad():
         for B, L, cin, c, e in OFF_RES:
@@ -616,6 +728,21 @@ def test_cuda_refused_head_geometry_raises(monkeypatch, field, value):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("field,value", [("parts", 0), ("threads", 256), ("smem", 16), ("fin_threads", 32)])
+def test_cuda_refused_streamed_geometry_raises(field, value):
+    """A streamed geometry the C side does not compute from the shapes
+    raises; nothing falls back."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    x, t, w1, b1, g1, be1, tw, tb = _film_call(gen, 1, 4, 1024, 1024, DP_E)[:8]
+    geo = kernels.streamed_geometry(1, 4, 1024, 1024, 5, 8, DP_E, kernels.EPI_FILM, 4,
+                                    kernels._sm_count(x.device.index))._replace(**{field: value})
+    with torch.no_grad(), pytest.raises(ValueError, match="streamed path does not take"):
+        kernels._launch_streamed(geo, x, w1, b1, g1, be1, torch.empty_like(x), 8, 1e-5, kernels.EPI_FILM,
+                                 t, tw, tb)
+
+
+@pytest.mark.gpu
 def test_cuda_wrapper_rejects_bad_input():
     _need_card()
     rng = np.random.default_rng(0)
@@ -673,14 +800,16 @@ def _paths():
 
 @pytest.fixture
 def multi_wave(monkeypatch):
-    """A context that sends every launch down today's path: the card is
-    said to hold no cluster of a one-wave launch."""
+    """A context that sends every launch down the multi-wave code: the card
+    is said to hold no cluster of a one-wave launch, and no launch has a
+    streamed geometry."""
     import contextlib
 
     @contextlib.contextmanager
     def ctx():
         with monkeypatch.context() as m:
             m.setattr(kernels, "_max_active_clusters", lambda *a, **kw: 0)
+            m.setattr(kernels, "streamed_geometry", lambda *a, **kw: None)
             yield
 
     return ctx
@@ -833,6 +962,149 @@ def test_fresh_pack_launches_without_pdl_on_card():
         before = _paths()
         again = block(x, t)
         assert tuple(a - b for a, b in zip(_paths(), before)) == (2, 2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert torch.equal(again, got)
+
+
+def _streamed():
+    return kernels.fused_residual_block.streamed, kernels.fused_residual_block.pdl
+
+
+def _film_call(gen, B, L, cin, c, e, film=True):
+    """A residual block's kernel arguments on the card at the scale of
+    torch's default init, drawn there: FiLM's (E, 2C) projection, or the
+    time bias's (E, C)."""
+    u = lambda shape, fan: (torch.rand(shape, generator=gen, device="cuda") * 2 - 1) / fan ** 0.5
+    nrm = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    ce = 2 * c if film else c
+    res = cin != c
+    return [nrm(B, L, cin), nrm(B, e), u((5, cin, c), 5 * cin), u((c,), 5 * cin), 1 + 0.1 * nrm(c),
+            0.1 * nrm(c), u((e, ce), e), u((ce,), e), u((5, c, c), 5 * c), u((c,), 5 * c),
+            1 + 0.1 * nrm(c), 0.1 * nrm(c), u((1, cin, c), cin) if res else None, u((c,), cin) if res else None]
+
+
+@pytest.fixture
+def no_one_wave(monkeypatch):
+    """A context in which the card is said to hold no one-wave cluster:
+    batch 1-2 launches that the streamed path takes go down it."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        with monkeypatch.context() as m:
+            m.setattr(kernels, "_max_active_clusters", lambda *a, **kw: 0)
+            yield
+
+    return ctx
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("film", [True, False], ids=["film", "time-bias"])
+def test_streamed_matches_plain_on_card(dtype, film, no_one_wave):
+    """The streamed path at the ten geometries of Diffusion Policy's FiLM
+    calls (the card said to hold no one-wave cluster, so that the 512-wide
+    ones take it too), at B = 1 and 2, in float32 and bfloat16, with each
+    epilogue it takes (FiLM or the time bias on conv 1; the residual
+    projection or the identity on conv 2): against the plain version at the
+    present tolerances. A launch past 16 (batch row, position) pairs (L = 16
+    at B = 2) stays on the multi-wave code."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(20 + film)
+    dt = getattr(torch, dtype)
+    tol = dict(atol=1e-4, rtol=1e-4) if dtype == "float32" else dict(atol=3e-2, rtol=1.6e-2)
+    with torch.no_grad(), no_one_wave():
+        for L, cin, c in sorted(set(DP_FILM)):
+            for B in (1, 2):
+                args = [None if a is None else a.to(dt) for a in _film_call(gen, B, L, cin, c, DP_E, film)]
+                before = _streamed()
+                got = kernels.fused_residual_block(*args, weights_cached=True)
+                streamed, pdl = (a - b for a, b in zip(_streamed(), before))
+                assert streamed == pdl == (2 if B * L <= kernels.STREAM_MAX_ROWS else 0), (L, cin, c, B)
+                want = kernels.residual_block_plain(*args)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.gpu
+def test_streamed_repeats_bit_for_bit_on_card():
+    """Two calls on the streamed path agree exactly, with and without
+    programmatic dependent launch, at B = 1 and 2."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    with torch.no_grad():
+        for L, cin, c in [(4, 1024, 2048), (4, 4096, 1024), (8, 2048, 512), (4, 1024, 1024)]:
+            for B in (1, 2):
+                args = _film_call(gen, B, L, cin, c, DP_E)
+                before = _streamed()
+                first = kernels.fused_residual_block(*args, weights_cached=True)
+                assert _streamed()[0] - before[0] >= 1
+                assert torch.equal(first, kernels.fused_residual_block(*args, weights_cached=True))
+                assert torch.equal(first, kernels.fused_residual_block(*args))
+
+
+@pytest.mark.gpu
+def test_streamed_chain_in_a_graph_on_card():
+    """Diffusion Policy's down path and middle at batch 1 (1024 -> 2048 ->
+    2048 -> 2048 -> 1024 at L = 4), captured in one CUDA graph with
+    programmatic dependent launch: the replay equals the eager chain bit for
+    bit and the plain chain within its rounding; every launch streamed and
+    counted with PDL, eagerly and at capture."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    widths = [1024, 2048, 2048, 2048, 1024]
+    blocks = []
+    for cin, c in zip(widths, widths[1:]):
+        args = _film_call(gen, 1, 4, cin, c, DP_E)
+        blocks.append((args[1], args[2:]))
+    x0 = torch.randn(1, 4, 1024, generator=gen, device="cuda")
+    want_counts = (8, 8)
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        eager = _run_chain(x0, blocks, kernels.fused_residual_block, weights_cached=True)
+        assert _streamed() == want_counts
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            _run_chain(x0, blocks, kernels.fused_residual_block, weights_cached=True)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        kernels.reset_launch_counts()
+        with torch.cuda.graph(graph):
+            out = _run_chain(x0, blocks, kernels.fused_residual_block, weights_cached=True)
+        assert _streamed() == want_counts
+        graph.replay()
+        plain = _run_chain(x0, blocks, kernels.residual_block_plain)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        torch.testing.assert_close(out, plain, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.gpu
+def test_streamed_fresh_pack_launches_without_pdl_on_card():
+    """A FiLM block whose weights a kernel wrote just before its call (a
+    pack made in the call): both launches streamed without programmatic
+    dependent launch, equal to the plain version of the new weights; the
+    next call reuses the pack, with PDL, and gives the same bits."""
+    _need_card()
+    from autonomous_driving_with_diffusion_model_tpu_torch.models.conditional_unet1d import (
+        ConditionalResidualBlock1D,
+    )
+
+    torch.manual_seed(0)
+    block = ConditionalResidualBlock1D(1024, 2048, DP_E).cuda()
+    x, t = torch.randn(1, 4, 1024, device="cuda"), torch.randn(1, DP_E, device="cuda")
+    with torch.no_grad():
+        block(x, t)
+        block.blocks[1].block[0].weight.mul_(1.5)  # a kernel writes the weights
+        before = _streamed()
+        got = block(x, t)
+        assert tuple(a - b for a, b in zip(_streamed(), before)) == (2, 0)
+        want = kernels.residual_block_plain(x, t, *block.kernel_params())
+        before = _streamed()
+        again = block(x, t)
+        assert tuple(a - b for a, b in zip(_streamed(), before)) == (2, 2)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
     assert torch.equal(again, got)
