@@ -27,12 +27,12 @@ PyTorch's, so the two packages agree in distribution, not in values.
 from __future__ import annotations
 
 import functools
-import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops import program
 from ..utils import profiling
 
 __all__ = ["augment_factors", "augment_draws", "augment_body", "augment_batch", "AugmentProgram",
@@ -256,17 +256,17 @@ def augment_batch(images: torch.Tensor, generator: torch.Generator, image_iterat
     return augment_body(images, augment_draws(generator, images.shape, image_iteration, images.device))
 
 
-class AugmentProgram:
+class AugmentProgram(program.Programs):
     """``program(images, generator, image_iteration) -> float32``:
     :func:`augment_batch` as one program (the counterpart of the JAX train
     loop's ``jax.jit(augment_batch)``). It holds fixed buffers per key (the
     images' shape and dtype): the uint8 images and every draw. A call makes
     the draws into the buffers (``augment_draws``), copies the images in
     and runs the body on them. On a CUDA device the body is a CUDA graph
-    per key: run once eagerly on a side stream, then captured with
-    ``torch.cuda.graph`` and replayed on every later call; a capture that
-    fails raises ``RuntimeError`` naming the key. On the CPU the body runs
-    on the buffers. Returns a copy a later call does not overwrite.
+    per key (``ops/program.py``): run once eagerly on a side stream, then
+    captured and replayed on every later call; a capture that fails raises
+    ``RuntimeError`` naming the key. On the CPU the body runs on the
+    buffers. Returns a copy a later call does not overwrite.
 
     Tracing (``utils/profiling.py``): a call is the host span ``augment``,
     whose request is the program's call count, with the children
@@ -277,56 +277,39 @@ class AugmentProgram:
     build counts ``captures.augment`` and its seconds."""
 
     def __init__(self, device):
-        self.device = torch.device(device)
-        self.programs = {}
-        self.key = None  # the key of the last call
+        super().__init__(device)
         self.calls = 0
-        self._stream = None
 
     def __call__(self, images: torch.Tensor, generator: torch.Generator, image_iteration) -> torch.Tensor:
         request, self.calls = self.calls, self.calls + 1
         with profiling.span("augment", request=request):
             self.key = key = (tuple(images.shape), images.dtype)
-            prog = self.programs.get(key) or {"images": torch.empty_like(images, device=self.device), "graph": None}
+            prog = self.programs.get(key) or program.Program(
+                {"images": torch.empty_like(images, device=self.device), "draws": None})
+            bufs = prog.inputs
             with profiling.span("augment.draws"):
-                prog["draws"] = augment_draws(generator, images.shape, image_iteration, self.device,
-                                              prog.get("draws"))
-                prog["images"].copy_(images)
-            if self.device.type == "cuda" and prog["graph"] is None:
+                bufs["draws"] = augment_draws(generator, images.shape, image_iteration, self.device, bufs["draws"])
+                bufs["images"].copy_(images)
+            if self.device.type == "cuda" and prog.graph is None:
                 with profiling.span("augment.build"):
                     self._build(prog, key)  # raises if the capture fails
             with profiling.span("augment.replay"):
-                if self.device.type != "cuda":
-                    out = augment_body(prog["images"], prog["draws"])
+                if prog.graph is None:
+                    out = augment_body(bufs["images"], bufs["draws"])
                 else:
-                    prog["graph"].replay()
-                    prog["spans"].replayed()
-                    out = prog["out"].clone()
+                    out = self.replay(prog).clone()
             self.programs[key] = prog
             return out
 
-    def _build(self, prog: dict, key) -> None:
-        t0 = time.perf_counter()
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-        current = torch.cuda.current_stream(self.device)
-        self._stream.wait_stream(current)
-        with torch.cuda.stream(self._stream):
-            augment_body(prog["images"], prog["draws"])  # builds what the body builds at first use
-        current.wait_stream(self._stream)
-        torch.cuda.synchronize(self.device)
-        graph = torch.cuda.CUDAGraph()
-        spans = profiling.GraphSpans("augment", self.device, 2)
-        try:
-            with profiling.capture(spans), torch.cuda.graph(graph, stream=self._stream,
-                                                            capture_error_mode="thread_local"):
-                profiling.mark("augment")
-                out = augment_body(prog["images"], prog["draws"])
-                profiling.mark_end()
-            spans.close()
-        except RuntimeError as e:
-            raise RuntimeError(f"capturing the augmentation as a CUDA graph failed for the key (images "
-                               f"{key[0]}, {str(key[1]).replace('torch.', '')}): {e}") from e
-        torch.cuda.synchronize(self.device)
-        prog["graph"], prog["out"], prog["spans"] = graph, out, spans
-        profiling.count("captures.augment", 1, time.perf_counter() - t0)
+    def _build(self, prog: program.Program, key) -> None:
+        images, draws = prog.inputs["images"], prog.inputs["draws"]
+
+        def marked():
+            profiling.mark("augment")
+            out = augment_body(images, draws)
+            profiling.mark_end()
+            return out
+
+        self.warm(prog, lambda: augment_body(images, draws))  # builds what the body builds at first use
+        self.capture(prog, marked, f"the augmentation for the key (images {key[0]}, "
+                                   f"{str(key[1]).replace('torch.', '')})", "augment", 2)

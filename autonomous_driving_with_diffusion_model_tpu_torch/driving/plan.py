@@ -132,9 +132,8 @@ class DiffusionPlanner:
 
         self._needs_target = self.use_guidance_type != GuidanceType.NO_GUIDANCE
         self._hoisted = bool(cfg.TPU.HOIST_PERCEPTION)
-        # the observation history of Diffusion Policy's CNN; 0: none (one frame)
-        self._obs_steps = (int(cfg.MODEL.N_OBS_STEPS) if cfg.MODEL.ARCH == "conditional_unet1d"
-                           else 0)
+        # the model's observation history (Diffusion Policy's CNN); 0: none (one frame)
+        self._obs_steps = int(getattr(self.model, "n_obs_steps", 0))
         if self._obs_steps and (not self._hoisted or self._needs_target):
             raise ValueError("MODEL.ARCH conditional_unet1d plans with TPU.HOIST_PERCEPTION on and no guidance")
         self._history: deque = deque(maxlen=max(1, self._obs_steps))

@@ -17,8 +17,8 @@ optimizer step), never per call. Under autograd (training) the pack is built
 afresh on each call and differentiably, so the gradient reaches the
 parameters through it; the kernels' gradient is ``ops/kernels.py:Recompute``.
 A CUDA graph's replay writes weights without bumping their ``_version``:
-the training programs (``train/program.py``) bump it after every replay
-(``torch.autograd.graph.increment_version``), so the cached packs follow.
+the programs bump it after every replay (``ops/program.py``), so the
+cached packs follow.
 
 Parameters stay float32 in every model. A bfloat16 model (JAX
 ``TPU.COMPUTE_DTYPE``) computes in bfloat16: activations are bfloat16, and
@@ -40,6 +40,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.kernels import fused_conv1d_gn_mish, fused_residual_block
+from ..ops.program import tensors_key
 from ..ops.nn import channel_layer_norm, conv1d, conv1d_transpose, dense, layer_norm, mish, sinusoidal_pos_emb
 
 __all__ = [
@@ -71,7 +72,7 @@ def _packed(module: nn.Module, dtype: torch.dtype, build: Callable[[], Tuple]) -
     params = list(module.parameters())
     if torch.is_grad_enabled() and any(p.requires_grad for p in params):
         return pack(), False
-    key = tuple((p.data_ptr(), p._version, p.dtype, p.device) for p in params)
+    key = (tensors_key(params), tuple((p.dtype, p.device) for p in params))
     caches = module.__dict__.setdefault("_kernel_params", {})
     cache = caches.get(dtype)
     cached = cache is not None and cache[0] == key

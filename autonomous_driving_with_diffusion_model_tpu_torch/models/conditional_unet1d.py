@@ -76,6 +76,7 @@ class ConditionalUnet1D(nn.Module):
         if perception_name != "resnet18_gn_keypoints":
             raise ValueError(f"MODEL.ARCH conditional_unet1d encodes with resnet18_gn_keypoints, "
                              f"not {perception_name!r}")
+        self.n_obs_steps = n_obs_steps  # the observations a plan conditions on
         self.perception = PERCEPTION_BUILDERS[perception_name](feature_dim, num_keypoints)
         dims = [transition_dim] + [dim * m for m in dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))

@@ -37,7 +37,7 @@ SIGNATURES = {
             _P, _I, _I, _I,  # out, x_dtype, p_dtype, out_dtype
             _I, _I, _I,  # cluster size, threads, shared-memory bytes
             _I, _I,  # one-wave path, programmatic dependent launch
-            _P, _P,  # phase stamps (or null), stream
+            _P,  # stream
         ],
         "adm_conv_gn_mish_streamed": [
             _P, _P, _P, _P, _P,  # x, w, bias, gamma, beta
@@ -50,7 +50,7 @@ SIGNATURES = {
         "adm_conv_gn_mish_clusters": [
             _I, _I, _I, _I, _I, _I, _I, _I,  # B, L, Cin, C, K, groups, epi, Ce
             _I, _I, _I,  # x_dtype, p_dtype, out_dtype
-            _I, _I, _I, _I, _I,  # cluster size, threads, shared-memory bytes, one-wave, stamped
+            _I, _I, _I, _I,  # cluster size, threads, shared-memory bytes, one-wave
             _P,  # out: the clusters the card holds at once
         ],
         # CTAs, threads, cluster size (0: no cluster), shared-memory bytes, stream
@@ -62,7 +62,7 @@ SIGNATURES = {
             _I, _I, _I, _I, _I, _I, _F,  # B, L, Cin, C, K, groups, eps
             _P, _I, _I, _I,  # out, x_dtype, p_dtype, out_dtype
             _I, _I, _I, _I, _I,  # S, copy width, stage channels, threads, shared-memory bytes
-            _P, _P,  # phase stamps (or null), stream
+            _P,  # stream
         ],
     },
     "span_stamp.cu": {

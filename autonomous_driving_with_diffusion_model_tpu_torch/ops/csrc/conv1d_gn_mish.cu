@@ -223,16 +223,13 @@ __device__ __forceinline__ void split_dot(float (&acc)[P], const TX* sx, int xro
   }
 }
 
-// Launched on a (groups, B) grid: CTA (g, b). STAMP: record the phase
-// stamps; a normal launch compiles without them.
-template <int W, bool STAMP, typename TX, typename TP, typename TO>
+// Launched on a (groups, B) grid: CTA (g, b).
+template <int W, typename TX, typename TP, typename TO>
 __global__ void __launch_bounds__(MAX_THREADS)
     conv1d_gn_mish_kernel(const TX* __restrict__ x, const TP* __restrict__ w,
                           const TP* __restrict__ bias, const TP* __restrict__ gamma,
-                          const TP* __restrict__ beta, TO* __restrict__ out,
-                          unsigned long long* __restrict__ stamps, const Plan p) {
+                          const TP* __restrict__ beta, TO* __restrict__ out, const Plan p) {
   extern __shared__ __align__(16) char smem[];
-  if constexpr (STAMP) stamp(stamps, 0);
   const int tid = threadIdx.x, nt = blockDim.x;
   const int g = blockIdx.x, b = blockIdx.y;
   const TP* sp = reinterpret_cast<const TP*>(smem);  // bias, gamma, beta
@@ -265,7 +262,6 @@ __global__ void __launch_bounds__(MAX_THREADS)
   for (int t = 0; t < p.nst; ++t) {
     if (t + 1 < p.nst) cp_wait<1>(); else cp_wait<0>();
     __syncthreads();
-    if (STAMP && t == 0) stamp(stamps, 1);
     char* buf = smem + p.buf0 + (t & 1) * p.buf;
     if (active)
       split_dot(acc, reinterpret_cast<const TX*>(buf) + l0 * xrow, xrow,
@@ -290,7 +286,6 @@ __global__ void __launch_bounds__(MAX_THREADS)
       if (l0 + j < p.L) yc[(l0 + j) * p.cg + c] = acc[j] + bc;
   }
   __syncthreads();
-  if constexpr (STAMP) stamp(stamps, 2);
 
   // statistics of the group, two-pass; every warp sums the n outputs in the
   // same order, so every warp holds the same mean and variance
@@ -308,7 +303,6 @@ __global__ void __launch_bounds__(MAX_THREADS)
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) s2 += __shfl_xor_sync(0xffffffffu, s2, o);
   const float rstd = rsqrtf(s2 / p.n + p.eps);
-  if constexpr (STAMP) stamp(stamps, 3);
 
   TO* ob = out + (int64_t)b * p.L * p.C + g * p.cg;
   for (int o = tid; o < p.n; o += nt) {
@@ -316,23 +310,18 @@ __global__ void __launch_bounds__(MAX_THREADS)
     const float y = (yc[o] - mean) * rstd * to_f(sp[spar + cl]) + to_f(sp[2 * spar + cl]);
     store(ob, (int64_t)l * p.C + cl, mish(y));
   }
-  if constexpr (STAMP) {
-    __syncthreads();
-    stamp(stamps, 4);
-  }
 }
 
 struct Args {
   const void *x, *w, *bias, *gamma, *beta;
   void* out;
-  unsigned long long* stamps;
   int B, groups, threads;
   cudaStream_t stream;
 };
 
-template <int W, bool STAMP, typename TX, typename TP, typename TO>
+template <int W, typename TX, typename TP, typename TO>
 int launch(const Args& a, const Plan& p) {
-  auto kernel = conv1d_gn_mish_kernel<W, STAMP, TX, TP, TO>;
+  auto kernel = conv1d_gn_mish_kernel<W, TX, TP, TO>;
   if (p.total > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.total);
@@ -340,14 +329,8 @@ int launch(const Args& a, const Plan& p) {
   }
   kernel<<<dim3(a.groups, a.B), a.threads, p.total, a.stream>>>(
       static_cast<const TX*>(a.x), static_cast<const TP*>(a.w), static_cast<const TP*>(a.bias),
-      static_cast<const TP*>(a.gamma), static_cast<const TP*>(a.beta), static_cast<TO*>(a.out),
-      a.stamps, p);
+      static_cast<const TP*>(a.gamma), static_cast<const TP*>(a.beta), static_cast<TO*>(a.out), p);
   return (int)cudaGetLastError();
-}
-
-template <int W, typename TX, typename TP, typename TO>
-int launch_s(const Args& a, const Plan& p) {
-  return a.stamps ? launch<W, true, TX, TP, TO>(a, p) : launch<W, false, TX, TP, TO>(a, p);
 }
 
 template <typename TX, typename TP, typename TO>
@@ -368,9 +351,9 @@ int launch_w(const Args& a, int L, int Cin, int C, int K, float eps, int S, int 
     if (reinterpret_cast<uintptr_t>(ptr) % width) return -2;
   const Plan p = make_plan(L, Cin, C, K, a.groups, S, width, stage, ex, ep, eps);
   if (smem != p.total || smem > MAX_SMEM) return -2;
-  if (width == 16) return launch_s<16, TX, TP, TO>(a, p);
-  if (width == 4) return launch_s<4, TX, TP, TO>(a, p);
-  if constexpr (sizeof(TX) == 2 || sizeof(TP) == 2) return launch_s<2, TX, TP, TO>(a, p);
+  if (width == 16) return launch<16, TX, TP, TO>(a, p);
+  if (width == 4) return launch<4, TX, TP, TO>(a, p);
+  if constexpr (sizeof(TX) == 2 || sizeof(TP) == 2) return launch<2, TX, TP, TO>(a, p);
   return -2;  // 2-byte copies only for bf16 rows of an odd length
 }
 
@@ -380,15 +363,12 @@ int launch_w(const Args& a, int L, int Cin, int C, int K, float eps, int S, int 
 // out: (B, L, C) of out_dtype. S, width, stage, threads, smem: the launch
 // geometry (ops/kernels.py:head_geometry): lanes sharing a sum, copy bytes,
 // input channels a stage holds, threads of a CTA and its shared-memory bytes.
-// stamps: null, or (B x groups, 5, 2) values (common.cuh:stamp).
 extern "C" int adm_conv1d_gn_mish(const void* x, const void* w, const void* bias,
                                   const void* gamma, const void* beta, int B, int L, int Cin,
                                   int C, int K, int groups, float eps, void* out, int x_dtype,
                                   int p_dtype, int out_dtype, int S, int width, int stage,
-                                  int threads, int smem, unsigned long long* stamps,
-                                  void* stream) {
-  const Args a{x, w, bias, gamma, beta, out, stamps, B, groups, threads,
-               static_cast<cudaStream_t>(stream)};
+                                  int threads, int smem, void* stream) {
+  const Args a{x, w, bias, gamma, beta, out, B, groups, threads, static_cast<cudaStream_t>(stream)};
 #define ADM_HEAD(TX, TP, TO) \
   return launch_w<TX, TP, TO>(a, L, Cin, C, K, eps, S, width, stage, smem)
   if (p_dtype == DT_F32 && x_dtype == DT_F32 && out_dtype == DT_F32) ADM_HEAD(float, float, float);

@@ -320,25 +320,15 @@ __device__ __forceinline__ float rank_sum(float v, At at, int cs) {
 // ein/ew/eb: the epilogue's input, weight and bias: t (B, Ce), tw, tb for
 // EPI_TBIAS; t (B, Ce), tw (Ce, 2C), tb (2C,) for EPI_FILM; xres (B, L, Ce),
 // wres, bres for EPI_RES_CONV; xres (B, L, C) alone for EPI_RES_ID. Launched
-// in clusters of cs along x. STAMP: record the phase stamps; a normal launch
-// compiles without them. ONE_WAVE: the one-wave path (see the header).
-template <int LMAX, bool STAMP, typename TX, typename TP, typename TO, bool ONE_WAVE = false>
+// in clusters of cs along x. ONE_WAVE: the one-wave path (see the header).
+template <int LMAX, typename TX, typename TP, typename TO, bool ONE_WAVE = false>
 __global__ void __launch_bounds__(MAX_THREADS)
     conv_gn_mish_kernel(const TX* __restrict__ x, const TP* __restrict__ w,
                         const TP* __restrict__ bias, const TP* __restrict__ gamma,
                         const TP* __restrict__ beta, int L, int Cin, int C, int K, int groups,
                         int S, float eps, int epi, const TP* __restrict__ ein, int Ce,
                         const TP* __restrict__ ew, const TP* __restrict__ eb,
-                        TO* __restrict__ out, unsigned long long* __restrict__ stamps) {
-  // the one-wave path writes nothing to device memory before its wait, so
-  // its entry stamp waits in registers
-  unsigned long long entry_ns = 0, entry_cycles = 0;
-  if constexpr (STAMP && ONE_WAVE) {
-    entry_ns = globaltimer();
-    entry_cycles = (unsigned long long)clock64();
-  } else if constexpr (STAMP) {
-    stamp(stamps, 0);
-  }
+                        TO* __restrict__ out) {
   constexpr int U = LMAX <= 4 ? 8 : 4;  // weight loads in flight per thread
   extern __shared__ float smem[];
   coop::cluster_group cluster = coop::this_cluster();
@@ -407,7 +397,6 @@ __global__ void __launch_bounds__(MAX_THREADS)
       pv[4] = film ? load(eb, C + c) : 0.f;
     }
     grid_dependency_wait();
-    if constexpr (STAMP) stamp_at(stamps, 0, entry_ns, entry_cycles);
   }
 
   const TX* xb = x + (int64_t)b * L * Cin + c0;
@@ -441,7 +430,6 @@ __global__ void __launch_bounds__(MAX_THREADS)
       sres[o - o0] = load(ein, ((int64_t)b * L + o / cg) * C + g * cg + o % cg);
   if constexpr (ONE_WAVE) asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
-  if constexpr (STAMP) stamp(stamps, 1);
 
   // partial sums of thread (s, cl) over its share of the rank's channels
   const int s = tid / cg, cl = tid % cg;
@@ -503,7 +491,6 @@ __global__ void __launch_bounds__(MAX_THREADS)
     }
   }
   if (cs > 1) cluster.sync(); else __syncthreads();
-  if constexpr (STAMP) stamp(stamps, 2);
 
   // 2. every output of the group: bias + every rank's share, in rank order.
   // Every rank computes all of them, in the same order, so all hold the same
@@ -527,7 +514,6 @@ __global__ void __launch_bounds__(MAX_THREADS)
     lsq += d * d;
   }
   const float rstd = rsqrtf(block_sum(lsq, red) / n + eps);
-  if constexpr (STAMP) stamp(stamps, 3);
 
   // 4. this rank's chunk: normalise, Mish, epilogue
   for (int o = o0 + tid; o < o1; o += nt) {
@@ -557,8 +543,6 @@ __global__ void __launch_bounds__(MAX_THREADS)
     store(out, ((int64_t)b * L + l) * C + c, y);
   }
   if (cs > 1) cluster.sync();  // peers may still read this CTA's sy and sye
-  else if constexpr (STAMP) __syncthreads();
-  if constexpr (STAMP) stamp(stamps, 4);
 }
 
 // ---------------------------------------------------------------- the streamed path
@@ -936,13 +920,12 @@ int launch_clusters(void (*kernel)(Params...), int ctas, int threads, size_t sme
   return clusters ? 0 : (int)cudaGetLastError();
 }
 
-template <int LMAX, bool STAMP, typename TX, typename TP, typename TO, bool ONE_WAVE>
+template <int LMAX, typename TX, typename TP, typename TO, bool ONE_WAVE>
 int launch_l(const void* x, const void* w, const void* bias, const void* gamma, const void* beta,
              int B, int L, int Cin, int C, int K, int groups, int S, float eps, int epi,
              const void* ein, int Ce, const void* ew, const void* eb, void* out, int cs,
-             int threads, size_t smem, bool pdl, int* clusters, unsigned long long* stamps,
-             cudaStream_t stream) {
-  auto kernel = conv_gn_mish_kernel<LMAX, STAMP, TX, TP, TO, ONE_WAVE>;
+             int threads, size_t smem, bool pdl, int* clusters, cudaStream_t stream) {
+  auto kernel = conv_gn_mish_kernel<LMAX, TX, TP, TO, ONE_WAVE>;
   if (smem > 48 * 1024) {
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -953,7 +936,7 @@ int launch_l(const void* x, const void* w, const void* bias, const void* gamma, 
       static_cast<const TX*>(x), static_cast<const TP*>(w), static_cast<const TP*>(bias),
       static_cast<const TP*>(gamma), static_cast<const TP*>(beta), L, Cin, C, K, groups, S, eps,
       epi, static_cast<const TP*>(ein), Ce, static_cast<const TP*>(ew),
-      static_cast<const TP*>(eb), static_cast<TO*>(out), stamps);
+      static_cast<const TP*>(eb), static_cast<TO*>(out));
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
@@ -962,8 +945,7 @@ template <typename TX, typename TP, typename TO>
 int launch(const void* x, const void* w, const void* bias, const void* gamma, const void* beta,
            int B, int L, int Cin, int C, int K, int groups, float eps, int epi, const void* ein,
            int Ce, const void* ew, const void* eb, void* out, int cs, int threads, int smem,
-           bool one_wave, bool pdl, bool stamped, int* clusters, unsigned long long* stamps,
-           cudaStream_t stream) {
+           bool one_wave, bool pdl, int* clusters, cudaStream_t stream) {
   if (groups <= 0 || C % groups != 0 || L < 1 || L > MAX_L || K < 1) return -2;
   if (epi != EPI_TBIAS && epi != EPI_RES_CONV && epi != EPI_RES_ID && epi != EPI_FILM) return -2;
   const int cg = C / groups;
@@ -982,16 +964,10 @@ int launch(const void* x, const void* w, const void* bias, const void* gamma, co
     return -2;  // only the one-wave path waits on its predecessor
   }
   if (smem != want || smem > MAX_SMEM) return -2;
-#define ADM_L(LM, OW)                                                                         \
-  return stamped                                                                              \
-             ? launch_l<LM, true, TX, TP, TO, OW>(x, w, bias, gamma, beta, B, L, Cin, C, K,   \
-                                                  groups, S, eps, epi, ein, Ce, ew, eb, out, cs, \
-                                                  threads, (size_t)smem, pdl, clusters, stamps, \
-                                                  stream)                                     \
-             : launch_l<LM, false, TX, TP, TO, OW>(x, w, bias, gamma, beta, B, L, Cin, C, K,  \
-                                                   groups, S, eps, epi, ein, Ce, ew, eb, out, cs, \
-                                                   threads, (size_t)smem, pdl, clusters, stamps, \
-                                                   stream)
+#define ADM_L(LM, OW)                                                                     \
+  return launch_l<LM, TX, TP, TO, OW>(x, w, bias, gamma, beta, B, L, Cin, C, K, groups, S, eps, \
+                                      epi, ein, Ce, ew, eb, out, cs, threads, (size_t)smem, pdl, \
+                                      clusters, stream)
 #define ADM_LS(OW)     \
   if (L <= 2) ADM_L(2, OW); \
   if (L <= 4) ADM_L(4, OW); \
@@ -1093,18 +1069,17 @@ int by_dtype(int x_dtype, int p_dtype, int out_dtype, Fn&& fn) {
 // one_wave: the one-wave path, its smem the layout's total rounded up to 16
 // bytes and the weight slice (ops/kernels.py:one_wave_geometry); pdl: launch
 // it with programmatic dependent launch (the one-wave path only).
-// stamps: null, or (CTAs, 5, 2) values (common.cuh:stamp).
 extern "C" int adm_conv_gn_mish(const void* x, const void* w, const void* bias,
                                 const void* gamma, const void* beta, int B, int L, int Cin, int C,
                                 int K, int groups, float eps, int epi, const void* ein, int Ce,
                                 const void* ew, const void* eb, void* out, int x_dtype,
                                 int p_dtype, int out_dtype, int cs, int threads, int smem,
-                                int one_wave, int pdl, unsigned long long* stamps, void* stream) {
+                                int one_wave, int pdl, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return by_dtype(x_dtype, p_dtype, out_dtype, [&](auto tx, auto tp, auto to) {
     return launch<decltype(tx), decltype(tp), decltype(to)>(
         x, w, bias, gamma, beta, B, L, Cin, C, K, groups, eps, epi, ein, Ce, ew, eb, out, cs,
-        threads, smem, one_wave != 0, pdl != 0, stamps != nullptr, nullptr, stamps, s);
+        threads, smem, one_wave != 0, pdl != 0, nullptr, s);
   });
 }
 
@@ -1130,19 +1105,17 @@ extern "C" int adm_conv_gn_mish_streamed(const void* x, const void* w, const voi
 }
 
 // How many clusters of the launch that adm_conv_gn_mish would make with these
-// arguments (less the pointers; `stamped`: with phase stamps) the card holds
+// arguments (less the pointers) the card holds
 // at once: cudaOccupancyMaxActiveClusters of that kernel instance, into
 // *clusters. ops/kernels.py asks once per geometry.
 extern "C" int adm_conv_gn_mish_clusters(int B, int L, int Cin, int C, int K, int groups, int epi,
                                          int Ce, int x_dtype, int p_dtype, int out_dtype, int cs,
-                                         int threads, int smem, int one_wave, int stamped,
-                                         int* clusters) {
+                                         int threads, int smem, int one_wave, int* clusters) {
   if (clusters == nullptr) return -2;
   return by_dtype(x_dtype, p_dtype, out_dtype, [&](auto tx, auto tp, auto to) {
     return launch<decltype(tx), decltype(tp), decltype(to)>(
         nullptr, nullptr, nullptr, nullptr, nullptr, B, L, Cin, C, K, groups, 0.f, epi, nullptr,
-        Ce, nullptr, nullptr, nullptr, cs, threads, smem, one_wave != 0, false, stamped != 0,
-        clusters, nullptr, nullptr);
+        Ce, nullptr, nullptr, nullptr, cs, threads, smem, one_wave != 0, false, clusters, nullptr);
   });
 }
 

@@ -33,10 +33,6 @@ x (B, L, Cin), conv weights (K, Cin, C), the time projection (E, C), the
 residual projection (1, Cin, C). The modules pack their torch-layout
 parameters into these layouts once (``models/blocks.py``), not on every call.
 
-Both kernels can record phase stamps (``stamps=``, off by default): thread 0
-of each CTA writes the device's ns timer and its SM's cycle counter at the
-five :data:`PHASES`, into an int64 tensor from :func:`phase_stamps`.
-
 A wrapper given CPU tensors computes the plain version, which autograd
 differentiates as it stands; given CUDA tensors it launches the kernel or
 raises. It adds one to its ``launches`` count for each call that launches;
@@ -44,7 +40,9 @@ raises. It adds one to its ``launches`` count for each call that launches;
 one-wave path (``one_wave``), on the streamed path (``streamed``; each a
 streaming kernel and its finishing kernel) and those of either launched with
 programmatic dependent launch (``pdl``), and its launches with the FiLM
-epilogue (``film``, one a FiLM call) (:func:`launch_counts`).
+epilogue (``film``, one a FiLM call) (:func:`launch_counts`). A CUDA graph's
+capture records its launches in :func:`recorded_launches`, which leaves the
+counts as they were, and each replay adds them (:func:`add_launch_counts`).
 
 Neither TPU kernel has a backward (the JAX package trains through the XLA
 composite, ``TPU.USE_PALLAS_CONV`` off). So when a CUDA call needs a gradient,
@@ -56,8 +54,9 @@ training differentiates. Hand-written backward kernels are open work.
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, Iterator, NamedTuple, Optional
 
 import torch
 
@@ -72,7 +71,6 @@ __all__ = [
     "launch_path",
     "streamed_geometry",
     "head_geometry",
-    "phase_stamps",
     "rank_slice",
     "conv1d_gn_mish_plain",
     "residual_block_plain",
@@ -80,6 +78,7 @@ __all__ = [
     "reset_launch_counts",
     "launch_counts",
     "add_launch_counts",
+    "recorded_launches",
     "WRAPPERS",
     "PATHS",
     "FILM",
@@ -113,7 +112,6 @@ STREAM_MAX_ROWS = 16
 FINISH_CLUSTER = 8  # CTAs finishing one (batch row, group) on the streamed path
 HEAD_P = 4  # positions of one output channel a head thread holds (the C side's P)
 HEAD_MAX_LANES = 8  # lanes sharing one head output's sum
-PHASES = ("entry", "loads landed", "outputs in shared memory", "statistics done", "stored")
 
 
 # ---------------------------------------------------------------- plain versions
@@ -365,12 +363,6 @@ def head_geometry(B, L, Cin, C, K, groups, x_bytes=4, p_bytes=4, align=16,
     return HeadGeometry(S, _cdiv(tiles * S, 32) * 32, width, stage, smem(stage), B * groups)
 
 
-def phase_stamps(ctas: int, device) -> torch.Tensor:
-    """A buffer for one launch's phase stamps: (ctas, len(PHASES), 2) int64,
-    the device's ns timer and the SM's cycle counter of each phase."""
-    return torch.zeros((ctas, len(PHASES), 2), dtype=torch.int64, device=device)
-
-
 # ---------------------------------------------------------------- launches
 
 
@@ -392,22 +384,13 @@ def _check_cuda(x: torch.Tensor, named: dict, shapes: dict) -> None:
             raise ValueError(f"{name} has shape {tuple(a.shape)}, expected {shapes[name]}")
 
 
-def _check_stamps(stamps: Optional[torch.Tensor], ctas: int, device) -> None:
-    if stamps is None:
-        return
-    want = (ctas, len(PHASES), 2)
-    if (stamps.device != device or stamps.dtype != torch.int64 or not stamps.is_contiguous()
-            or tuple(stamps.shape) != want):
-        raise ValueError(f"stamps must be a contiguous int64 tensor of shape {want} on {device}")
-
-
 def _ptr(a: Optional[torch.Tensor]):
     return None if a is None else a.data_ptr()
 
 
 @functools.lru_cache(maxsize=None)  # one query per geometry and kernel instance
 def _max_active_clusters(device: int, B, L, Cin, C, K, groups, epi, Ce, x_code, p_code, out_code,
-                         geo: Geometry, stamped: bool) -> int:
+                         geo: Geometry) -> int:
     """How many clusters of the one-wave launch at ``geo`` the card holds at
     once (``cudaOccupancyMaxActiveClusters``)."""
     import ctypes
@@ -418,7 +401,7 @@ def _max_active_clusters(device: int, B, L, Cin, C, K, groups, epi, Ce, x_code, 
     with torch.cuda.device(device):
         err = library(SOURCE).adm_conv_gn_mish_clusters(
             B, L, Cin, C, K, groups, epi, Ce, x_code, p_code, out_code,
-            geo.cs, geo.threads, geo.smem, 1, int(stamped), ctypes.byref(n))
+            geo.cs, geo.threads, geo.smem, 1, ctypes.byref(n))
     if err != 0:
         raise RuntimeError(f"conv_gn_mish occupancy query failed (error {err}, {geo})")
     return n.value
@@ -430,14 +413,14 @@ def _sm_count(device: int) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _pick_path(geo: Geometry, x, w, out, epi, ein, ew, n_groups, cached: bool, stamped: bool) -> tuple:
+def _pick_path(geo: Geometry, x, w, out, epi, ein, ew, n_groups, cached: bool) -> tuple:
     """``(geometry, path, pdl)`` of one launch of the template from what it
     can observe, ``path`` one of ``"one_wave"``, ``"streamed"`` and
     ``"multi_wave"``: :func:`launch_path` at the one-wave geometry, the
     card's answer asked once per geometry; where it refuses, the streamed
     path at batch 1-2 where :func:`streamed_geometry` gives one (16-byte
-    aligned weight rows; unstamped: phase stamps are the other paths'), with
-    programmatic dependent launch on a cached pack; else ``geo`` itself."""
+    aligned weight rows), with programmatic dependent launch on a cached
+    pack; else ``geo`` itself."""
     B, L, Cin = x.shape
     K, _, C = w.shape
     Ce = ein.shape[-1] if ein is not None else 0
@@ -448,11 +431,11 @@ def _pick_path(geo: Geometry, x, w, out, epi, ein, ew, n_groups, cached: bool, s
     if rows16 and wide.smem <= MAX_SMEM:
         clusters = _max_active_clusters(x.device.index, B, L, Cin, C, K, n_groups, epi, Ce,
                                         _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype], _DTYPE_CODE[out.dtype],
-                                        wide, stamped)
+                                        wide)
     one_wave, pdl = launch_path(wide, clusters, cached, rows16)
     if one_wave:
         return wide, "one_wave", pdl
-    if rows16 and not stamped:
+    if rows16:
         sgeo = streamed_geometry(B, L, Cin, C, K, n_groups, Ce, epi, w.element_size(), _sm_count(x.device.index))
         if sgeo is not None:
             return sgeo, "streamed", cached
@@ -460,7 +443,7 @@ def _pick_path(geo: Geometry, x, w, out, epi, ein, ew, n_groups, cached: bool, s
 
 
 def _launch(geo: Geometry, x, w, b, gamma, beta, out, n_groups, eps, epi, ein=None, ew=None,
-            eb=None, stamps=None, one_wave=False, pdl=False) -> None:
+            eb=None, one_wave=False, pdl=False) -> None:
     """One launch of the residual block's template at geometry ``geo``.
     ``ein``/``ew``/``eb``: the epilogue's input, weight and bias (t, tw, tb,
     of 2C columns under FiLM; or xres, wres, bres; or xres alone);
@@ -472,7 +455,6 @@ def _launch(geo: Geometry, x, w, b, gamma, beta, out, n_groups, eps, epi, ein=No
     B, L, Cin = x.shape
     K, _, C = w.shape
     Ce = ein.shape[-1] if ein is not None else 0
-    _check_stamps(stamps, geo.ctas, x.device)
     lib = library(SOURCE)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -481,7 +463,7 @@ def _launch(geo: Geometry, x, w, b, gamma, beta, out, n_groups, eps, epi, ein=No
             B, L, Cin, C, K, n_groups, float(eps), epi,
             _ptr(ein), Ce, _ptr(ew), _ptr(eb),
             _ptr(out), _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype], _DTYPE_CODE[out.dtype],
-            geo.cs, geo.threads, geo.smem, int(one_wave), int(pdl), _ptr(stamps), stream,
+            geo.cs, geo.threads, geo.smem, int(one_wave), int(pdl), stream,
         )
     if err == ERR_SHAPE:
         raise ValueError(
@@ -533,13 +515,12 @@ def _alignment(*tensors: torch.Tensor) -> int:
     return bits & -bits
 
 
-def _launch_head(geo: HeadGeometry, x, w, b, gamma, beta, out, n_groups, eps, stamps=None) -> None:
+def _launch_head(geo: HeadGeometry, x, w, b, gamma, beta, out, n_groups, eps) -> None:
     """One launch of the head's kernel at geometry ``geo``."""
     from .build import library
 
     B, L, Cin = x.shape
     K, _, C = w.shape
-    _check_stamps(stamps, geo.ctas, x.device)
     lib = library(HEAD_SOURCE)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -547,7 +528,7 @@ def _launch_head(geo: HeadGeometry, x, w, b, gamma, beta, out, n_groups, eps, st
             _ptr(x), _ptr(w), _ptr(b), _ptr(gamma), _ptr(beta),
             B, L, Cin, C, K, n_groups, float(eps),
             _ptr(out), _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype], _DTYPE_CODE[out.dtype],
-            geo.S, geo.width, geo.stage, geo.threads, geo.smem, _ptr(stamps), stream,
+            geo.S, geo.width, geo.stage, geo.threads, geo.smem, stream,
         )
     if err == ERR_SHAPE:
         raise ValueError(
@@ -595,22 +576,17 @@ def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
-def fused_conv1d_gn_mish(x, w, b, gamma, beta, n_groups: int = 8, eps: float = 1e-5, *,
-                         stamps=None):
-    """x: (B, L, Cin); w: (K, Cin, C); b/gamma/beta: (C,) -> (B, L, C).
-    ``stamps``: None, or a :func:`phase_stamps` buffer of the launch's CTAs."""
+def fused_conv1d_gn_mish(x, w, b, gamma, beta, n_groups: int = 8, eps: float = 1e-5):
+    """x: (B, L, Cin); w: (K, Cin, C); b/gamma/beta: (C,) -> (B, L, C)."""
     if x.device.type == "cpu":
-        if stamps is not None:
-            raise ValueError("phase stamps come from the CUDA kernel: give CUDA tensors")
         return conv1d_gn_mish_plain(x, w, b, gamma, beta, n_groups, eps)
-    launch = functools.partial(_conv1d_gn_mish_cuda, stamps=stamps)
     kw = dict(n_groups=n_groups, eps=eps)
     if _needs_grad(x, w, b, gamma, beta):
-        return Recompute.apply(launch, conv1d_gn_mish_plain, kw, x, w, b, gamma, beta)
-    return launch(x, w, b, gamma, beta, **kw)
+        return Recompute.apply(_conv1d_gn_mish_cuda, conv1d_gn_mish_plain, kw, x, w, b, gamma, beta)
+    return _conv1d_gn_mish_cuda(x, w, b, gamma, beta, **kw)
 
 
-def _conv1d_gn_mish_cuda(x, w, b, gamma, beta, n_groups, eps, stamps=None):
+def _conv1d_gn_mish_cuda(x, w, b, gamma, beta, n_groups, eps):
     B, L, Cin = x.shape
     K, _, C = w.shape
     _check_cuda(
@@ -621,30 +597,27 @@ def _conv1d_gn_mish_cuda(x, w, b, gamma, beta, n_groups, eps, stamps=None):
     out = torch.empty((B, L, C), dtype=x.dtype, device=x.device)
     geo = head_geometry(B, L, Cin, C, K, n_groups, x.element_size(), w.element_size(),
                         _alignment(x, w, b, gamma, beta))
-    _launch_head(geo, x, w, b, gamma, beta, out, n_groups, eps, stamps)
+    _launch_head(geo, x, w, b, gamma, beta, out, n_groups, eps)
     fused_conv1d_gn_mish.launches += 1
     return out
 
 
 def fused_residual_block(
     x, t, w1, b1, g1, be1, tw, tb, w2, b2, g2, be2, wres=None, bres=None,
-    n_groups: int = 8, eps: float = 1e-5, *, stamps=None, weights_cached: bool = False,
+    n_groups: int = 8, eps: float = 1e-5, *, weights_cached: bool = False,
 ):
     """Whole ResidualTemporalMapBlock. x: (B, L, Cin); t: (B, E); w1 (K, Cin,
     C); w2 (K, C, C); tw (E, C), or (E, 2C) with tb (2C,) for FiLM (Diffusion
     Policy's ConditionalResidualBlock1D: the scale's C columns, then the
     shift's); wres (1, Cin, C) or None (then Cin == C).
-    ``stamps``: None, or a pair of :func:`phase_stamps` buffers, one for
-    each launch. ``weights_cached`` (the blocks' own, ``models/blocks.py``):
+    ``weights_cached`` (the blocks' own, ``models/blocks.py``):
     the weights and biases are a pack made before this call, which no kernel
     right before it wrote; only then may a one-wave or streamed launch
     overlap the launch before it (:func:`launch_path`)."""
     args = (x, t, w1, b1, g1, be1, tw, tb, w2, b2, g2, be2, wres, bres)
     if x.device.type == "cpu":
-        if stamps is not None:
-            raise ValueError("phase stamps come from the CUDA kernel: give CUDA tensors")
         return residual_block_plain(*args, n_groups=n_groups, eps=eps)
-    launch = functools.partial(_residual_block_cuda, stamps=stamps, weights_cached=weights_cached)
+    launch = functools.partial(_residual_block_cuda, weights_cached=weights_cached)
     kw = dict(n_groups=n_groups, eps=eps)
     if _needs_grad(*args):
         return Recompute.apply(launch, residual_block_plain, kw, *args)
@@ -652,7 +625,7 @@ def fused_residual_block(
 
 
 def _residual_block_cuda(x, t, w1, b1, g1, be1, tw, tb, w2, b2, g2, be2, wres, bres,
-                         n_groups, eps, stamps=None, weights_cached=False):
+                         n_groups, eps, weights_cached=False):
     B, L, Cin = x.shape
     K, _, C = w1.shape
     E = t.shape[1]
@@ -667,20 +640,18 @@ def _residual_block_cuda(x, t, w1, b1, g1, be1, tw, tb, w2, b2, g2, be2, wres, b
         dict(x=(B, L, Cin), t=(B, E), w1=(K, Cin, C), b1=(C,), g1=(C,), be1=(C,), tw=(E, CE),
              tb=(CE,), w2=(K, C, C), b2=(C,), g2=(C,), be2=(C,), wres=(1, Cin, C), bres=(C,)),
     )
-    s1, s2 = (None, None) if stamps is None else stamps
     h = torch.empty((B, L, C), dtype=torch.float32, device=x.device)  # stays fp32
     out = torch.empty((B, L, C), dtype=x.dtype, device=x.device)
     geo1, geo2 = residual_block_geometry(B, L, Cin, C, E, wres is not None, K, n_groups, film)
     epi2, ew2 = (EPI_RES_CONV, wres[0]) if wres is not None else (EPI_RES_ID, None)
-    for geo, xin, w, b, g, be, y, epi, ein, ew, eb, st in (
-            (geo1, x, w1, b1, g1, be1, h, EPI_FILM if film else EPI_TBIAS, t, tw, tb, s1),
-            (geo2, h, w2, b2, g2, be2, out, epi2, x, ew2, bres, s2)):
-        geo, path, pdl = _pick_path(geo, xin, w, y, epi, ein, ew, n_groups, weights_cached,
-                                    st is not None)
+    for geo, xin, w, b, g, be, y, epi, ein, ew, eb in (
+            (geo1, x, w1, b1, g1, be1, h, EPI_FILM if film else EPI_TBIAS, t, tw, tb),
+            (geo2, h, w2, b2, g2, be2, out, epi2, x, ew2, bres)):
+        geo, path, pdl = _pick_path(geo, xin, w, y, epi, ein, ew, n_groups, weights_cached)
         if path == "streamed":
             _launch_streamed(geo, xin, w, b, g, be, y, n_groups, eps, epi, ein, ew, eb, pdl=pdl)
         else:
-            _launch(geo, xin, w, b, g, be, y, n_groups, eps, epi, ein, ew, eb, stamps=st,
+            _launch(geo, xin, w, b, g, be, y, n_groups, eps, epi, ein, ew, eb,
                     one_wave=path == "one_wave", pdl=pdl)
         fused_residual_block.one_wave += path == "one_wave"
         fused_residual_block.streamed += path == "streamed"
@@ -723,6 +694,24 @@ def add_launch_counts(counts: Dict[str, int]) -> None:
     the launches of a replayed CUDA graph, which calls no wrapper."""
     for key, f, attr in _COUNTERS:
         setattr(f, attr, getattr(f, attr) + counts.get(key, 0))
+
+
+@contextlib.contextmanager
+def recorded_launches() -> Iterator[Dict[str, int]]:
+    """A dict that holds, once the block is left, the launches made inside
+    it (by :func:`launch_counts`' keys); the counts are then set back to
+    what they were on entering, also when the block raises. A call counts
+    the launches of one run of its body, so what builds a CUDA graph (its
+    capture, a warm run that is not the call's own) runs in one."""
+    before = launch_counts()
+    made: Dict[str, int] = {}
+    try:
+        yield made
+    finally:
+        now = launch_counts()
+        made.update({key: now[key] - before[key] for key in before})
+        for key, f, attr in _COUNTERS:
+            setattr(f, attr, before[key])
 
 
 reset_launch_counts()

@@ -3,7 +3,7 @@ counterparts of the JAX package's jitted steps: the train step,
 ``train.py:204`` ``jax.jit(make_train_step(...), donate_argnums=(0,))``; the
 distill step, ``distill.py:161`` ``jax.jit(step, donate_argnums=(0,))``; the
 scorer fit, ``models/scorer.py:178`` ``@jax.jit`` over a ``lax.scan`` of its
-steps). Built like the plan's program (``driving/program.py``).
+steps). Built as every program of the port is (``ops/program.py``).
 
 :class:`TrainProgram` and :class:`DistillProgram` hold fixed input buffers
 (the batch and the step's draws) and one CUDA graph per key. A step copies
@@ -12,12 +12,11 @@ decay written into its device scalar, the counts and the next LR afterwards,
 ``train/state.py:TrainStep``) run around the device part, its ``body``:
 
 * the key's first step runs the unchanged eager body on a side stream (a
-  real step: it builds the kernel packs, the kernels' library, cuDNN's
-  plans, AdamW's moments), then the body is captured with
-  ``torch.cuda.graph`` (the capture runs nothing) and every later step of
-  the key replays it. Under DistributedDataParallel on NCCL the first 11
-  steps run eagerly (DDP's reducer settles its buckets in its first
-  iterations) and the capture holds the gradients' all-reduce;
+  real step, which counts its launches), then the body is captured and
+  every later step of the key replays it. Under DistributedDataParallel
+  on NCCL the first 11 steps run eagerly (DDP's reducer settles its
+  buckets in its first iterations) and the capture holds the gradients'
+  all-reduce;
 * the draws are made on the host side of the step, in the eager step's
   order (t, noise, keep, then the dropout masks' uniforms, each into its
   buffer), so a replay computes what the eager step computes bit for bit;
@@ -29,20 +28,16 @@ decay written into its device scalar, the counts and the next LR afterwards,
   ranks and the state's generation: ``data_ptr`` and ``_version`` of every
   parameter, buffer, AdamW moment and count and EMA shadow (of the teacher's
   weights too, for distillation), which eager code moves when it writes
-  them (a resume, a ``load_state_dict``) and a replay does not. A new
-  generation drops the old graphs, so one is never replayed on tensors it
-  was not captured on;
-* a replay writes the weights without a ``_version`` bump, so the program
-  bumps the ``_version`` of every tensor the graph writes after each replay
-  (``torch.autograd.graph.increment_version``): the kernel packs' caches
-  (``models/blocks.py:_packed``) and the plan program's key read it, so a
-  plan or a sample after graph steps packs and captures the new weights;
-* a capture that fails raises ``RuntimeError`` naming the key. Nothing falls
-  back to the eager step; the eager step stays callable (``TrainStep``,
-  ``DistillStep``), the plain version a graph is held against;
-* the kernels' launch counts (``ops/kernels.py``) count the eager steps'
-  launches as they happen; the capture's are taken back out and added on
-  every replay, so a step counts its launches once however it ran.
+  them (a resume, a ``load_state_dict``); the program's own steps stay in
+  their generation. A new generation drops the old graphs, so one is never
+  replayed on tensors it was not captured on;
+* each replay bumps the ``_version`` of every tensor the step writes,
+  which the kernel packs' caches (``models/blocks.py:_packed``) and the plan
+  program's key read, so a plan or a sample after graph steps packs and
+  captures the new weights;
+* a capture that fails raises ``RuntimeError`` naming the key; the eager
+  step stays callable (``TrainStep``, ``DistillStep``), the plain version a
+  graph is held against.
 
 Tracing (``utils/profiling.py``): a train step is the host span ``step``,
 whose request is the state's step count, with the children ``step.draws``
@@ -66,13 +61,12 @@ capture and the replay are CUDA's.
 from __future__ import annotations
 
 import math
-import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from ..models.blocks import DropoutDraws
-from ..ops import kernels
+from ..ops import program
 from ..utils import profiling
 from .state import StepDraws, TrainState, TrainStep
 
@@ -81,32 +75,8 @@ __all__ = ["TrainProgram", "DistillProgram", "replay_steps", "DDP_WARM_STEPS"]
 DDP_WARM_STEPS = 11  # eager DDP iterations before a capture (PyTorch's CUDA graphs notes)
 
 
-def _tensors_key(tensors) -> Tuple:
-    return tuple((t.data_ptr(), t._version) for t in tensors)
-
-
 def _optimizer_tensors(optimizer: torch.optim.Optimizer) -> List[torch.Tensor]:
     return [v for st in optimizer.state.values() for v in st.values() if isinstance(v, torch.Tensor)]
-
-
-class _Captured:
-    """One key's buffers, and on the card its graph, its output (the loss),
-    the dropout uniforms' buffers, the launches it captured, the eager steps
-    it runs before the capture and those still to run, what it must keep
-    alive, and the
-    seconds of its last eager step and of its capture (host clock, each
-    ending in a synchronize)."""
-
-    def __init__(self, inputs: Dict[str, torch.Tensor], warm_steps: int):
-        self.inputs = inputs
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.loss: Optional[torch.Tensor] = None
-        self.uniforms: List[torch.Tensor] = []
-        self.launches: Dict[str, int] = {}
-        self.spans: Optional[profiling.GraphSpans] = None
-        self.warm_steps = self.warm_left = warm_steps
-        self.keep: list = []
-        self.warm_s = self.capture_s = 0.0
 
 
 def _fill(bufs: Dict[str, torch.Tensor], srcs: Dict[str, torch.Tensor]) -> None:
@@ -118,94 +88,18 @@ def _buffers(srcs: Dict[str, torch.Tensor], device) -> Dict[str, torch.Tensor]:
     return {name: torch.empty(src.shape, dtype=src.dtype, device=device) for name, src in srcs.items()}
 
 
-def _capture(body: Callable[[], torch.Tensor], device, stream, what: str,
-             spans: Optional[profiling.GraphSpans] = None):
-    """(graph, its output, the launches it recorded, seconds): ``body``
-    captured on ``stream``, its device-span markers into ``spans``; the
-    launch counts end as they began. Raises ``RuntimeError`` naming
-    ``what`` if the capture fails."""
-    torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    before = kernels.launch_counts()
-    graph = torch.cuda.CUDAGraph()
-    try:
-        with profiling.capture(spans), torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
-            out = body()
-        if spans is not None:
-            spans.close()
-    except RuntimeError as e:
-        raise RuntimeError(f"capturing {what} as a CUDA graph failed: {e}") from e
-    finally:
-        after = kernels.launch_counts()
-        kernels.add_launch_counts({k: before[k] - after[k] for k in before})
-    torch.cuda.synchronize(device)
-    return graph, out, {k: after[k] - before[k] for k in before}, time.perf_counter() - t0
-
-
-class _StepProgram:
-    """What the train and distill programs share: the keyed buffers, the
-    side stream and the generation of the state they were captured on."""
-
-    def __init__(self, device):
-        self.device = torch.device(device)
-        self.programs: Dict[Tuple, _Captured] = {}
-        self.key: Optional[Tuple] = None  # the key of the last step
-        self._state: Optional[Tuple] = None
-        self._generation = -1
-        self._stream: Optional[torch.cuda.Stream] = None
+class _StepProgram(program.Programs):
+    """What the train and distill programs share: the keyed buffers."""
 
     def _program(self, state_key: Tuple, key_of: Callable[[int], Tuple], inputs: Dict[str, torch.Tensor],
-                 warm_steps: int) -> Tuple[_Captured, bool]:
-        if state_key != self._state:
-            self.programs.clear()  # their graphs hold the old tensors
-            self._state, self._generation = state_key, self._generation + 1
-        self.key = key = key_of(self._generation)
+                 warm_steps: int) -> Tuple[program.Program, bool]:
+        self.follow(state_key)
+        self.key = key = key_of(self.generation)
         prog = self.programs.get(key)
         if prog is None:
-            prog = self.programs[key] = _Captured(_buffers(inputs, self.device), warm_steps)
+            prog = self.programs[key] = program.Program(_buffers(inputs, self.device), warm_steps)
         _fill(prog.inputs, inputs)
         return prog, prog.graph is None and self.device.type == "cuda"
-
-    def _eager(self, prog: _Captured, run: Callable[[], dict]) -> dict:
-        """One eager step on the side stream (the warm run before a capture)."""
-        t0 = time.perf_counter()
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-        current = torch.cuda.current_stream(self.device)
-        self._stream.wait_stream(current)
-        with torch.cuda.stream(self._stream):
-            out = run()
-        current.wait_stream(self._stream)
-        torch.cuda.synchronize(self.device)
-        prog.warm_s = time.perf_counter() - t0
-        prog.warm_left -= 1
-        return out
-
-    def captured(self) -> Optional[_Captured]:
-        """The last step's key's program, once it holds a graph."""
-        prog = self.programs.get(self.key)
-        return prog if prog is not None and prog.graph is not None else None
-
-    def _capture_into(self, prog: _Captured, body: Callable[[], torch.Tensor], what: str,
-                      spans: Optional[profiling.GraphSpans] = None) -> None:
-        """Capture ``body`` into ``prog``, its markers into ``spans``; a
-        failed capture drops the key and raises."""
-        try:
-            prog.graph, prog.loss, prog.launches, prog.capture_s = _capture(body, self.device, self._stream, what,
-                                                                            spans)
-        except RuntimeError:
-            del self.programs[self.key]
-            raise
-        prog.spans = spans
-
-    def _replay(self, prog: _Captured, writes: List[torch.Tensor]) -> torch.Tensor:
-        """Replay ``prog``'s graph, which writes ``writes`` in place."""
-        prog.graph.replay()
-        kernels.add_launch_counts(prog.launches)
-        if prog.spans is not None:
-            prog.spans.replayed()
-        torch.autograd.graph.increment_version(writes)
-        return prog.loss.clone()
 
 
 class TrainProgram(_StepProgram):
@@ -227,7 +121,7 @@ class TrainProgram(_StepProgram):
         return [*m.parameters(), *m.buffers(), *_optimizer_tensors(state.optimizer), *state.ema.shadow_params]
 
     def state_key(self, state: TrainState) -> Tuple:
-        return _tensors_key(self.writes(state))
+        return program.tensors_key(self.writes(state))
 
     def __call__(self, state: TrainState, batch: Dict[str, torch.Tensor], draws: Optional[StepDraws] = None,
                  generator: Optional[torch.Generator] = None) -> dict:
@@ -252,11 +146,11 @@ class TrainProgram(_StepProgram):
         if prog.graph is not None:
             with profiling.span("step.draws"):
                 gen = _generator(draws.dropout, self.device)
-                for u in prog.uniforms:  # after t, noise and keep, as the eager step draws them
+                for u in bufs["dropout"]:  # after t, noise and keep, as the eager step draws them
                     u.copy_(torch.rand(u.shape, generator=gen, device=gen.device))
             lr, decay = step.begin(state)
             with profiling.span("step.replay"):
-                loss = self._replay(prog, self.writes(state))
+                loss = self.replay(prog, self.writes(state)).clone()
             step.end(state)
         elif not build:  # the CPU: the step on the buffers
             lr, decay = step.begin(state)
@@ -267,10 +161,10 @@ class TrainProgram(_StepProgram):
             with profiling.span("step.build"):
                 lr, decay, loss = self._build(prog, state, batch_b, draws)
         with profiling.span("step.state_key"):
-            self._state = self.state_key(state)
+            self.settle(self.state_key(state))
         return {"loss": loss, "lr": lr, "ema_decay": decay}
 
-    def _build(self, prog: _Captured, state: TrainState, batch_b: Dict[str, torch.Tensor], draws: StepDraws):
+    def _build(self, prog: program.Program, state: TrainState, batch_b: Dict[str, torch.Tensor], draws: StepDraws):
         """An eager step on the side stream; after the key's last one, the
         capture. Returns (lr, decay, loss) of the eager step."""
         step, bufs = self.step, prog.inputs
@@ -282,14 +176,13 @@ class TrainProgram(_StepProgram):
             step.end(state)
             return lr, decay, loss
 
-        lr, decay, loss = self._eager(prog, run)
+        lr, decay, loss = self.warm(prog, run)
         if prog.warm_left <= 0:
-            prog.uniforms = [torch.empty_like(u) for u in recorder.draws]
+            # the dropout masks' uniforms, drawn into these before each replay
+            uniforms = bufs["dropout"] = [torch.empty_like(u) for u in recorder.draws]
             body = lambda: step.body(state, batch_b, StepDraws(bufs["t"], bufs["noise"], bufs["keep"],
-                                                               DropoutDraws(draws=prog.uniforms)))
-            spans = profiling.GraphSpans("step", self.device, 2 * step.groups + 4)
-            self._capture_into(prog, body, f"the train step for {_describe(self.key)}", spans)
-            profiling.count("captures.step", 1, prog.warm_s + prog.capture_s)
+                                                               DropoutDraws(draws=uniforms)))
+            self.capture(prog, body, f"the train step for {_describe(self.key)}", "step", 2 * step.groups + 4)
         return lr, decay, loss
 
 
@@ -311,7 +204,7 @@ class DistillProgram(_StepProgram):
                 *state.ema.shadow_params]
 
     def state_key(self, state, teacher) -> Tuple:
-        return _tensors_key([*self.writes(state), *teacher.parameters(), *teacher.buffers()])
+        return program.tensors_key([*self.writes(state), *teacher.parameters(), *teacher.buffers()])
 
     def __call__(self, state, teacher, batch: Dict[str, torch.Tensor], draws=None,
                  generator: Optional[torch.Generator] = None) -> dict:
@@ -327,7 +220,7 @@ class DistillProgram(_StepProgram):
         buf_draws = type(draws)(bufs["i"], bufs["noise"])
         if prog.graph is not None:
             lr = step.begin(state)
-            loss = self._replay(prog, self.writes(state))
+            loss = self.replay(prog, self.writes(state)).clone()
             step.end(state)
         elif not build:
             lr = step.begin(state)
@@ -340,13 +233,13 @@ class DistillProgram(_StepProgram):
                 step.end(state)
                 return lr, loss
 
-            lr, loss = self._eager(prog, run)
-            self._capture_into(prog, lambda: step.body(state, teacher, batch_b, buf_draws),
-                               f"the distill step for {_describe_distill(self.key)}")
+            lr, loss = self.warm(prog, run)
+            self.capture(prog, lambda: step.body(state, teacher, batch_b, buf_draws),
+                         f"the distill step for {_describe_distill(self.key)}")
             # the teacher's cached kernel packs the graph reads, alive whatever
             # repacks the teacher later
             prog.keep = [dict(m.__dict__.get("_kernel_params", {})) for m in teacher.modules()]
-        self._state = self.state_key(state, teacher)
+        self.settle(self.state_key(state, teacher))
         return {"loss": loss, "lr": lr}
 
 
@@ -367,23 +260,14 @@ def replay_steps(step: Callable[[], torch.Tensor], steps: int, device,
         return loss, info
     if steps <= 0:
         return loss, info
-    stream = torch.cuda.Stream(dev)
-    current = torch.cuda.current_stream(dev)
-    t0 = time.perf_counter()
-    stream.wait_stream(current)
-    with torch.cuda.stream(stream):
-        loss = step()
-    current.wait_stream(stream)
-    torch.cuda.synchronize(dev)
-    info["warm_s"] = time.perf_counter() - t0
+    owner, prog = program.Programs(dev), program.Program(None)
+    loss = owner.warm(prog, step)
+    info["warm_s"] = prog.warm_s
     if steps == 1:
         return loss, info
-    graph, out, launches, info["capture_s"] = _capture(step, dev, stream, "the fit's step")
-    for _ in range(steps - 1):
-        graph.replay()
-        kernels.add_launch_counts(launches)
-    info["replays"] = steps - 1
-    torch.autograd.graph.increment_version(writes)
+    owner.capture(prog, step, "the fit's step")
+    out = owner.replay(prog, writes, steps - 1)
+    info.update(capture_s=prog.capture_s, replays=steps - 1)
     return out.clone(), info
 
 

@@ -19,9 +19,7 @@ Phases, each of which fails the run (nonzero exit, no result line):
 5. kernel time by CUDA events beside the plain version's, the bound and the
    launch floor (the device time of an empty kernel launched the same way),
    with each launch's geometry; each residual block's time at every cluster
-   size the geometry can pick; and the phase stamps of the head, of downs.0.1 and of mid_block1, cold (L2
-   flushed) and warm: the median time of each phase over the CTAs, in ns and
-   in SM cycles, and the span from the first entry to the last store;
+   size the geometry can pick;
 6. the agents, through the port's own entry points, at the same width: per
    config, an ``InteractAgent`` on the card and one on the CPU over the
    recorded frames of ``tests/fixtures/replay_town01.npz`` in lockstep
@@ -1017,12 +1015,12 @@ def augmentation(device_breakdown, smi, dev="cuda") -> dict:
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             for _ in range(AUG_REPS):
-                prog["graph"].replay()
+                prog.graph.replay()
             end.record()
             torch.cuda.synchronize()
             replay_ms = start.elapsed_time(end) / AUG_REPS
-            replay = device_breakdown(lambda: prog["graph"].replay())
-            eager = device_breakdown(lambda: aug.augment_body(prog["images"], prog["draws"]))
+            replay = device_breakdown(lambda: prog.graph.replay())
+            eager = device_breakdown(lambda: aug.augment_body(prog.inputs["images"], prog.inputs["draws"]))
             ok = same and rows_err <= AUG_TOL and replay["kernels"] > 0
             row = dict(bit_identical=same, rows_vs_eager_max_abs=rows_err,
                        rows_bit_identical=bool(torch.equal(rows, want)),
@@ -3406,48 +3404,6 @@ def main() -> int:
                     f"(picked {'; '.join(row['geometry'])}) on {smi}")
         finally:
             kernels.launch_geometry = pick
-
-        # phase stamps, cold (a 64 MB write evicts the 50 MB L2 first) and warm
-        scratch = torch.empty(16 * 2**20, device=dev)
-        report["phases"] = []
-        names = [f"{a} -> {b}" for a, b in zip(kernels.PHASES, kernels.PHASES[1:])]
-        for (n, m, a), c in zip(calls, cases):
-            if c[0] is not kernels.fused_conv1d_gn_mish and n not in ("downs.0.1", "mid_block1"):
-                continue
-            fn, _, args = c
-            geos = geometries(fn, args)
-            for temp in ("cold", "warm"):
-                bufs = [kernels.phase_stamps(g.ctas, dev) for g in geos]
-                if temp == "cold":
-                    scratch.zero_()
-                else:
-                    fn(*args)
-                torch.cuda.synchronize()
-                fn(*args, stamps=bufs[0] if len(bufs) == 1 else tuple(bufs))
-                torch.cuda.synchronize()
-                for i, (g, buf) in enumerate(zip(geos, bufs)):
-                    t = buf.cpu().numpy()  # (ctas, phases, [ns, cycles])
-                    d = np.diff(t, axis=1)
-                    ph = dict(block=n, launch=i + 1, temp=temp, geometry=describe(g),
-                              phase_ns=[float(np.median(d[:, p, 0])) for p in range(d.shape[1])],
-                              phase_cycles=[float(np.median(d[:, p, 1])) for p in range(d.shape[1])],
-                              cta_ns=float(np.median(t[:, -1, 0] - t[:, 0, 0])),
-                              cta_cycles=float(np.median(t[:, -1, 1] - t[:, 0, 1])),
-                              span_ns=int(t[:, -1, 0].max() - t[:, 0, 0].min()))
-                    report["phases"].append(ph)
-                    log(f"phases {n:22s} launch {i + 1} {temp}: " + "; ".join(
-                        f"{nm} {ns:.0f} ns / {cy:.0f} cycles"
-                        for nm, ns, cy in zip(names, ph["phase_ns"], ph["phase_cycles"]))
-                        + f"; one CTA entry -> stored (median) {ph['cta_ns']:.0f} ns / "
-                        f"{ph['cta_cycles']:.0f} cycles; first entry -> last store {ph['span_ns']} ns "
-                        f"({describe(g)}) on {smi}")
-        del scratch
-        clocks = subprocess.run(
-            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True,
-        ).stdout.strip().splitlines()[0]
-        report["clocks_sm"] = clocks
-        log(f"phases: nvidia-smi clocks.sm, clocks.max.sm after the stamped launches: {clocks}")
 
     phase_done(5)
     # -------------------------------------------------------------- 6. agents

@@ -349,13 +349,13 @@ def _launch(B, L, cin, c, e, j, film):
     return c, cin, kernels.EPI_RES_CONV if cin != c else kernels.EPI_RES_ID
 
 
-def _path(monkeypatch, B, L, rows, c, ce, epi, cached=True, stamped=False):
+def _path(monkeypatch, B, L, rows, c, ce, epi, cached=True):
     """_pick_path on meta tensors of a launch's shapes, on a card modelled
     as an H100: 132 SMs, each holding two one-wave CTAs of at most 512
     threads (30 clusters of eight; the card said 15 of 1024-thread CTAs,
     PERF.md)."""
     monkeypatch.setattr(kernels, "_sm_count", lambda device: 132)
-    monkeypatch.setattr(kernels, "_max_active_clusters", lambda *a, **kw: {8: 30}.get(a[-2].cs, 264 // a[-2].cs))
+    monkeypatch.setattr(kernels, "_max_active_clusters", lambda *a, **kw: {8: 30}.get(a[-1].cs, 264 // a[-1].cs))
     meta = lambda *shape: torch.empty(shape, device="meta")
     x, w, out = meta(B, L, rows), meta(5, rows, c), meta(B, L, c)
     heads = 2 if epi == kernels.EPI_FILM else 1
@@ -367,7 +367,7 @@ def _path(monkeypatch, B, L, rows, c, ce, epi, cached=True, stamped=False):
     elif epi == kernels.EPI_RES_ID:
         ein = meta(B, L, c)
     geo = kernels.launch_geometry(B, L, rows, c, 5, 8, ce, epi)
-    return kernels._pick_path(geo, x, w, out, epi, ein, ew, 8, cached, stamped)
+    return kernels._pick_path(geo, x, w, out, epi, ein, ew, 8, cached)
 
 
 @pytest.mark.parametrize("B", [1, 2])
@@ -375,14 +375,13 @@ def _path(monkeypatch, B, L, rows, c, ce, epi, cached=True, stamped=False):
 def test_streamed_path_takes_diffusion_policy_wide_launches(monkeypatch, B, call, j):
     """Each of the 17 launches of a Diffusion Policy forward that the
     one-wave path refuses takes the streamed path at batch 1 and 2, with
-    programmatic dependent launch on a cached pack only, never when phase
-    stamps are asked for; its geometry cuts the rows over one CTA an SM."""
+    programmatic dependent launch on a cached pack only; its geometry cuts
+    the rows over one CTA an SM."""
     L, cin, c = DP_FILM[call]
     rows, ce, epi = _launch(B, L, cin, c, DP_E, j, True)
     geo, path, pdl = _path(monkeypatch, B, L, rows, c, ce, epi)
     assert (path, pdl) == ("streamed", True)
     assert _path(monkeypatch, B, L, rows, c, ce, epi, cached=False)[1:] == ("streamed", False)
-    assert _path(monkeypatch, B, L, rows, c, ce, epi, stamped=True)[1:] == ("multi_wave", False)
     assert geo == kernels.streamed_geometry(B, L, rows, c, 5, 8, ce, epi, 4, 132)
     assert geo.ctas == 8 * geo.parts == 128 and geo.threads == kernels.STREAM_THREADS
     chunk = -(-L * c // 8 // kernels.FINISH_CLUSTER)
@@ -512,19 +511,6 @@ def test_head_geometry_fits_one_cta(L, cg, fits):
     get a thread count the C side refuses; the wrapper then raises."""
     g = kernels.head_geometry(1, L, 64, 8 * cg, 5, 8)
     assert (g.threads <= kernels.MAX_THREADS) == fits
-
-
-@pytest.mark.parametrize("which", ["residual", "conv"])
-def test_wrapper_refuses_stamps_on_cpu(rng, which):
-    """Phase stamps come from the CUDA kernels; the CPU path has none to give."""
-    if which == "residual":
-        args = _torch(_res_inputs(rng, 1, 8, 16, 16, 24))
-        fn, stamps = kernels.fused_residual_block, (torch.zeros(8, 5, 2, dtype=torch.int64),) * 2
-    else:
-        args = _torch(_conv_inputs(rng, 1, 16, 7, 16))
-        fn, stamps = kernels.fused_conv1d_gn_mish, torch.zeros(8, 5, 2, dtype=torch.int64)
-    with torch.no_grad(), pytest.raises(ValueError, match="phase stamps"):
-        fn(*args, stamps=stamps)
 
 
 def _need_card():
@@ -668,29 +654,6 @@ def test_cuda_kernels_repeat_bit_for_bit():
                 args = _torch(_conv_inputs(rng, B, *shape), "cuda")
                 first = kernels.fused_conv1d_gn_mish(*args)
                 assert torch.equal(first, kernels.fused_conv1d_gn_mish(*args))
-
-
-@pytest.mark.gpu
-def test_cuda_phase_stamps():
-    """A stamped launch gives the same output as a plain one, and each CTA's
-    five stamps run forward in time on both clocks."""
-    _need_card()
-    rng = np.random.default_rng(5)
-    with torch.no_grad():
-        args = _torch(_conv_inputs(rng, 2, 16, 64, 64), "cuda")
-        geo = kernels.head_geometry(2, 16, 64, 64, 5, 8)
-        stamps = kernels.phase_stamps(geo.ctas, "cuda")
-        got = kernels.fused_conv1d_gn_mish(*args, stamps=stamps)
-        assert torch.equal(got, kernels.fused_conv1d_gn_mish(*args))
-        args = _torch(_res_inputs(rng, 1, 16, 64, 64, 128), "cuda")
-        geos = kernels.residual_block_geometry(1, 16, 64, 64, 128, False)
-        pair = tuple(kernels.phase_stamps(g.ctas, "cuda") for g in geos)
-        got = kernels.fused_residual_block(*args, stamps=pair)
-        assert torch.equal(got, kernels.fused_residual_block(*args))
-    for s in (stamps,) + pair:
-        s = s.cpu()
-        assert (s[:, 0, 0] > 0).all()
-        assert (s[:, 1:, :] >= s[:, :-1, :]).all()
 
 
 @pytest.mark.gpu
@@ -864,31 +827,6 @@ def test_one_wave_repeats_bit_for_bit_on_card():
                 first = kernels.fused_residual_block(*args, weights_cached=True)
                 assert torch.equal(first, kernels.fused_residual_block(*args, weights_cached=True))
                 assert torch.equal(first, kernels.fused_residual_block(*args))
-
-
-@pytest.mark.gpu
-def test_one_wave_phase_stamps_on_card():
-    """A stamped one-wave launch, behind another launch with programmatic
-    dependent launch, gives the unstamped output, and each CTA's five
-    stamps run forward in time on both clocks (the entry stamp is taken at
-    entry and written after the wait)."""
-    _need_card()
-    rng = np.random.default_rng(12)
-    with torch.no_grad():
-        for L, cin, c in [(16, 64, 64), (2, 512, 512), (2, 1024, 256)]:
-            args = _torch(_res_inputs(rng, 1, L, cin, c, 128), "cuda")
-            geos = kernels.residual_block_geometry(1, L, cin, c, 128, cin != c)
-            pair = tuple(kernels.phase_stamps(g.ctas, "cuda") for g in geos)
-            want = kernels.fused_residual_block(*args, weights_cached=True)
-            before = _paths()
-            got = kernels.fused_residual_block(*args, stamps=pair, weights_cached=True)
-            assert tuple(a - b for a, b in zip(_paths(), before)) == (2, 2)
-            torch.cuda.synchronize()
-            assert torch.equal(got, want)
-            for s in pair:
-                s = s.cpu()
-                assert (s[:, 0, 0] > 0).all()
-                assert (s[:, 1:, :] >= s[:, :-1, :]).all()
 
 
 def _chain_blocks(rng, widths, L, B, device):
@@ -1108,3 +1046,29 @@ def test_streamed_fresh_pack_launches_without_pdl_on_card():
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
     assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("raises", [False, True])
+def test_recorded_launches_restore_the_counts(raises):
+    """``recorded_launches`` holds the launches made inside it, by
+    ``launch_counts``' keys, and on leaving sets the counts back to what
+    they were, also when the block raises; nested, each block records its
+    own."""
+    kernels.reset_launch_counts()
+    kernels.add_launch_counts({"fused_residual_block": 3, kernels.FILM: 1})
+    before = kernels.launch_counts()
+    inner = {"fused_conv1d_gn_mish": 1, kernels.PATHS[0]: 4}
+    outer = {"fused_residual_block": 5, kernels.FILM: 5}
+    try:
+        with kernels.recorded_launches() as got:
+            kernels.add_launch_counts(outer)  # the launches a replay adds, as wrappers count theirs
+            with kernels.recorded_launches() as got_inner:
+                kernels.add_launch_counts(inner)
+            assert kernels.launch_counts() == {k: before[k] + outer.get(k, 0) for k in before}
+            if raises:
+                raise KeyError("inside the block")
+    except KeyError:
+        assert raises
+    assert got_inner == {k: inner.get(k, 0) for k in before}
+    assert got == {k: outer.get(k, 0) for k in before}
+    assert kernels.launch_counts() == before

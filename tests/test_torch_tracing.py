@@ -273,10 +273,9 @@ def test_augment_graph_is_one_device_span_on_card():
     images = torch.from_numpy(frames(8, (256, 900))).cuda()
     program(images, torch.Generator().manual_seed(0), 0)
     prog = program.programs[program.key]
-    holder = type("Prog", (), {"graph": prog["graph"], "spans": prog["spans"]})
-    events_ms = _timed_replays(holder, 4, "augment")
+    events_ms = _timed_replays(prog, 4, "augment")
     spans = [r for r in profiling.report()["device_spans"] if r["graph"] == "augment"]
-    assert prog["spans"].describe()["markers"] == 2 and len(spans) == 4
+    assert prog.spans.describe()["markers"] == 2 and len(spans) == 4
     for r, ms in zip(spans, events_ms):
         assert r["spans"]["augment"] == pytest.approx(ms, rel=0.05)
 

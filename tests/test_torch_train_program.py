@@ -15,8 +15,8 @@ bump after a replay, read by the kernel packs and the plan program; and
 draws given without a dropout generator.
 
 On a card only (``gpu``): graph against eager bit for bit with TF32 off,
-a plan and a sample after graph steps against a fresh model's, and a failed
-capture raising. JAX is imported inside the tests that compare with it, so
+a plan and a sample after graph steps against a fresh model's (a failed
+capture raising: ``tests/test_torch_program.py``). JAX is imported inside the tests that compare with it, so
 that the ``gpu`` tests also run without JAX:
 ``python -m pytest tests/test_torch_train_program.py -m gpu --noconftest``.
 """
@@ -318,7 +318,7 @@ def test_replay_bumps_versions_so_packs_and_plan_programs_refresh():
     what it wrote, so the packs and the plan program take the new
     weights."""
     from autonomous_driving_with_diffusion_model_tpu_torch.driving import DiffusionPlanner
-    from autonomous_driving_with_diffusion_model_tpu_torch.train.program import _Captured, _StepProgram
+    from autonomous_driving_with_diffusion_model_tpu_torch.ops import program
 
     cfg = cfg_of()
     planner = DiffusionPlanner(cfg, seed=0, device="cpu")
@@ -337,14 +337,14 @@ def test_replay_bumps_versions_so_packs_and_plan_programs_refresh():
             with torch.no_grad():
                 assert torch.equal(head.kernel_params()[0], old)  # stale until the bump
 
-    prog = _Captured({}, 1)
-    prog.graph, prog.loss = Replayed(), torch.zeros(())
-    generation = planner._program._generation
-    _StepProgram("cpu")._replay(prog, list(planner.model.parameters()))
+    prog = program.Program({})
+    prog.graph, prog.outputs = Replayed(), torch.zeros(())
+    generation = planner._program.generation
+    program.Programs.replay(prog, list(planner.model.parameters()))
     with torch.no_grad():
         assert torch.equal(head.kernel_params()[0], weight.permute(2, 1, 0))
     planner.plan(frame)
-    assert planner._program._generation == generation + 1
+    assert planner._program.generation == generation + 1
 
 
 @pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
@@ -444,29 +444,6 @@ def test_plan_and_sample_after_graph_steps_use_the_new_weights_on_card():
 
 
 @pytest.mark.gpu
-def test_failed_capture_raises_on_card(monkeypatch):
-    """A body that waits on the card cannot be captured: the step raises,
-    naming the key, each time, and no graph is kept."""
-    _need_card()
-    cfg = cfg_of()
-    state, _ = twin_states(cfg, "cuda")
-    step = make_train_step(make_schedule("squaredcos_cap_v2", 10, device="cuda"), cfg)
-    body = TrainStep.body
-
-    def syncing(self, *args):
-        loss = body(self, *args)
-        float(loss)  # a host sync
-        return loss
-
-    monkeypatch.setattr(TrainStep, "body", syncing)
-    program = TrainProgram(step, "cuda")
-    for it in range(2):
-        with pytest.raises(RuntimeError, match=r"capturing the train step .*batch\.image \(4, 32, 48, 3\)"):
-            program(state, batch_of("cuda"), generator=iteration_generators(it, "cuda")[1])
-    assert program.programs == {}
-
-
-@pytest.mark.gpu
 def test_augment_graph_equals_the_eager_body_on_card():
     """The augmentation program (``data/augment.py:AugmentProgram``) on the
     card replays a CUDA graph: bit-identical to the eager body on the same
@@ -481,7 +458,7 @@ def test_augment_graph_equals_the_eager_body_on_card():
         got = program(images, torch.Generator().manual_seed(it), 6.4e8)
         want = aug.augment_batch(images, torch.Generator().manual_seed(it), 6.4e8)
         assert torch.equal(got, want), it
-    assert len(program.programs) == 2 and all(p["graph"] is not None for p in program.programs.values())
+    assert len(program.programs) == 2 and all(p.graph is not None for p in program.programs.values())
 
 
 @pytest.mark.gpu
