@@ -47,10 +47,18 @@ SIGNATURES = {
             _I, _I, _I, _I, _I,  # parts, threads, shared-memory bytes; the finishing CTA's threads, bytes
             _I, _P,  # programmatic dependent launch, stream
         ],
+        "adm_conv_gn_mish_folded": [
+            _P, _P, _P, _P, _P,  # x, w, bias, gamma, beta
+            _I, _I, _I, _I, _I, _I, _F, _I,  # B, L, Cin, C, K, groups, eps, epi
+            _P, _I, _P, _P,  # epilogue input, Ce, its weight, its bias
+            _P, _I, _I, _I,  # out, x_dtype, p_dtype, out_dtype
+            _I, _I, _I,  # cluster size, threads, shared-memory bytes
+            _I, _P,  # programmatic dependent launch, stream
+        ],
         "adm_conv_gn_mish_clusters": [
             _I, _I, _I, _I, _I, _I, _I, _I,  # B, L, Cin, C, K, groups, epi, Ce
             _I, _I, _I,  # x_dtype, p_dtype, out_dtype
-            _I, _I, _I, _I,  # cluster size, threads, shared-memory bytes, one-wave
+            _I, _I, _I, _I,  # cluster size, threads, shared-memory bytes, path (1 one-wave, 2 folded)
             _P,  # out: the clusters the card holds at once
         ],
         # CTAs, threads, cluster size (0: no cluster), shared-memory bytes, stream

@@ -109,6 +109,38 @@
 // the next launch start at its entry or end; both halves at the largest
 // shared-memory carveout; each segment cut over all the parts.)
 //
+// The folded path (conv_gn_mish_kernel_folded; ops/kernels.py:folded_geometry;
+// batch 3 and up where the slices fit shared memory). Above batch 2 the
+// other paths give each (b, g) its own cluster, so each weight is read from
+// device memory once per batch row and used L times a read. Here one cluster
+// of cs CTAs (16 where the card holds a cluster of 16 for every group, else
+// 8) owns group g for every batch row: rank r fetches its weight slice once,
+// as the one-wave path does (copy_rows before griddepcontrol.wait), stages
+// the zero-padded input rows of all B rows for its channels, and then
+// computes a small GEMM: rows (b, l), the group's cg columns, K x nc terms.
+// A thread holds a register tile of FOLD_PAIRS (batch row, position) pairs
+// by four columns; for each of its channels it loads each batch row's window
+// of TL + K - 1 positions and then each tap's four weights (one 16-byte
+// shared load), so each weight read from shared memory feeds FOLD_PAIRS x 4
+// products and each input value up to K x 4. S lanes share a tile's
+// channels and meet by halving exchanges (each ends with its share of the
+// tile, summed in one fixed order). The epilogue's projection is the same
+// GEMM with one tap. Each rank writes its sums straight into the shared
+// memory of the rank that owns those outputs (rank q owns the chunk [q n /
+// cs, (q + 1) n / cs) of each batch row's n = L x cg outputs; the time
+// projection's sums go to every position's owner), once every rank has
+// started (a split cluster barrier opened at entry). After one cluster.sync
+// each rank adds, for its chunk, the bias and every rank's sums in rank order
+// from its own shared memory, takes each batch row's sum and sum of squared
+// deviations over the chunk (two-pass) and writes both into every rank;
+// after a second cluster.sync it combines the ranks' pairs in rank order into
+// each row's mean and variance (Chan et al.'s pairwise update), normalises
+// its chunk, applies Mish and the epilogue and writes it. No distributed
+// access follows the second barrier. Every sum runs in a fixed order with no
+// atomics, and all of it is float32 on CUDA cores. (Measured against this
+// design on an H100: pulling the peers' sums after the barrier, the time
+// projection's sums written L times by one lane each, unrolled rank sums.)
+//
 // Plain C interface for ctypes; the launch goes on the caller's stream and
 // the function returns the launch's CUDA error, or -1 for an unsupported
 // dtype mix and -2 for a shape or geometry the kernel does not take.
@@ -881,6 +913,459 @@ __global__ void __launch_bounds__(MAX_THREADS)
   cluster.sync();  // peers may still read this CTA's statistics
 }
 
+// ---------------------------------------------------------------- the folded path
+
+constexpr int FOLD_THREADS = 512;     // threads of a folded CTA at most: two share an SM
+constexpr int FOLD_MAX_CLUSTER = 16;  // H100's non-portable cluster size
+constexpr int FOLD_PAIRS = 4;         // (batch row, position) pairs of a thread's register tile
+constexpr int FOLD_MAX_K = 5;         // taps a thread's input window covers
+constexpr int FOLD_MAX_SPLIT = 4;     // adjacent tiles' lanes sharing one tile's channels
+
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ inline int round4(int a) { return (a + 3) / 4 * 4; }
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+// positions of a register tile over `pos` positions: 1, 2 or 4; its batch
+// rows are FOLD_PAIRS over that. A thread loads an input window of the tile's
+// positions and the taps after them in pieces of that many floats.
+__host__ __device__ inline int fold_tl(int pos) { return pos <= 1 ? 1 : pos <= 2 ? 2 : 4; }
+// floats between two staged input rows: every position of the padded row and
+// every piece a window loads from the last tile, in whole pieces
+__host__ __device__ inline int fold_pitch(int pos, int taps, int kmax) {
+  const int tl = fold_tl(pos), ntl = cdiv(pos, tl);
+  return cdiv(imax(pos + taps - 1, (ntl - 1) * tl + cdiv(tl + kmax - 1, tl) * tl), tl) * tl;
+}
+
+// A folded CTA's register tiles, threads and shared memory: offsets in floats
+// (each from a 16-byte boundary) and their total, after which the weight
+// slice follows (slice_bytes). ops/kernels.py:folded_geometry computes the same.
+struct FoldLayout {
+  int tl;          // the conv's tile positions
+  int nbx, nbe;    // batch rows staged: B rounded up to whole tiles of the conv and of the epilogue
+  int S, threads;  // lanes sharing one tile's channels, threads of a CTA
+  int xp, ep;      // floats between two staged input rows, the conv's and the epilogue's
+  int rowst, cnt, sp, recv, recve, sres, sx, se, sye, stat, yc, total;
+};
+
+__host__ __device__ inline int take(int& at, int floats) {
+  const int o = at;
+  at += round4(floats);
+  return o;
+}
+
+__host__ __device__ inline FoldLayout fold_layout(int B, int L, int Cin, int cg, int K, int cs, int epi,
+                                                  int Ce) {
+  FoldLayout f;
+  const bool has_e = reduces(epi);
+  const int erows = epi == EPI_RES_CONV ? L : 1, nh = has_e ? heads(epi) : 0;
+  const int n = L * cg, chunk = cdiv(n, cs), nc = cdiv(Cin, cs), nce = has_e ? cdiv(Ce, cs) : 0;
+  f.tl = fold_tl(L);
+  const int tb = FOLD_PAIRS / f.tl, etb = FOLD_PAIRS / fold_tl(erows);
+  f.nbx = cdiv(B, tb) * tb;
+  f.nbe = cdiv(B, etb) * etb;
+  const int items = f.nbx / tb * cdiv(L, f.tl) * (cg / 4);  // the conv's tiles of four columns
+  f.S = 1;
+  while (f.S * 2 <= FOLD_MAX_SPLIT && f.S * 2 <= nc && items * f.S * 2 <= FOLD_THREADS) f.S *= 2;
+  const int t = cdiv(items, 32 / f.S) * 32;
+  f.threads = t < FOLD_THREADS ? t : FOLD_THREADS;
+  f.xp = fold_pitch(L, K, FOLD_MAX_K);
+  f.ep = fold_pitch(erows, 1, 1);
+  int at = 0;
+  f.rowst = take(at, B * 2);  // (B, 2) this rank's (sum, M2), then the group's (mean, rstd)
+  f.cnt = take(at, 2 * cs);   // (2, cs) each rank's outputs of a batch row, 1 over that
+  f.sp = take(at, 5 * cg);    // (5, cg) bias, gamma, beta, the epilogue bias(es)
+  f.recv = take(at, cs * B * chunk);                     // (cs, B, chunk) every rank's conv sums of the chunk
+  f.recve = take(at, nh * cs * B * chunk);               // (heads, cs, B, chunk) their epilogue sums
+  f.sres = take(at, epi == EPI_RES_ID ? B * chunk : 0);  // (B, chunk) the chunk's residual
+  // before the first cluster.sync: the staged inputs and the time
+  // projection's sums; after it, in the same bytes: the ranks' statistics
+  // (which peers write only once past that barrier) and the chunk's values
+  const int before = at;
+  f.sx = take(at, f.nbx * nc * f.xp);  // (nbx, nc, xp) input rows
+  f.se = take(at, f.nbe * nce * f.ep);  // (nbe, nce, ep) epilogue input
+  f.sye = take(at, erows == 1 ? nh * B * cg : 0);  // (heads, B, cg) the time projection's sums
+  const int after = at;
+  at = before;
+  f.stat = take(at, cs * B * 2);  // (cs, B, 2) every rank's (sum, M2) of each batch row, pushed by it
+  f.yc = take(at, B * chunk);     // (B, chunk) conv + bias of the chunk
+  f.total = imax(at, after);
+  return f;
+}
+
+// p in rank q's shared memory (this CTA's own for q == r)
+__device__ __forceinline__ float* peer_of(coop::cluster_group& cluster, int r, float* p, int q) {
+  return q == r ? p : cluster.map_shared_rank(p, q);
+}
+
+// N floats from p (aligned to TL floats) in pieces of TL
+template <int TL, int N>
+__device__ __forceinline__ void load_window(const float* p, float (&v)[N]) {
+#pragma unroll
+  for (int u = 0; u < N; u += TL) {
+    if constexpr (TL == 4) {
+      const float4 a = *reinterpret_cast<const float4*>(p + u);
+      v[u] = a.x, v[u + 1] = a.y, v[u + 2] = a.z, v[u + 3] = a.w;
+    } else if constexpr (TL == 2) {
+      const float2 a = *reinterpret_cast<const float2*>(p + u);
+      v[u] = a.x, v[u + 1] = a.y;
+    } else {
+      v[u] = p[u];
+    }
+  }
+}
+
+// acc[tb][l][v] += sum over the channels ci = s, s + S, ... < nch and taps
+// k < K of xs[(tb * nch + ci) * xp + l + k] * w[(k * nch + ci) * cg + v]:
+// one register tile's products, xs at the tile's first batch row and
+// position, w at its four columns (weights in shared memory, cg a row). Per
+// channel the batch rows' windows are loaded first, then each tap's four
+// weights, each feeding the tile's FOLD_PAIRS x 4 products.
+template <int TL, int KMAX, typename TP>
+__device__ __forceinline__ void fold_dot(float (&acc)[FOLD_PAIRS / TL][TL][4], const float* xs, int xp,
+                                         int nch, int K, const TP* w, int cg, int s, int S) {
+  constexpr int TB = FOLD_PAIRS / TL, NW = (TL + KMAX - 1 + TL - 1) / TL * TL;  // a window's floats
+  for (int ci = s; ci < nch; ci += S) {
+    float xw[TB][NW];
+#pragma unroll
+    for (int tb = 0; tb < TB; ++tb) load_window<TL>(xs + (tb * nch + ci) * xp, xw[tb]);
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k)
+      if (k < K) {
+        float wq[4];
+        load4(w + (k * nch + ci) * cg, wq);
+#pragma unroll
+        for (int tb = 0; tb < TB; ++tb)
+#pragma unroll
+          for (int l = 0; l < TL; ++l)
+#pragma unroll
+            for (int v = 0; v < 4; ++v) acc[tb][l][v] = fmaf(xw[tb][l + k], wq[v], acc[tb][l][v]);
+      }
+  }
+}
+
+// dst[(b * nch + ci) * pitch + pad + p] = f(src[(b * P + p) * row + c0 + ci])
+// for b < B, p < P, ci < nch; every other float of the nb * nch rows of
+// `pitch` zero. Four channels a load where the row, the slice and the
+// pointer allow it, four loads in flight a thread.
+template <typename T, typename F>
+__device__ __forceinline__ void stage_rows(float* dst, const T* __restrict__ src, int B, int nb, int P, int row,
+                                           int c0, int nch, int pitch, int pad, F f) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const bool vec = row % 4 == 0 && c0 % 4 == 0 && nch % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(src) % (4 * sizeof(T)) == 0;
+  const int W = vec ? 4 : 1, nu = nch / W, total = B * P * nu;
+  for (int i0 = tid; i0 < total; i0 += 4 * nt) {
+    float v[4][4];
+    int at[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = i0 + u * nt;
+      at[u] = -1;
+      if (i < total) {
+        const int bp = i / nu, cu = i - bp * nu, b = bp / P, p = bp - b * P;
+        const T* s = src + ((int64_t)b * P + p) * row + c0 + cu * W;
+        at[u] = (b * nch + cu * W) * pitch + pad + p;
+        if (vec)
+          load4(s, v[u]);
+        else
+          v[u][0] = load(s, 0);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (at[u] >= 0)
+        for (int j = 0; j < W; ++j) dst[at[u] + j * pitch] = f(v[u][j]);
+  }
+  for (int i = tid; i < nb * nch; i += nt) {  // zeros: the padding, and the rows past B
+    float* d = dst + i * pitch;
+    const bool real = i < B * nch;
+    for (int p = 0; p < pitch; ++p)
+      if (!real || p < pad || p >= pad + P) d[p] = 0.f;
+  }
+}
+
+// One folded GEMM of a CTA: for every head hd < nheads, batch row b < B,
+// position p < P and four columns c..c+3 (c a multiple of 4 below cg),
+// store(hd, b, p, c, v) with v[j] the sum over the channels ci < nch and taps
+// k < K of xs[(b * nch + ci) * xp + p + k] * w[hd * hstride + (k * nch + ci) *
+// cg + c + j]. Tiles of TB x TL pairs by four columns go to `lanes` adjacent
+// lanes of a warp at a time, each tile's channels split over S = 32 / lanes
+// lanes (1, 2 or 4), `lanes` apart. Their sums meet by halving exchanges
+// (lane s keeps the pairs of its bits, adds its partner's), so each of the
+// S lanes ends with FOLD_PAIRS / S of the tile's pairs, summed over all S in
+// the same order in every lane, and stores them.
+template <int TL, int KMAX, typename TP, typename Store>
+__device__ __forceinline__ void fold_gemm(const float* xs, int xp, int nch, int K, const TP* w,
+                                          int hstride, int nheads, int B, int P, int cg, int S,
+                                          Store store) {
+  constexpr int TB = FOLD_PAIRS / TL;
+  const int lanes = 32 / S, lane = threadIdx.x & 31;
+  const int s = lane / lanes, li = lane - s * lanes;
+  const int nq = cg / 4, ntl = cdiv(P, TL), nbt = cdiv(B, TB);
+  const int items = nheads * nbt * ntl * nq;
+  for (int it0 = (threadIdx.x >> 5) * lanes; it0 < items; it0 += (blockDim.x >> 5) * lanes) {
+    const int it = it0 + li;  // it0 is the same in every lane of the warp
+    int m = it / nq;
+    const int q = it - m * nq;
+    const int lt = m % ntl;
+    m /= ntl;
+    const int bt = m % nbt, hd = m / nbt;
+    float acc[TB][TL][4];
+#pragma unroll
+    for (int tb = 0; tb < TB; ++tb)
+#pragma unroll
+      for (int l = 0; l < TL; ++l)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[tb][l][v] = 0.f;
+    if (it < items)
+      fold_dot<TL, KMAX>(acc, xs + bt * TB * nch * xp + lt * TL, xp, nch, K, w + hd * hstride + 4 * q, cg, s,
+                         S);
+    float* a = &acc[0][0][0];  // pair j = tb * TL + l at a[4 j]
+    int first = 0;             // the first pair this lane holds
+    if (S > 1) {               // pairs 0-1 to the lane with s bit 0 clear, 2-3 to the other
+      const bool hi = s & 1;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float mine = hi ? a[8 + j] : a[j], theirs = hi ? a[j] : a[8 + j];
+        a[j] = mine + __shfl_xor_sync(0xffffffffu, theirs, lanes);
+      }
+      first = hi ? 2 : 0;
+    }
+    if (S > 2) {  // then one pair to each by s bit 1
+      const bool hi = s & 2;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float mine = hi ? a[4 + j] : a[j], theirs = hi ? a[j] : a[4 + j];
+        a[j] = mine + __shfl_xor_sync(0xffffffffu, theirs, 2 * lanes);
+      }
+      first += hi ? 1 : 0;
+    }
+    if (it < items) {
+      const int held = FOLD_PAIRS / S;
+#pragma unroll
+      for (int k = 0; k < FOLD_PAIRS; ++k)
+        if (k < held) {
+          const int j = first + k, b = bt * TB + j / TL, p = lt * TL + j % TL;
+          if (b < B && p < P) store(hd, b, p, 4 * q, *reinterpret_cast<const float(*)[4]>(a + 4 * k));
+        }
+    }
+  }
+}
+
+// cluster barrier halves: arrive (relaxed: orders nothing) and wait
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory"); }
+
+// The folded path (see the header): cluster g of cs CTAs (blockIdx.x = g * cs
+// + r) owns group g of every batch row; rank r the input channels [c0, c0 +
+// nc), the epilogue rows [e0, e0 + nce) and the outputs [o0, o0 + no) of each
+// batch row. TL: the conv's register tile positions, fold_tl(L).
+template <int TL, typename TX, typename TP, typename TO>
+__global__ void __launch_bounds__(FOLD_THREADS, 2)
+    conv_gn_mish_kernel_folded(const TX* __restrict__ x, const TP* __restrict__ w,
+                               const TP* __restrict__ bias, const TP* __restrict__ gamma,
+                               const TP* __restrict__ beta, int B, int L, int Cin, int C, int K,
+                               int groups, float eps, int epi, const TP* __restrict__ ein, int Ce,
+                               const TP* __restrict__ ew, const TP* __restrict__ eb,
+                               TO* __restrict__ out) {
+  extern __shared__ float smem[];
+  coop::cluster_group cluster = coop::this_cluster();
+  // every rank has started before any rank writes into a peer (the wait
+  // before the first push)
+  cluster_arrive_relaxed();
+  const int cs = (int)cluster.num_blocks(), r = (int)cluster.block_rank();
+  const int g = blockIdx.x / cs;
+  const int cg = C / groups, n = L * cg, pad = K / 2;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const bool has_e = reduces(epi), film = epi == EPI_FILM;
+  const int erows = epi == EPI_RES_CONV ? L : 1, nh = has_e ? heads(epi) : 0;
+  const int Cs = has_e ? Ce : 0;
+  const int epitch = film ? 2 * C : C;  // the epilogue weight's row
+  const FoldLayout f = fold_layout(B, L, Cin, cg, K, cs, epi, Ce);
+  float* stat = smem + f.stat;
+  float* rowst = smem + f.rowst;
+  float* cnt = smem + f.cnt;
+  float* sp = smem + f.sp;
+  float* recv = smem + f.recv;
+  float* recve = smem + f.recve;
+  float* yc = smem + f.yc;
+  float* sres = smem + f.sres;
+  float* sx = smem + f.sx;
+  float* se = smem + f.se;
+  const int c0 = slice_begin(Cin, cs, r), nc = slice_begin(Cin, cs, r + 1) - c0;
+  const int e0 = slice_begin(Cs, cs, r), nce = slice_begin(Cs, cs, r + 1) - e0;
+  const int o0 = slice_begin(n, cs, r), no = slice_begin(n, cs, r + 1) - o0;
+  const int chunk = cdiv(n, cs), slab = cs * B * chunk;  // a receive buffer's floats
+
+  // the weight slice, as the one-wave path fetches it: rows k * nc + ci of
+  // the conv, then each head's nce epilogue rows, cg values each; then the
+  // group's parameters and each rank's output count; none depends on the
+  // launch before
+  TP* ws = reinterpret_cast<TP*>(smem + f.total);
+  TP* wse = ws + K * nc * cg;
+  {
+    const int64_t pitch = (int64_t)C * sizeof(TP);
+    const int row = cg * (int)sizeof(TP);
+    copy_rows(reinterpret_cast<char*>(ws), reinterpret_cast<const char*>(w + (int64_t)c0 * C + g * cg),
+              K * nc, nc, Cin * pitch, pitch, row);
+    for (int hd = 0; hd < nh; ++hd)
+      copy_rows(reinterpret_cast<char*>(wse + hd * nce * cg),
+                reinterpret_cast<const char*>(ew + (int64_t)e0 * epitch + hd * C + g * cg), nce, nce, 0,
+                (int64_t)epitch * sizeof(TP), row);
+    cp_async_commit();
+  }
+  for (int i = tid; i < cg; i += nt) {
+    const int c = g * cg + i;
+    sp[i] = load(bias, c);
+    sp[cg + i] = load(gamma, c);
+    sp[2 * cg + i] = load(beta, c);
+    sp[3 * cg + i] = has_e ? load(eb, c) : 0.f;
+    sp[4 * cg + i] = film ? load(eb, C + c) : 0.f;
+  }
+  for (int q = tid; q < cs; q += nt) {  // rank q's outputs of a batch row, and 1 over that
+    const int m = slice_begin(n, cs, q + 1) - slice_begin(n, cs, q);
+    cnt[q] = (float)m;
+    cnt[cs + q] = m > 0 ? 1.f / m : 0.f;
+  }
+  grid_dependency_wait();
+
+  // the inputs' rows for the rank's channels, zero-padded: x for the conv;
+  // mish(t) or xres for the epilogue's projection
+  stage_rows(sx, x, B, f.nbx, L, Cin, c0, nc, f.xp, pad, [](float v) { return v; });
+  if (epi == EPI_RES_CONV)
+    stage_rows(se, ein, B, f.nbe, L, Ce, e0, nce, f.ep, 0, [](float v) { return v; });
+  else if (has_e)
+    stage_rows(se, ein, B, f.nbe, 1, Ce, e0, nce, f.ep, 0, [](float v) { return mish(v); });
+  if (epi == EPI_RES_ID)
+    for (int i = tid; i < B * no; i += nt) {
+      const int b = i / no, oo = i - b * no, o = o0 + oo;
+      sres[b * chunk + oo] = load(ein, ((int64_t)b * L + o / cg) * C + g * cg + o % cg);
+    }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  cluster_wait();
+
+  // this rank's sums, each written into the receive buffer of the rank that
+  // owns the output: buf[(r * B + b) * chunk + o - that rank's first output],
+  // four at a time where every rank owns a whole number of float4s
+  const bool vec = n % (4 * cs) == 0;
+  auto push = [&](float* buf, int b, int o, const float(&v)[4]) {
+    if (vec) {
+      const int q = o / chunk;
+      *reinterpret_cast<float4*>(peer_of(cluster, r, buf, q) + (r * B + b) * chunk + o - q * chunk) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int q = ((o + j + 1) * cs - 1) / n;
+        peer_of(cluster, r, buf, q)[(r * B + b) * chunk + o + j - slice_begin(n, cs, q)] = v[j];
+      }
+    }
+  };
+  // the conv over the rank's channels and taps, then the epilogue's
+  // projection over its rows (one tap; the time projection's one row goes to
+  // every position)
+  fold_gemm<TL, FOLD_MAX_K>(sx, f.xp, nc, K, ws, 0, 1, B, L, cg, f.S,
+                            [&](int, int b, int p, int c, const float(&v)[4]) { push(recv, b, p * cg + c, v); });
+  if (epi == EPI_RES_CONV) {
+    fold_gemm<TL, 1>(se, f.ep, nce, 1, wse, 0, 1, B, L, cg, f.S,
+                     [&](int, int b, int p, int c, const float(&v)[4]) { push(recve, b, p * cg + c, v); });
+  } else if (has_e) {
+    float* sye = smem + f.sye;
+    fold_gemm<1, 1>(se, f.ep, nce, 1, wse, nce * cg, nh, B, 1, cg, f.S,
+                    [&](int hd, int b, int, int c, const float(&v)[4]) {
+                      *reinterpret_cast<float4*>(sye + (hd * B + b) * cg + c) = make_float4(v[0], v[1], v[2], v[3]);
+                    });
+    __syncthreads();
+    // to each rank, for each of its outputs (b, l, c), the projection of
+    // column c: every position of a batch row takes the same
+    const int W = vec ? 4 : 1, nu = chunk / W;
+    for (int i = tid; i < nh * B * cs * nu; i += nt) {
+      int m = i / nu;
+      const int u = i - m * nu, q = m % cs;
+      m /= cs;
+      const int b = m % B, hd = m / B, lo = slice_begin(n, cs, q);
+      if (u * W >= slice_begin(n, cs, q + 1) - lo) continue;
+      float* dst = peer_of(cluster, r, recve, q) + hd * slab + (r * B + b) * chunk + u * W;
+      const float* src = sye + (hd * B + b) * cg + (lo + u * W) % cg;
+      if (vec)
+        *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+      else
+        *dst = *src;
+    }
+  }
+  launch_dependents();  // past its wait and its weights: a dependent launch may start
+  cluster.sync();       // every rank's sums are in
+
+  // the chunk of each batch row: bias + every rank's sums, in rank order
+  const int rstride = B * chunk;  // between two ranks' sums in a receive buffer
+  for (int i = tid; i < B * no; i += nt) {
+    const int b = i / no, oo = i - b * no;
+    const float* p = recv + b * chunk + oo;
+    float v = sp[(o0 + oo) % cg];
+    for (int q = 0; q < cs; ++q) v += p[q * rstride];
+    yc[b * chunk + oo] = v;
+  }
+  __syncthreads();
+  // each batch row's sum over the chunk and sum of squared deviations from
+  // the chunk's mean, into every rank's slot r
+  for (int b = tid; b < B; b += nt) {
+    const float* v = yc + b * chunk;
+    float s1 = 0.f;
+    for (int oo = 0; oo < no; ++oo) s1 += v[oo];
+    const float mr = s1 * cnt[cs + r];
+    float m2 = 0.f;
+    for (int oo = 0; oo < no; ++oo) {
+      const float d = v[oo] - mr;
+      m2 += d * d;
+    }
+    rowst[2 * b] = s1;
+    rowst[2 * b + 1] = m2;
+  }
+  __syncthreads();
+  for (int i = tid; i < cs * 2 * B; i += nt) {
+    const int q = i / (2 * B), j = i - q * 2 * B;
+    peer_of(cluster, r, stat, q)[r * 2 * B + j] = rowst[j];
+  }
+  cluster.sync();  // every rank's pairs are in; no distributed access follows
+
+  // each batch row's mean and variance over the group: the ranks' pairs
+  // combined in rank order
+  for (int b = tid; b < B; b += nt) {
+    const float* st = stat + 2 * b;
+    float tot = 0.f;
+    for (int q = 0; q < cs; ++q) tot += st[q * 2 * B];
+    const float mean = tot / n;
+    float m2 = 0.f;
+    for (int q = 0; q < cs; ++q) {
+      const float d = st[q * 2 * B] * cnt[cs + q] - mean;
+      m2 += st[q * 2 * B + 1] + cnt[q] * d * d;
+    }
+    rowst[2 * b] = mean;
+    rowst[2 * b + 1] = rsqrtf(m2 / n + eps);
+  }
+  __syncthreads();
+
+  // normalise, Mish, epilogue (every rank's terms, in rank order)
+  for (int i = tid; i < B * no; i += nt) {
+    const int b = i / no, oo = i - b * no, o = o0 + oo, l = o / cg, c = o - l * cg;
+    const float y =
+        mish((yc[b * chunk + oo] - rowst[2 * b]) * rowst[2 * b + 1] * sp[cg + c] + sp[2 * cg + c]);
+    const float* p = recve + b * chunk + oo;
+    float e0v, e1v = sp[4 * cg + c];
+    if (has_e) {
+      e0v = sp[3 * cg + c];
+      for (int q = 0; q < cs; ++q) e0v += p[q * rstride];
+      if (film)
+        for (int q = 0; q < cs; ++q) e1v += p[slab + q * rstride];
+    } else {
+      e0v = sres[b * chunk + oo];
+    }
+    store(out, ((int64_t)b * L + l) * C + g * cg + c, film ? fmaf(e0v, y, e1v) : y + e0v);
+  }
+}
+
 __global__ void empty_kernel(int) {}
 
 // A launch of `kernel` on `ctas` CTAs in clusters of cs along x (cs = 0: no
@@ -1046,6 +1531,58 @@ int launch_streamed(const void* x, const void* w, const void* bias, const void* 
 #undef ADM_NR
 }
 
+template <int TL, typename TX, typename TP, typename TO>
+int launch_folded_tl(const void* x, const void* w, const void* bias, const void* gamma,
+                     const void* beta, int B, int L, int Cin, int C, int K, int groups, float eps,
+                     int epi, const void* ein, int Ce, const void* ew, const void* eb, void* out, int cs,
+                     int threads, int smem, bool pdl, int* clusters, cudaStream_t stream) {
+  auto kernel = conv_gn_mish_kernel_folded<TL, TX, TP, TO>;
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && cs > MAX_CLUSTER)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) {
+    (void)cudaGetLastError();
+    return (int)err;
+  }
+  return launch_clusters(kernel, groups * cs, threads, (size_t)smem, cs, pdl, clusters, stream,
+                         static_cast<const TX*>(x), static_cast<const TP*>(w),
+                         static_cast<const TP*>(bias), static_cast<const TP*>(gamma),
+                         static_cast<const TP*>(beta), B, L, Cin, C, K, groups, eps, epi,
+                         static_cast<const TP*>(ein), Ce, static_cast<const TP*>(ew),
+                         static_cast<const TP*>(eb), static_cast<TO*>(out));
+}
+
+// The folded path's launch, after checking the geometry that
+// ops/kernels.py:folded_geometry gave against fold_layout; with `clusters`
+// set, the occupancy query instead.
+template <typename TX, typename TP, typename TO>
+int launch_folded(const void* x, const void* w, const void* bias, const void* gamma, const void* beta,
+                  int B, int L, int Cin, int C, int K, int groups, float eps, int epi, const void* ein,
+                  int Ce, const void* ew, const void* eb, void* out, int cs, int threads, int smem,
+                  bool pdl, int* clusters, cudaStream_t stream) {
+  if (groups <= 0 || C % groups != 0 || L < 1 || L > MAX_L || K < 1 || K > FOLD_MAX_K || B < 1 ||
+      Cin < 1)
+    return -2;
+  if (epi != EPI_TBIAS && epi != EPI_RES_CONV && epi != EPI_RES_ID && epi != EPI_FILM) return -2;
+  const int cg = C / groups;
+  if (cs < 1 || cs > FOLD_MAX_CLUSTER || (cs & (cs - 1)) != 0) return -2;
+  // whole 16-byte copies of every weight row, from 16-byte aligned rows
+  if ((cg * (int)sizeof(TP)) % 16 != 0) return -2;
+  if (!clusters && (!aligned16(w) || (reduces(epi) && !aligned16(ew)))) return -2;
+  const FoldLayout f = fold_layout(B, L, Cin, cg, K, cs, epi, Ce);
+  const int want = f.total * (int)sizeof(float) + slice_bytes(Cin, cg, K, cs, epi, Ce, (int)sizeof(TP));
+  if (threads != f.threads || smem != want || smem > MAX_SMEM) return -2;
+#define ADM_F(TL)                                                                                  \
+  return launch_folded_tl<TL, TX, TP, TO>(x, w, bias, gamma, beta, B, L, Cin, C, K, groups, eps, epi, \
+                                          ein, Ce, ew, eb, out, cs, threads, smem, pdl, clusters, stream)
+  if (f.tl == 1) ADM_F(1);
+  if (f.tl == 2) ADM_F(2);
+  ADM_F(4);
+#undef ADM_F
+}
+
 template <typename Fn>
 int by_dtype(int x_dtype, int p_dtype, int out_dtype, Fn&& fn) {
   if (p_dtype == DT_F32 && x_dtype == DT_F32 && out_dtype == DT_F32)
@@ -1104,18 +1641,41 @@ extern "C" int adm_conv_gn_mish_streamed(const void* x, const void* w, const voi
   });
 }
 
-// How many clusters of the launch that adm_conv_gn_mish would make with these
-// arguments (less the pointers) the card holds
-// at once: cudaOccupancyMaxActiveClusters of that kernel instance, into
-// *clusters. ops/kernels.py asks once per geometry.
+// The folded path (ops/kernels.py:folded_geometry): the arguments of
+// adm_conv_gn_mish but the path's; cs, threads, smem: its cluster size (up to
+// 16), the threads of a CTA and its shared-memory bytes (fold_layout and the
+// weight slice); pdl: launched with programmatic dependent launch.
+extern "C" int adm_conv_gn_mish_folded(const void* x, const void* w, const void* bias,
+                                       const void* gamma, const void* beta, int B, int L, int Cin,
+                                       int C, int K, int groups, float eps, int epi, const void* ein,
+                                       int Ce, const void* ew, const void* eb, void* out,
+                                       int x_dtype, int p_dtype, int out_dtype, int cs, int threads,
+                                       int smem, int pdl, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return by_dtype(x_dtype, p_dtype, out_dtype, [&](auto tx, auto tp, auto to) {
+    return launch_folded<decltype(tx), decltype(tp), decltype(to)>(
+        x, w, bias, gamma, beta, B, L, Cin, C, K, groups, eps, epi, ein, Ce, ew, eb, out, cs,
+        threads, smem, pdl != 0, nullptr, s);
+  });
+}
+
+// How many clusters of the launch that adm_conv_gn_mish (path 1: its one-wave
+// path) or adm_conv_gn_mish_folded (path 2) would make with these arguments
+// (less the pointers) the card holds at once: cudaOccupancyMaxActiveClusters
+// of that kernel instance, into *clusters. ops/kernels.py asks once per
+// geometry.
 extern "C" int adm_conv_gn_mish_clusters(int B, int L, int Cin, int C, int K, int groups, int epi,
                                          int Ce, int x_dtype, int p_dtype, int out_dtype, int cs,
-                                         int threads, int smem, int one_wave, int* clusters) {
+                                         int threads, int smem, int path, int* clusters) {
   if (clusters == nullptr) return -2;
   return by_dtype(x_dtype, p_dtype, out_dtype, [&](auto tx, auto tp, auto to) {
+    if (path == 2)
+      return launch_folded<decltype(tx), decltype(tp), decltype(to)>(
+          nullptr, nullptr, nullptr, nullptr, nullptr, B, L, Cin, C, K, groups, 0.f, epi, nullptr,
+          Ce, nullptr, nullptr, nullptr, cs, threads, smem, false, clusters, nullptr);
     return launch<decltype(tx), decltype(tp), decltype(to)>(
         nullptr, nullptr, nullptr, nullptr, nullptr, B, L, Cin, C, K, groups, 0.f, epi, nullptr,
-        Ce, nullptr, nullptr, nullptr, cs, threads, smem, one_wave != 0, false, clusters, nullptr);
+        Ce, nullptr, nullptr, nullptr, cs, threads, smem, path == 1, false, clusters, nullptr);
   });
 }
 

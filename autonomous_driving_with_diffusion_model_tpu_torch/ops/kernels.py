@@ -21,7 +21,10 @@ Each kernel has its own CUDA source:
   launch where the weights are a cached pack), and else the streamed path
   where :func:`streamed_geometry` gives one (each group's weight rows cut
   over one CTA an SM and streamed through a ring in shared memory, a second
-  kernel finishing the group: weights too wide for a one-wave slice).
+  kernel finishing the group: weights too wide for a one-wave slice). From
+  batch 3 a launch takes the folded path where :func:`folded_geometry`
+  gives one and the card holds its clusters (one cluster a group for every
+  batch row, so each weight is read from device memory once a call).
 
 The C side checks each geometry. What bounds the residual block on an H100
 is the weight bytes (at batch 1-2 each weight does 2 FLOPs per batch row);
@@ -38,9 +41,10 @@ differentiates as it stands; given CUDA tensors it launches the kernel or
 raises. It adds one to its ``launches`` count for each call that launches;
 ``fused_residual_block`` also counts its launches (two a call) on the
 one-wave path (``one_wave``), on the streamed path (``streamed``; each a
-streaming kernel and its finishing kernel) and those of either launched with
-programmatic dependent launch (``pdl``), and its launches with the FiLM
-epilogue (``film``, one a FiLM call) (:func:`launch_counts`). A CUDA graph's
+streaming kernel and its finishing kernel), on the folded path (``folded``)
+and those of any path launched with programmatic dependent launch (``pdl``),
+and its launches with the FiLM epilogue (``film``, one a FiLM call)
+(:func:`launch_counts`). A CUDA graph's
 capture records its launches in :func:`recorded_launches`, which leaves the
 counts as they were, and each replay adds them (:func:`add_launch_counts`).
 
@@ -70,6 +74,7 @@ __all__ = [
     "one_wave_geometry",
     "launch_path",
     "streamed_geometry",
+    "folded_geometry",
     "head_geometry",
     "rank_slice",
     "conv1d_gn_mish_plain",
@@ -110,6 +115,17 @@ STREAM_THREADS = 512
 STREAM_MAX_B = 2
 STREAM_MAX_ROWS = 16
 FINISH_CLUSTER = 8  # CTAs finishing one (batch row, group) on the streamed path
+# the folded path (the C side's FOLD_*): the least batch it takes, its cluster
+# sizes by preference (16, H100's non-portable size, gives a launch of 8
+# groups 128 CTAs), threads of a CTA at most, the (batch row, position)
+# pairs of a thread's register tile, the taps its input window covers and the
+# lanes that share one tile's channels at most
+FOLD_MIN_B = 3
+FOLD_CLUSTERS = (16, 8)
+FOLD_THREADS = 512
+FOLD_PAIRS = 4
+FOLD_MAX_K = 5
+FOLD_MAX_SPLIT = 4
 HEAD_P = 4  # positions of one output channel a head thread holds (the C side's P)
 HEAD_MAX_LANES = 8  # lanes sharing one head output's sum
 
@@ -300,6 +316,78 @@ def streamed_geometry(B, L, Cin, C, K, groups, Ce, epi, p_bytes, sms) -> Optiona
                           min(MAX_THREADS, _cdiv(chunk, 32) * 32), fin_smem, (1 + heads) * groups * parts * B * n)
 
 
+class FoldGeometry(NamedTuple):
+    cs: int  # CTAs in a cluster, which owns one group for every batch row
+    S: int  # lanes sharing one register tile's input channels
+    threads: int  # threads of a CTA
+    smem: int  # shared-memory bytes of a CTA
+    ctas: int  # CTAs of the launch: groups x cs
+
+
+def _fold_tl(pos: int) -> int:
+    """Positions of a register tile over ``pos`` positions (the C side's
+    ``fold_tl``)."""
+    return 1 if pos <= 1 else 2 if pos <= 2 else 4
+
+
+def _round4(n: int) -> int:
+    return _cdiv(n, 4) * 4
+
+
+def _fold_pitch(pos: int, taps: int, kmax: int) -> int:
+    """Floats between two staged input rows of the folded path (the C side's
+    ``fold_pitch``): every position of the zero-padded row, and every piece
+    of ``_fold_tl(pos)`` floats a window of ``kmax`` taps loads from the last
+    tile."""
+    tl = _fold_tl(pos)
+    ntl = _cdiv(pos, tl)
+    return _cdiv(max(pos + taps - 1, (ntl - 1) * tl + _cdiv(tl + kmax - 1, tl) * tl), tl) * tl
+
+
+def folded_geometry(B, L, Cin, C, K, groups, Ce, epi, p_bytes, cs) -> Optional[FoldGeometry]:
+    """The folded path's geometry for a launch in clusters of ``cs``, or None
+    where the path does not take it: weight rows of ``cg = C / groups`` values
+    that do not copy in whole 16-byte pieces, more than :data:`FOLD_MAX_K`
+    taps, fewer input channels than ranks (``Cin < cs``, as Cin = 7), or a CTA
+    past the shared memory.
+
+    Cluster g owns group g for all B batch rows; its rank r the slice
+    ``rank_slice(Cin, cs, r)`` of the input channels (``K x ceil(Cin / cs)``
+    weight rows at most), of the epilogue's ``Ce`` rows (each head's) and of
+    each batch row's ``L x cg`` outputs. A thread's register tile is
+    ``FOLD_PAIRS`` (batch row, position) pairs, ``TL`` positions (1, 2 or 4) by
+    ``FOLD_PAIRS / TL`` rows, by four columns; S (a power of two up to
+    :data:`FOLD_MAX_SPLIT`, at most the rank's channels) lanes share a tile's
+    channels, within :data:`FOLD_THREADS` threads. The shared memory is the
+    C side's ``fold_layout`` total, buffers each rounded up to 16 bytes, then
+    the weight slice (``slice_bytes``)."""
+    cg = C // groups
+    if C % groups or (cg * p_bytes) % 16 or K > FOLD_MAX_K or L > MAX_L or Cin < cs:
+        return None
+    has_e = epi in _REDUCES
+    erows = L if epi == EPI_RES_CONV else 1
+    nh = (2 if epi == EPI_FILM else 1) if has_e else 0
+    n, nc, nce = L * cg, _cdiv(Cin, cs), _cdiv(Ce, cs) if has_e else 0
+    chunk = _cdiv(n, cs)
+    tl, etl = _fold_tl(L), _fold_tl(erows)
+    tb, etb = FOLD_PAIRS // tl, FOLD_PAIRS // etl
+    items = _cdiv(B, tb) * _cdiv(L, tl) * (cg // 4)
+    S = 1
+    while S * 2 <= FOLD_MAX_SPLIT and S * 2 <= nc and items * S * 2 <= FOLD_THREADS:
+        S *= 2
+    threads = min(FOLD_THREADS, _cdiv(items, 32 // S) * 32)
+    xp, ep = _fold_pitch(L, K, FOLD_MAX_K), _fold_pitch(erows, 1, 1)
+    held = (B * 2, 2 * cs, 5 * cg, cs * B * chunk, nh * cs * B * chunk, B * chunk if epi == EPI_RES_ID else 0)
+    # the same bytes hold the staged inputs (and the time projection's sums)
+    # until the ranks' sums are exchanged, the statistics and the chunk after
+    staged = (_cdiv(B, tb) * tb * nc * xp, _cdiv(B, etb) * etb * nce * ep, nh * B * cg if erows == 1 else 0)
+    floats = sum(map(_round4, held)) + max(sum(map(_round4, staged)), sum(map(_round4, (cs * B * 2, B * chunk))))
+    smem = 4 * floats + (K * nc + nh * nce) * cg * p_bytes
+    if smem > MAX_SMEM:
+        return None
+    return FoldGeometry(cs, S, threads, smem, groups * cs)
+
+
 class HeadGeometry(NamedTuple):
     S: int  # adjacent lanes of a warp sharing one output's K x Cin sum
     threads: int  # threads of a CTA
@@ -390,9 +478,10 @@ def _ptr(a: Optional[torch.Tensor]):
 
 @functools.lru_cache(maxsize=None)  # one query per geometry and kernel instance
 def _max_active_clusters(device: int, B, L, Cin, C, K, groups, epi, Ce, x_code, p_code, out_code,
-                         geo: Geometry) -> int:
-    """How many clusters of the one-wave launch at ``geo`` the card holds at
-    once (``cudaOccupancyMaxActiveClusters``)."""
+                         geo) -> int:
+    """How many clusters of the launch at ``geo`` the card holds at once
+    (``cudaOccupancyMaxActiveClusters``): the one-wave launch's for a
+    :class:`Geometry`, the folded launch's for a :class:`FoldGeometry`."""
     import ctypes
 
     from .build import library
@@ -401,7 +490,7 @@ def _max_active_clusters(device: int, B, L, Cin, C, K, groups, epi, Ce, x_code, 
     with torch.cuda.device(device):
         err = library(SOURCE).adm_conv_gn_mish_clusters(
             B, L, Cin, C, K, groups, epi, Ce, x_code, p_code, out_code,
-            geo.cs, geo.threads, geo.smem, 1, ctypes.byref(n))
+            geo.cs, geo.threads, geo.smem, 2 if isinstance(geo, FoldGeometry) else 1, ctypes.byref(n))
     if err != 0:
         raise RuntimeError(f"conv_gn_mish occupancy query failed (error {err}, {geo})")
     return n.value
@@ -415,23 +504,31 @@ def _sm_count(device: int) -> int:
 
 def _pick_path(geo: Geometry, x, w, out, epi, ein, ew, n_groups, cached: bool) -> tuple:
     """``(geometry, path, pdl)`` of one launch of the template from what it
-    can observe, ``path`` one of ``"one_wave"``, ``"streamed"`` and
-    ``"multi_wave"``: :func:`launch_path` at the one-wave geometry, the
-    card's answer asked once per geometry; where it refuses, the streamed
-    path at batch 1-2 where :func:`streamed_geometry` gives one (16-byte
-    aligned weight rows), with programmatic dependent launch on a cached
-    pack; else ``geo`` itself."""
+    can observe, ``path`` one of ``"folded"``, ``"one_wave"``, ``"streamed"``
+    and ``"multi_wave"``: from batch :data:`FOLD_MIN_B`, the folded path at
+    the first cluster size of :data:`FOLD_CLUSTERS` whose
+    :func:`folded_geometry` exists and whose clusters the card holds for
+    every group at once (asked once per geometry), with 16-byte aligned
+    weight rows; else :func:`launch_path` at the one-wave geometry; where it
+    refuses, the streamed path at batch 1-2 where :func:`streamed_geometry`
+    gives one; each with programmatic dependent launch on a cached pack;
+    else ``geo`` itself."""
     B, L, Cin = x.shape
     K, _, C = w.shape
     Ce = ein.shape[-1] if ein is not None else 0
-    wide = one_wave_geometry(geo, L, Cin, C, K, n_groups, Ce, epi, w.element_size())
+    codes = (_DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype], _DTYPE_CODE[out.dtype])
     rows16 = ((C // n_groups) * w.element_size()) % 16 == 0 and _alignment(
         *(a for a in (w, ew) if a is not None)) == 16
+    if rows16 and B >= FOLD_MIN_B:
+        for cs in FOLD_CLUSTERS:
+            fgeo = folded_geometry(B, L, Cin, C, K, n_groups, Ce, epi, w.element_size(), cs)
+            if fgeo is not None and _max_active_clusters(x.device.index, B, L, Cin, C, K, n_groups, epi, Ce,
+                                                         *codes, fgeo) >= n_groups:
+                return fgeo, "folded", cached
+    wide = one_wave_geometry(geo, L, Cin, C, K, n_groups, Ce, epi, w.element_size())
     clusters = 0
     if rows16 and wide.smem <= MAX_SMEM:
-        clusters = _max_active_clusters(x.device.index, B, L, Cin, C, K, n_groups, epi, Ce,
-                                        _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype], _DTYPE_CODE[out.dtype],
-                                        wide)
+        clusters = _max_active_clusters(x.device.index, B, L, Cin, C, K, n_groups, epi, Ce, *codes, wide)
     one_wave, pdl = launch_path(wide, clusters, cached, rows16)
     if one_wave:
         return wide, "one_wave", pdl
@@ -504,6 +601,31 @@ def _launch_streamed(geo: StreamGeometry, x, w, b, gamma, beta, out, n_groups, e
                          f"n_groups={n_groups}, K={K}, epi={epi}, {geo}")
     if err != 0:
         raise RuntimeError(f"conv_gn_mish streamed launch failed (CUDA error {err}, {geo})")
+
+
+def _launch_folded(geo: FoldGeometry, x, w, b, gamma, beta, out, n_groups, eps, epi, ein=None, ew=None,
+                   eb=None, pdl=False) -> None:
+    """One launch of the residual block's template on the folded path at
+    geometry ``geo`` (:func:`folded_geometry`)."""
+    from .build import library
+
+    B, L, Cin = x.shape
+    K, _, C = w.shape
+    Ce = ein.shape[-1] if ein is not None else 0
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = library(SOURCE).adm_conv_gn_mish_folded(
+            _ptr(x), _ptr(w), _ptr(b), _ptr(gamma), _ptr(beta),
+            B, L, Cin, C, K, n_groups, float(eps), epi,
+            _ptr(ein), Ce, _ptr(ew), _ptr(eb),
+            _ptr(out), _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype], _DTYPE_CODE[out.dtype],
+            geo.cs, geo.threads, geo.smem, int(pdl), stream,
+        )
+    if err == ERR_SHAPE:
+        raise ValueError(f"conv_gn_mish's folded path does not take B={B}, L={L}, Cin={Cin}, C={C}, "
+                         f"n_groups={n_groups}, K={K}, epi={epi}, {geo}")
+    if err != 0:
+        raise RuntimeError(f"conv_gn_mish folded launch failed (CUDA error {err}, {geo})")
 
 
 def _alignment(*tensors: torch.Tensor) -> int:
@@ -612,7 +734,7 @@ def fused_residual_block(
     shift's); wres (1, Cin, C) or None (then Cin == C).
     ``weights_cached`` (the blocks' own, ``models/blocks.py``):
     the weights and biases are a pack made before this call, which no kernel
-    right before it wrote; only then may a one-wave or streamed launch
+    right before it wrote; only then may a one-wave, streamed or folded launch
     overlap the launch before it (:func:`launch_path`)."""
     args = (x, t, w1, b1, g1, be1, tw, tb, w2, b2, g2, be2, wres, bres)
     if x.device.type == "cpu":
@@ -650,11 +772,14 @@ def _residual_block_cuda(x, t, w1, b1, g1, be1, tw, tb, w2, b2, g2, be2, wres, b
         geo, path, pdl = _pick_path(geo, xin, w, y, epi, ein, ew, n_groups, weights_cached)
         if path == "streamed":
             _launch_streamed(geo, xin, w, b, g, be, y, n_groups, eps, epi, ein, ew, eb, pdl=pdl)
+        elif path == "folded":
+            _launch_folded(geo, xin, w, b, g, be, y, n_groups, eps, epi, ein, ew, eb, pdl=pdl)
         else:
             _launch(geo, xin, w, b, g, be, y, n_groups, eps, epi, ein, ew, eb,
                     one_wave=path == "one_wave", pdl=pdl)
         fused_residual_block.one_wave += path == "one_wave"
         fused_residual_block.streamed += path == "streamed"
+        fused_residual_block.folded += path == "folded"
         fused_residual_block.pdl += pdl
     fused_residual_block.launches += 1
     fused_residual_block.film += film
@@ -663,9 +788,10 @@ def _residual_block_cuda(x, t, w1, b1, g1, be1, tw, tb, w2, b2, g2, be2, wres, b
 
 WRAPPERS = ("fused_conv1d_gn_mish", "fused_residual_block")  # launch_counts' keys of calls
 # launch_counts' keys of the residual block's launches (two a call) on the
-# one-wave path, of those with programmatic dependent launch (on either
-# path), and of those on the streamed path
-PATHS = ("fused_residual_block.one_wave", "fused_residual_block.pdl", "fused_residual_block.streamed")
+# one-wave path, of those with programmatic dependent launch (on any path),
+# of those on the streamed path and of those on the folded path
+PATHS = ("fused_residual_block.one_wave", "fused_residual_block.pdl", "fused_residual_block.streamed",
+         "fused_residual_block.folded")
 # launch_counts' key of the residual block's launches with the FiLM epilogue
 # (one a FiLM call)
 FILM = "fused_residual_block.film"
@@ -683,8 +809,8 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     """Each wrapper's launch count (calls), by the wrapper's name, the
-    residual block's launches on the one-wave and streamed paths and with
-    programmatic dependent launch (:data:`PATHS`) and its FiLM launches
+    residual block's launches on the one-wave, streamed and folded paths and
+    with programmatic dependent launch (:data:`PATHS`) and its FiLM launches
     (:data:`FILM`)."""
     return {key: getattr(f, attr) for key, f, attr in _COUNTERS}
 

@@ -19,7 +19,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
 5. kernel time by CUDA events beside the plain version's, the bound and the
    launch floor (the device time of an empty kernel launched the same way),
    with each launch's geometry; each residual block's time at every cluster
-   size the geometry can pick;
+   size the geometry can pick; the forward's residual calls at batch 16 and
+   32 on the folded path against the multi-wave code, the plain version and
+   the bound, with their launches by path (under ``folded``);
 6. the agents, through the port's own entry points, at the same width: per
    config, an ``InteractAgent`` on the card and one on the CPU over the
    recorded frames of ``tests/fixtures/replay_town01.npz`` in lockstep
@@ -2870,6 +2872,54 @@ def multi_wave_only():
         kernels._max_active_clusters, kernels.streamed_geometry = real
 
 
+FOLD_BATCHES = (16, 32)  # phase 5: the folded path at the k8 plan's batch and at the training batch
+
+
+def folded(calls, case, graph_ms, bound_ms, smi) -> dict:
+    """Phase 5's batch-folding part: the default U-Net forward's 16 residual
+    calls (``calls``, phase 3's hooks) at each batch of ``FOLD_BATCHES``,
+    float32, each checked against its plain version and counted by path as
+    the blocks launch their cached packs; then the 16 calls in one graph on
+    their paths (folded, the Cin = 7 launch one-wave), on the multi-wave code
+    at the same shapes, and in their plain version, beside the summed bound.
+    ``case``, ``graph_ms`` and ``bound_ms`` are phase 5's."""
+    import torch
+
+    from autonomous_driving_with_diffusion_model_tpu_torch.models import ResidualTemporalMapBlock
+    from autonomous_driving_with_diffusion_model_tpu_torch.ops import kernels
+
+    kcall = lambda c: (lambda: c[0](*c[2], weights_cached=True))
+    pcall = lambda c: (lambda: c[1](*c[2]))
+    keys = ("fused_residual_block", *kernels.PATHS)
+    out = {}
+    with torch.no_grad():
+        for B in FOLD_BATCHES:
+            gen = torch.Generator().manual_seed(50 + B)
+            mine = [case(m, a, B, torch.float32, gen) for n, m, a in calls if isinstance(m, ResidualTemporalMapBlock)]
+            kernels.reset_launch_counts()
+            for c in mine:
+                got = kcall(c)()
+                want = c[1](*c[2])
+                torch.cuda.synchronize()
+                if not torch.allclose(got, want, **KERNEL_TOL["float32"]) or not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"folded: B={B} {tuple(c[2][0].shape)} max_abs_err "
+                                         f"{(got - want).abs().max().item()}")
+            counts = {k: kernels.launch_counts()[k] for k in keys}
+            with multi_wave_only():
+                multi_ms = graph_ms([kcall(c) for c in mine])
+            row = dict(calls=len(mine), launches=counts, ms=graph_ms([kcall(c) for c in mine]),
+                       multi_wave_ms=multi_ms, plain_ms=graph_ms([pcall(c) for c in mine]),
+                       bound_ms=sum(bound_ms(c[0], c[2])[0] for c in mine))
+            out[f"b{B}"] = row
+            log(f"folded time fused_residual_block: one forward's {len(mine)} calls at B={B}, device ms: "
+                f"as launched {row['ms']:.4f}, multi-wave {multi_ms:.4f}, plain {row['plain_ms']:.4f}, bound "
+                f"{row['bound_ms']:.4f}; launches {counts}, on {smi}")
+            if counts[kernels.PATHS[3]] != 2 * len(mine) - 1 or counts[kernels.PATHS[0]] != 1:
+                raise AssertionError(f"folded: B={B} launches by path {counts}, expected "
+                                     f"{2 * len(mine) - 1} folded and the Cin = 7 launch one-wave")
+    return out
+
+
 def film(case, graph_ms, bound_ms, smi, dev="cuda", extra_opts=()) -> dict:
     """Phase 15: the FiLM residual block and the head at Diffusion Policy's
     published widths, batch 1 (``FILM_OPTS``; ``extra_opts`` narrow it for
@@ -3404,6 +3454,7 @@ def main() -> int:
                     f"(picked {'; '.join(row['geometry'])}) on {smi}")
         finally:
             kernels.launch_geometry = pick
+    report["folded"] = folded(calls, case, graph_ms, bound_ms, smi)
 
     phase_done(5)
     # -------------------------------------------------------------- 6. agents

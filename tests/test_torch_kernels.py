@@ -31,6 +31,9 @@ CONV_CASES = [(2, 16, 7, 64), (1, 16, 64, 64), (2, 16, 128, 256)]
 MAIN_RES = [(16, 7, 64), (16, 64, 64), (8, 64, 128), (8, 128, 128), (4, 128, 256),
             (4, 256, 256), (2, 256, 512), (2, 512, 512), (2, 1024, 256), (2, 256, 256),
             (4, 512, 128), (4, 128, 128), (8, 256, 64), (8, 64, 64)]
+# the 16 residual calls of one default U-Net forward, in order: the down
+# path, the two middle blocks (512 -> 512 at L = 2), the up path
+FORWARD_RES = MAIN_RES[:8] + [(2, 512, 512)] * 2 + MAIN_RES[8:]
 
 
 def _res_inputs(rng, B, L, cin, c, e):
@@ -294,34 +297,42 @@ def test_one_wave_slice_fits_every_main_path_launch(B, L, cin, c):
 
 
 # replays' launch counts: a default plan (1,600 calls, 3,200 launches
-# one-wave with PDL) and a Diffusion Policy plan (1,200 FiLM calls, 700
-# one-wave and 1,700 streamed launches, all with PDL)
+# one-wave with PDL), a Diffusion Policy plan (1,200 FiLM calls, 700
+# one-wave and 1,700 streamed launches, all with PDL) and a free_guidance
+# plan of 8 hypotheses (10 forwards at batch 16: 310 folded launches and the
+# 10 Cin = 7 first launches one-wave, all with PDL)
 REPLAYS = {
     "default": {"fused_conv1d_gn_mish": 100, "fused_residual_block": 1600,
                 "fused_residual_block.one_wave": 3200, "fused_residual_block.pdl": 3200,
-                "fused_residual_block.streamed": 0, "fused_residual_block.film": 0},
+                "fused_residual_block.streamed": 0, "fused_residual_block.folded": 0,
+                "fused_residual_block.film": 0},
     "diffusion_policy": {"fused_conv1d_gn_mish": 100, "fused_residual_block": 1200,
                          "fused_residual_block.one_wave": 700, "fused_residual_block.pdl": 2400,
-                         "fused_residual_block.streamed": 1700, "fused_residual_block.film": 1200},
+                         "fused_residual_block.streamed": 1700, "fused_residual_block.folded": 0,
+                         "fused_residual_block.film": 1200},
+    "free_guidance_k8": {"fused_conv1d_gn_mish": 10, "fused_residual_block": 160,
+                         "fused_residual_block.one_wave": 10, "fused_residual_block.pdl": 320,
+                         "fused_residual_block.streamed": 0, "fused_residual_block.folded": 310,
+                         "fused_residual_block.film": 0},
 }
 
 
 @pytest.mark.parametrize("replay", list(REPLAYS), ids=list(REPLAYS))
 def test_path_counts_pass_through_launch_counts(replay):
-    """The one-wave, PDL and streamed counts and the FiLM launches sit
-    beside the wrappers' counts in launch_counts, and a graph's replay adds
-    them through add_launch_counts."""
+    """The one-wave, PDL, streamed and folded counts and the FiLM launches
+    sit beside the wrappers' counts in launch_counts, and a graph's replay
+    adds them through add_launch_counts."""
     replay = REPLAYS[replay]
     kernels.reset_launch_counts()
     counts = kernels.launch_counts()
     keys = set(kernels.WRAPPERS) | set(kernels.PATHS) | {kernels.FILM}
     assert set(counts) == keys == set(replay) and not any(counts.values())
-    assert "fused_residual_block.streamed" in kernels.PATHS
+    assert {"fused_residual_block.streamed", "fused_residual_block.folded"} <= set(kernels.PATHS)
     kernels.add_launch_counts(replay)
     kernels.add_launch_counts(replay)
     assert kernels.launch_counts() == {k: 2 * v for k, v in replay.items()}
     f = kernels.fused_residual_block
-    assert (f.launches, f.one_wave, f.pdl, f.streamed) == tuple(
+    assert (f.launches, f.one_wave, f.pdl, f.streamed, f.folded) == tuple(
         2 * replay[k] for k in ("fused_residual_block", *kernels.PATHS))
     kernels.add_launch_counts({"fused_residual_block": 1})  # keys it lacks add nothing
     assert kernels.launch_counts()["fused_residual_block.pdl"] == 2 * replay["fused_residual_block.pdl"]
@@ -397,20 +408,113 @@ def test_streamed_path_takes_diffusion_policy_wide_launches(monkeypatch, B, call
 @pytest.mark.parametrize("B", [1, 2, 8, 16, 32, 64])
 def test_streamed_path_never_takes_default_widths(monkeypatch, B):
     """The default U-Net's launches never take the streamed path: one-wave
-    at batch 1-2 (both launches of every block), the multi-wave code at
-    batch 8-64 (but the Cin = 7 first launch, whose clusters of one the
-    card may hold all at once)."""
+    at batch 1-2 (both launches of every block); folded at batch 8-32 in
+    clusters of 16 (but the Cin = 7 first launch, which has fewer input
+    channels than ranks and whose clusters of one the card holds all at
+    once: one-wave); at batch 64 folded where the slices fit shared memory,
+    else the multi-wave code."""
     for L, cin, c in MAIN_RES:
         for j in (0, 1):
             rows, ce, epi = _launch(B, L, cin, c, 128, j, False)
-            path = _path(monkeypatch, B, L, rows, c, ce, epi)[1]
+            geo, path, pdl = _path(monkeypatch, B, L, rows, c, ce, epi)
             if B <= 2:
                 assert path == "one_wave", (L, cin, c, j)
-            elif rows != 7:
-                assert path == "multi_wave", (L, cin, c, j)
+            elif rows == 7:
+                assert path == ("one_wave" if B <= 32 else "multi_wave"), (L, cin, c, j)
+            elif B <= 32:
+                assert (path, pdl) == ("folded", True), (L, cin, c, j)
+                assert geo == kernels.folded_geometry(B, L, rows, c, 5, 8, ce, epi, 4, 16)
+            else:
+                fits = kernels.folded_geometry(B, L, rows, c, 5, 8, ce, epi, 4, 16) is not None
+                assert path == ("folded" if fits else "multi_wave"), (L, cin, c, j)
             assert path != "streamed"
             if B > 2:
                 assert kernels.streamed_geometry(B, L, rows, c, 5, 8, ce, epi, 4, 132) is None
+
+
+@pytest.mark.parametrize("B", [3, 8, 16, 32])
+@pytest.mark.parametrize("L,cin,c", MAIN_RES)
+def test_folded_geometry_partitions_the_weights(B, L, cin, c):
+    """Both launches of every main-path block at batch 3-32 have a folded
+    geometry in float32 and bfloat16 within the shared memory in clusters of
+    16 and of 8; the Cin = 7 launch has none, clusters of 8 or 16 leaving
+    ranks without input channels. A geometry is one cluster a group, whose
+    ranks'
+    slices cover each of the K x Cin conv rows, each epilogue row and each
+    batch row's outputs exactly once, so each weight of the call is fetched
+    by exactly one CTA; the slice the C side sizes holds the largest rank's
+    rows; the threads take the register tiles in one pass where the batch
+    allows."""
+    K, groups, cg = 5, 8, c // 8
+    launches = [(cin, 128, kernels.EPI_TBIAS),
+                (c, cin, kernels.EPI_RES_CONV if cin != c else kernels.EPI_RES_ID)]
+    for rows, ce, epi in launches:
+        for cs in kernels.FOLD_CLUSTERS:
+            for p_bytes in (4, 2):
+                geo = kernels.folded_geometry(B, L, rows, c, K, groups, ce, epi, p_bytes, cs)
+                if rows < cs:
+                    assert geo is None
+                    continue
+                assert geo is not None and geo.smem <= kernels.MAX_SMEM
+                assert geo.ctas == groups * cs and geo.threads <= kernels.FOLD_THREADS and geo.threads % 32 == 0
+                assert geo.S in (1, 2, 4) and geo.S <= -(-rows // cs)
+                tl = 1 if L == 1 else 2 if L == 2 else 4
+                tiles = -(-B // (kernels.FOLD_PAIRS // tl)) * -(-L // tl) * (cg // 4)
+                assert geo.threads == min(kernels.FOLD_THREADS, -(-tiles * geo.S // 32) * 32)
+                reduced = ce if epi != kernels.EPI_RES_ID else 0
+                # weight rows: (tap, input channel) of the conv, then the epilogue's
+                owners = np.zeros((K, rows), int)
+                eowners = np.zeros(reduced, int)
+                outs = np.zeros(L * cg, int)
+                for r in range(cs):
+                    lo, hi = kernels.rank_slice(rows, cs, r)
+                    assert hi - lo <= -(-rows // cs)
+                    owners[:, lo:hi] += 1
+                    elo, ehi = kernels.rank_slice(reduced, cs, r)
+                    eowners[elo:ehi] += 1
+                    olo, ohi = kernels.rank_slice(L * cg, cs, r)
+                    outs[olo:ohi] += 1
+                assert (owners == 1).all() and (eowners == 1).all() and (outs == 1).all()
+
+
+def test_k8_forward_paths_follow_the_rule(monkeypatch):
+    """The free_guidance_k8 replay's counts in REPLAYS are what the path
+    rule gives the 16 calls of a forward at batch 16 (8 hypotheses under
+    CFG's dual batch), over 10 DDIM steps: every launch folded with PDL but
+    the Cin = 7 first launch, one-wave with PDL."""
+    counts = {"folded": 0, "one_wave": 0, "pdl": 0}
+    for L, cin, c in FORWARD_RES:
+        for j in (0, 1):
+            rows, ce, epi = _launch(16, L, cin, c, 128, j, False)
+            _, path, pdl = _path(monkeypatch, 16, L, rows, c, ce, epi)
+            counts[path] = counts.get(path, 0) + 1
+            counts["pdl"] += pdl
+    want = REPLAYS["free_guidance_k8"]
+    assert len(FORWARD_RES) * 10 == want["fused_residual_block"]
+    assert {k: 10 * counts[k] for k in ("folded", "one_wave", "pdl")} == {
+        k: want[f"fused_residual_block.{k}"] for k in ("folded", "one_wave", "pdl")}
+    assert set(counts) == {"folded", "one_wave", "pdl"}
+
+
+@pytest.mark.parametrize("B", [3, 8])
+def test_folded_path_takes_film_where_it_fits(monkeypatch, B):
+    """Diffusion Policy's FiLM launches at batch 3 and 8: folded (with FiLM's
+    two heads in the epilogue) where the folded slices fit shared memory,
+    the multi-wave code where they do not (the 1024- and 2048-wide weights),
+    one-wave for the Cin = 7 first launch; never streamed."""
+    seen = set()
+    for L, cin, c in DP_FILM:
+        for j in (0, 1):
+            rows, ce, epi = _launch(B, L, cin, c, DP_E, j, True)
+            geo, path, _ = _path(monkeypatch, B, L, rows, c, ce, epi)
+            if rows == 7:
+                assert path == "one_wave"
+            elif kernels.folded_geometry(B, L, rows, c, 5, 8, ce, epi, 4, 16) is not None:
+                assert path == "folded" and geo.cs == 16
+            else:
+                assert path == "multi_wave" and kernels.folded_geometry(B, L, rows, c, 5, 8, ce, epi, 4, 8) is None
+            seen.add((path, epi))
+    assert {("folded", kernels.EPI_FILM), ("multi_wave", kernels.EPI_FILM)} <= seen
 
 
 @pytest.mark.parametrize("B,L,p_bytes,why", [
@@ -1046,6 +1150,157 @@ def test_streamed_fresh_pack_launches_without_pdl_on_card():
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
     assert torch.equal(again, got)
+
+
+def _folded():
+    return kernels.fused_residual_block.folded, kernels.fused_residual_block.pdl
+
+
+FOLD_BATCHES = [3, 8, 16, 32]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_folded_matches_plain_on_card(dtype, multi_wave):
+    """The folded path, launched as the blocks launch a cached pack (with
+    programmatic dependent launch), at every main-path shape at B = 3, 8, 16
+    and 32: every launch folded but the Cin = 7 first launch (one-wave),
+    against the plain version at the present tolerances; the multi-wave code
+    forced at the same shapes still matches the plain version."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    dt = getattr(torch, dtype)
+    tol = dict(atol=1e-4, rtol=1e-4) if dtype == "float32" else dict(atol=3e-2, rtol=1.6e-2)
+    with torch.no_grad():
+        for B in FOLD_BATCHES:
+            for L, cin, c in MAIN_RES:
+                args = [None if a is None else a.to(dt) for a in _film_call(gen, B, L, cin, c, 128, film=False)]
+                before = _folded()
+                got = kernels.fused_residual_block(*args, weights_cached=True)
+                folded, pdl = (a - b for a, b in zip(_folded(), before))
+                assert (folded, pdl) == (1 if cin == 7 else 2, 2), (B, L, cin, c)
+                with multi_wave():
+                    before = _folded()
+                    old = kernels.fused_residual_block(*args, weights_cached=True)
+                    assert _folded() == before
+                want = kernels.residual_block_plain(*args)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got.float(), want.float(), **tol)
+                torch.testing.assert_close(old.float(), want.float(), **tol)
+
+
+@pytest.mark.gpu
+def test_folded_repeats_bit_for_bit_on_card():
+    """Two calls on the folded path agree exactly, with and without
+    programmatic dependent launch (a fixed order of every sum, no atomics)."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    with torch.no_grad():
+        for B in FOLD_BATCHES:
+            for L, cin, c in MAIN_RES:
+                args = _film_call(gen, B, L, cin, c, 128, film=False)
+                first = kernels.fused_residual_block(*args, weights_cached=True)
+                assert torch.equal(first, kernels.fused_residual_block(*args, weights_cached=True))
+                assert torch.equal(first, kernels.fused_residual_block(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [16, 32])
+def test_folded_chain_in_a_graph_on_card(B):
+    """A default forward's 16 residual calls in order (without the
+    resampling between levels: each call on its own input) at B = 16 and 32,
+    captured in one CUDA graph with programmatic dependent launch: the
+    replay equals the eager calls bit for bit and the plain version within
+    its rounding; 31 launches folded and the Cin = 7 launch one-wave, all
+    with PDL, eagerly and at capture."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(32 + B)
+    calls = [_film_call(gen, B, L, cin, c, 128, film=False) for L, cin, c in FORWARD_RES]
+    want_counts = (2 * len(calls) - 1, 2 * len(calls))
+
+    def run():
+        return [kernels.fused_residual_block(*args, weights_cached=True) for args in calls]
+
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        eager = run()
+        assert _folded() == want_counts and kernels.fused_residual_block.one_wave == 1
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            run()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        kernels.reset_launch_counts()
+        with torch.cuda.graph(graph):
+            outs = run()
+        assert _folded() == want_counts
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        plain = [kernels.residual_block_plain(*args) for args in calls]
+        torch.cuda.synchronize()
+        for o, e, p in zip(outs, eager, plain):
+            assert torch.equal(o, e)
+            torch.testing.assert_close(o, p, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_folded_fresh_pack_launches_without_pdl_on_card():
+    """A block at batch 16 whose weights a kernel wrote just before its call
+    (a pack made in the call): both launches folded without programmatic
+    dependent launch, equal to the plain version of the new weights; the
+    next call reuses the pack, with PDL, and gives the same bits."""
+    _need_card()
+    from autonomous_driving_with_diffusion_model_tpu_torch.models.blocks import ResidualTemporalMapBlock
+
+    torch.manual_seed(0)
+    block = ResidualTemporalMapBlock(256, 512, 128).cuda()
+    x, t = torch.randn(16, 2, 256, device="cuda"), torch.randn(16, 128, device="cuda")
+    with torch.no_grad():
+        block(x, t)
+        block.blocks[1].block[0].weight.mul_(1.5)  # a kernel writes the weights
+        before = _folded()
+        got = block(x, t)
+        assert tuple(a - b for a, b in zip(_folded(), before)) == (2, 0)
+        want = kernels.residual_block_plain(x, t, *block.kernel_params())
+        before = _folded()
+        again = block(x, t)
+        assert tuple(a - b for a, b in zip(_folded(), before)) == (2, 2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_folded_film_on_card(dtype):
+    """FiLM calls at Diffusion Policy's widths at batch 3 and 8: a launch
+    whose folded slices fit shared memory and whose clusters the card holds
+    takes the folded path with FiLM's two heads (some do), the others stay on
+    the multi-wave code; every call against the plain version at the present
+    tolerances."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    dt = getattr(torch, dtype)
+    tol = dict(atol=1e-4, rtol=1e-4) if dtype == "float32" else dict(atol=3e-2, rtol=1.6e-2)
+    seen = 0
+    with torch.no_grad():
+        for L, cin, c in [(16, 512, 512), (8, 512, 1024), (4, 2048, 2048), (8, 2048, 512)]:
+            for B in (3, 8):
+                args = [None if a is None else a.to(dt) for a in _film_call(gen, B, L, cin, c, DP_E)]
+                fits = [any(kernels.folded_geometry(B, L, rows, c, 5, 8, ce, epi, args[2].element_size(), cs)
+                            is not None for cs in kernels.FOLD_CLUSTERS)
+                        for rows, ce, epi in (_launch(B, L, cin, c, DP_E, j, True) for j in (0, 1))]
+                before = _folded()[0]
+                got = kernels.fused_residual_block(*args, weights_cached=True)
+                folded = _folded()[0] - before
+                assert folded <= sum(fits), (L, cin, c, B)
+                seen += folded
+                want = kernels.residual_block_plain(*args)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert seen > 0
 
 
 @pytest.mark.parametrize("raises", [False, True])

@@ -157,14 +157,16 @@ def _need_card():
 
 def _assert_replay_counts(eager_launches):
     """The launches a replay counts: the eager body's calls of each wrapper
-    and one-wave launches; every one-wave launch of the graph with PDL (its
-    capture found every pack cached), the eager body's only where it did."""
+    and launches on each path; every one-wave, streamed and folded launch of
+    the graph with PDL (its capture found every pack cached), the eager
+    body's only where it did."""
     got = kernels.launch_counts()
-    one_wave = "fused_residual_block.one_wave"
-    for k in kernels.WRAPPERS + (one_wave,):
+    one_wave, streamed, folded = ("fused_residual_block." + p for p in ("one_wave", "streamed", "folded"))
+    for k in kernels.WRAPPERS + (one_wave, streamed, folded):
         assert got[k] == eager_launches[k]
     assert all(eager_launches[k] for k in kernels.WRAPPERS)
-    assert got["fused_residual_block.pdl"] == got[one_wave] >= eager_launches["fused_residual_block.pdl"]
+    assert got["fused_residual_block.pdl"] == got[one_wave] + got[streamed] + got[folded] >= eager_launches[
+        "fused_residual_block.pdl"]
     return got
 
 
