@@ -6,6 +6,8 @@ implements what that branch intends: diffusers'
 ``DPMSolverMultistepScheduler`` with ``algorithm_type="dpmsolver++"``,
 ``solver_order=2``, data prediction, a first-order final step and the
 "linspace" grid with lambda clipping (Lu et al. 2022). This is its copy.
+The clip is the caller's: the reference's -5.1, or diffusers' default
+-inf, which trims nothing (RDT-1B's 5 steps: 999, 799, 599, 400, 200).
 
 Every per-step coefficient is computed on the host in float64, including the
 exact ``sigma -> 0`` terminal limit, and handed to the device once as float32

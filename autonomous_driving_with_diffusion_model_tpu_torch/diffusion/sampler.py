@@ -14,7 +14,9 @@ tensors made once), under ``torch.no_grad()``. As there:
   their random numbers; otherwise the step noise is drawn before the loop,
   all steps at once, from the caller's ``torch.Generator``;
 * every step zeroes the first waypoint's (x, y, yaw), and the result is
-  clamped to [-1, 1] with xy scaled to meters;
+  clamped to [-1, 1] with xy scaled to meters (the planner's conventions;
+  ``SamplerConfig.anchor`` False leaves out the zeroing and the clamp, as
+  RDT-1B samples its action chunk);
 * the scheduler and guidance math runs in float32 whatever the model
   computes in: a bfloat16 model's output is cast to float32 as it leaves
   the model, and the result is float32.
@@ -63,6 +65,12 @@ class SamplerConfig(NamedTuple):
     # explicit denoising grid (strictly decreasing train-timestep indices)
     # overriding the "leading" spacing; prev of the last entry is -1
     timesteps: Optional[Tuple[int, ...]] = None
+    # the dpm grid's lambda clip: the reference's -5.1, or diffusers'
+    # default -inf (no timestep trimmed)
+    lambda_min_clipped: float = -5.1
+    # zero the first waypoint's (x, y, yaw) before and after every step and
+    # clamp the result to [-1, 1]
+    anchor: bool = True
 
 
 def _anchor(trajs: torch.Tensor) -> torch.Tensor:
@@ -80,7 +88,7 @@ def _grid(schedule: DiffusionSchedule, cfg: SamplerConfig):
         if ts[0] >= schedule.num_train_timesteps or ts[-1] < 0:
             raise ValueError(f"timesteps out of [0, {schedule.num_train_timesteps}): {cfg.timesteps}")
     elif cfg.scheduler == "dpm":
-        ts = dpm_timesteps(schedule, cfg.num_steps)  # the reference's lambda clip, -5.1
+        ts = dpm_timesteps(schedule, cfg.num_steps, cfg.lambda_min_clipped)
     else:
         return leading_timesteps(schedule.num_train_timesteps, cfg.num_steps)
     return ts, np.concatenate([ts[1:], [-1]])
@@ -139,7 +147,8 @@ def make_sampler(model, schedule: DiffusionSchedule, cfg: SamplerConfig) -> Call
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         B = init_trajs.shape[0]
-        trajs = _anchor(init_trajs.to(torch.float32))
+        anchor = _anchor if cfg.anchor else (lambda x: x)
+        trajs = anchor(init_trajs.to(torch.float32))
         if img_feature is None and cfg.hoist_perception:
             img_feature = model.encode_image(image)
         if needs_noise and noise_seq is None:
@@ -191,8 +200,8 @@ def make_sampler(model, schedule: DiffusionSchedule, cfg: SamplerConfig) -> Call
                 model_output = guided_output(trajs, t, prev_t)
                 pred_x0, _ = pred_x0_and_eps(cfg.step, model_output, trajs, schedule.alpha_prod(t))
                 pred_x0 = clip_or_threshold(cfg.step, pred_x0)
-                trajs = _anchor(dpm_pp_2m_update(trajs, pred_x0, prev_x0, coeffs.sigma_ratio[i],
-                                                 coeffs.phi[i], coeffs.inv_r[i]))
+                trajs = anchor(dpm_pp_2m_update(trajs, pred_x0, prev_x0, coeffs.sigma_ratio[i],
+                                                coeffs.phi[i], coeffs.inv_r[i]))
                 prev_x0 = pred_x0
         else:
             for i, (t, prev_t) in enumerate(zip(ts, prev_ts)):
@@ -203,9 +212,10 @@ def make_sampler(model, schedule: DiffusionSchedule, cfg: SamplerConfig) -> Call
                                         target_traj=target_traj, target_mask=target_mask)
                 else:
                     trajs, _ = step_fn(schedule, cfg.step, model_output, t, prev_t, trajs, noise)
-                trajs = _anchor(trajs)
+                trajs = anchor(trajs)
 
-        trajs = trajs.clamp(-1.0, 1.0)
+        if cfg.anchor:
+            trajs = trajs.clamp(-1.0, 1.0)
         if cfg.scale_to_meters:
             trajs = torch.cat([trajs[..., :2] * MAGIC_NUM, trajs[..., 2:]], dim=-1)
         return trajs
@@ -222,9 +232,16 @@ def sampler_from_cfg(model, schedule: DiffusionSchedule, cfg, *, for_training_ev
     training DDPM scheduler (clip, no thresholding), TRAIN.TIME_STEPS steps,
     no conditioning and no meters scaling. Otherwise the closed-loop agents'
     (interact.py:81-94): EVAL.SCHEDULER, EVAL.SAMPLE_STEPS
-    or TPU.SAMPLE_TIMESTEPS, thresholding as EVAL.THRESHOLDING says."""
-    step = StepConfig(prediction_type=cfg.TRAIN.NOISE_SCHEDULER.PRED_TYPE, clip_sample=True,
-                      thresholding=not for_training_eval and bool(cfg.EVAL.THRESHOLDING))
+    or TPU.SAMPLE_TIMESTEPS, thresholding as EVAL.THRESHOLDING says, the dpm
+    grid clipped at the reference's lambda -5.1. A model whose
+    ``action_space_sampler`` is true (RDT-1B) samples as diffusers'
+    DPMSolverMultistepScheduler at its defaults: the x0 prediction neither
+    clipped nor thresholded, no lambda clip, no step zeroing the first
+    waypoint, and the result left in the model's action space, from which
+    the planner reads the transition."""
+    action_space = bool(getattr(model, "action_space_sampler", False))
+    step = StepConfig(prediction_type=cfg.TRAIN.NOISE_SCHEDULER.PRED_TYPE, clip_sample=not action_space,
+                      thresholding=not for_training_eval and not action_space and bool(cfg.EVAL.THRESHOLDING))
     if for_training_eval:
         scfg = SamplerConfig(
             scheduler="ddpm",
@@ -245,6 +262,8 @@ def sampler_from_cfg(model, schedule: DiffusionSchedule, cfg, *, for_training_ev
             guidance_step=cfg.GUIDANCE.STEP,
             loss_list=cfg.GUIDANCE.LOSS_LIST,
             hoist_perception=bool(cfg.TPU.HOIST_PERCEPTION),
-            scale_to_meters=True,
+            scale_to_meters=not action_space,
+            lambda_min_clipped=-np.inf if action_space else -5.1,  # the reference's (interact.py:92-93)
+            anchor=not action_space,
         )
     return make_sampler(model, schedule, scfg)

@@ -101,9 +101,10 @@ def main(args):
         merge_possible_with_base(cfg, args.config)
     if args.opts:
         cfg.merge_from_list(args.opts)
-    if cfg.MODEL.ARCH == "conditional_unet1d":
-        raise NotImplementedError("the distill CLI distills MODEL.ARCH temporal_map_unet only: conditional_unet1d "
-                                  "(Diffusion Policy's CNN) serves, and its distillation loss is not written")
+    if cfg.MODEL.ARCH != "temporal_map_unet":
+        raise NotImplementedError(f"the distill CLI distills MODEL.ARCH temporal_map_unet only: {cfg.MODEL.ARCH} "
+                                  "(Diffusion Policy's CNN or RDT-1B) serves, and its distillation loss is not "
+                                  "written")
     dev = resolve_device(args.device)
     os.makedirs(args.workdir, exist_ok=True)
 

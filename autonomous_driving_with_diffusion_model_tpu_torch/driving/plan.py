@@ -34,6 +34,17 @@ program takes the history as its frame (N_OBS_STEPS, H, W, 3) and target
 / 255, as Diffusion Policy feeds images) and encodes both, with their
 targets, into the plan's conditioning.
 
+Under ``MODEL.ARCH`` ``rdt`` (RDT-1B, ``models/rdt.py``) the history is
+RDT's image history (``MODEL.N_OBS_STEPS`` frames), and a plan also takes the
+episode's instruction: (tokens (``MODEL.RDT.LANG_SLOTS``, ``LANG_DIM``),
+boolean mask), set by :meth:`DiffusionPlanner.reset_history` and held on the
+device, a third input buffer of the program. ``plan.encode`` preprocesses the
+frames (RDT's square pad and resize), runs SigLIP over every image slot (the
+real camera's frames and the background image in the other cameras' slots)
+and the condition adaptors, with the current target in the state token;
+``plan.denoise`` is DPM-Solver++ over the 64-step chunk in RDT's action space,
+whose transition channels the planner reads. One hypothesis, no guidance.
+
 Random numbers come from the planner's CPU generator, so the GPU and the CPU
 planner of one seed draw the same: the init trajectories, and the step noise
 of the samplers that need it (DDPM, DDIM with eta > 0, inpainting), both
@@ -123,7 +134,9 @@ class DiffusionPlanner:
         # rows of it, and the step noise (S, K, H, D) follows it
         self._generator = torch.Generator().manual_seed(seed)
         self.num_hypotheses = max(1, int(cfg.TPU.NUM_HYPOTHESES))
-        shape = (self.num_hypotheses, cfg.MODEL.HORIZON, cfg.MODEL.TRANSITION_DIM)
+        # the sampled vector: the transition, or RDT's unified action
+        width = int(getattr(self.model, "action_dim", cfg.MODEL.TRANSITION_DIM))
+        shape = (self.num_hypotheses, cfg.MODEL.HORIZON, width)
         self._noise_shape = (self._sample.num_steps,) + shape if self._sample.needs_noise else None
         self.init_trajs, self.step_noise = (
             None if a is None else a.to(self.device) for a in self._draw(shape)
@@ -135,8 +148,11 @@ class DiffusionPlanner:
         # the model's observation history (Diffusion Policy's CNN); 0: none (one frame)
         self._obs_steps = int(getattr(self.model, "n_obs_steps", 0))
         if self._obs_steps and (not self._hoisted or self._needs_target):
-            raise ValueError("MODEL.ARCH conditional_unet1d plans with TPU.HOIST_PERCEPTION on and no guidance")
+            raise ValueError(f"MODEL.ARCH {cfg.MODEL.ARCH} plans with TPU.HOIST_PERCEPTION on and no guidance")
         self._history: deque = deque(maxlen=max(1, self._obs_steps))
+        # the (tokens, width) of the instruction the model plans under (RDT-1B); None: none
+        self._instruction_shape = getattr(self.model, "instruction_shape", None)
+        self._instruction = None  # its (tokens, mask) on the device
         self._scorer = str(cfg.TPU.HYPOTHESIS_SCORER).lower()
         if self._scorer not in ("auto", "guidance_loss", "jerk", "learned"):
             raise ValueError(
@@ -163,10 +179,22 @@ class DiffusionPlanner:
             return init, None
         return init, torch.randn(self._noise_shape, generator=self._generator)
 
-    def reset_history(self) -> None:
+    def reset_history(self, instruction=None) -> None:
         """Forget the observation history (a new episode); the next request
-        pads it with copies of itself."""
+        pads it with copies of itself. ``instruction`` (a model with an
+        ``instruction_shape``, RDT-1B): the episode's (tokens (LANG_SLOTS,
+        LANG_DIM), mask (LANG_SLOTS,)), arrays or tensors, the mask True on
+        the instruction's tokens; None keeps the one set before."""
         self._history.clear()
+        if instruction is not None:
+            if self._instruction_shape is None:
+                raise ValueError(f"MODEL.ARCH {self.cfg.MODEL.ARCH} takes no instruction")
+            tokens, mask = (torch.as_tensor(a) for a in instruction)
+            slots, width = self._instruction_shape
+            if tokens.shape != (slots, width) or mask.shape != (slots,) or not mask.any():
+                raise ValueError(f"the instruction: tokens ({slots}, {width}) and a mask "
+                                 f"({slots},) with a token, not {tuple(tokens.shape)} and {tuple(mask.shape)}")
+            self._instruction = (tokens.to(self.device, torch.float32), mask.to(self.device, torch.bool))
 
     def _observe(self, frame: np.ndarray, target: np.ndarray):
         """Add one request to the history: the (N_OBS_STEPS, H, W, 3) frames
@@ -181,11 +209,16 @@ class DiffusionPlanner:
 
     @torch.no_grad()
     def _plan(self, init_trajs: torch.Tensor, rgb_u8: torch.Tensor, target: torch.Tensor,
-              step_noise: Optional[torch.Tensor]):
+              step_noise: Optional[torch.Tensor], *instruction: torch.Tensor):
         """The plan's body, eagerly: the program ``plan_begin`` runs, and the
         plain version it is held against."""
         profiling.mark("plan.encode" if self._hoisted else "plan.denoise", steps=self._sample.num_steps)
         K = init_trajs.shape[0]
+        if instruction:  # the frames, the target and the instruction (RDT-1B's conditions)
+            cond = self.model.encode_obs(rgb_u8, target[-1:], *instruction)
+            profiling.mark("plan.denoise")
+            actions = self._sample(init_trajs, img_feature=cond)
+            return self._choose(self.model.transitions(actions), target[-1:])
         if self._obs_steps:  # the history's frames and targets: the plan's conditioning
             obs = self.model.encode_obs(rgb_u8.to(torch.float32) / 255.0, target)
             profiling.mark("plan.denoise")
@@ -248,10 +281,20 @@ class DiffusionPlanner:
             frame = np.ascontiguousarray(rgb_u8, np.uint8)
             if self._obs_steps:
                 frame, tgt = self._observe(frame, tgt)
-            out = self._program(self._plan, init, torch.from_numpy(frame), torch.from_numpy(tgt), noise)
+            extra = ()
+            if self._instruction_shape is not None:
+                if self._instruction is None:
+                    raise ValueError(f"MODEL.ARCH {self.cfg.MODEL.ARCH} plans under an instruction: "
+                                     "reset_history(instruction=(tokens, mask)) first")
+                extra = self._instruction
+            out = self._program(self._plan, init, torch.from_numpy(frame), torch.from_numpy(tgt), noise, extra)
             if sp:
                 prog = self._program
-                sp.set(key=describe(prog.key), launches=dict(prog.programs[prog.key].launches))
+                launches = prog.programs[prog.key].launches
+                sp.set(key=describe(prog.key), launches=dict(launches))
+                if extra:  # the softmax attention's calls and cross-attention keys of the replay
+                    sp.set(**{"rdt.attention": launches.get("attention", 0),
+                              "rdt.cross_keys": launches.get("attention.cross_keys", 0)})
             return out
 
     def plan_fetch(self, handle) -> np.ndarray:

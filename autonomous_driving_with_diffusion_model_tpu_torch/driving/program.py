@@ -5,7 +5,8 @@ planner's ``self._plan = jax.jit(_plan)``, JAX ``driving/plan.py:186``).
 normalize, encode once, denoise K hypotheses, score, argmin) on fixed input
 buffers: the uint8 frame (H, W, 3), the target (1, 2), the init
 trajectories (K, horizon, D) and, where the sampler needs it, the step noise
-(S, K, horizon, D). A plan copies its inputs into them with ``copy_``, runs
+(S, K, horizon, D), and any further inputs the body takes (RDT-1B's
+instruction: its tokens and mask). A plan copies its inputs into them with ``copy_``, runs
 the program of its key and returns copies of (trajs, best) on the device,
 so that a later plan cannot overwrite a handle that was not fetched yet.
 
@@ -17,7 +18,7 @@ plan is one replay, with no Python between its ~10,000 launches:
   whole denoising loop, so the JAX package's ``TPU.SCAN_UNROLL`` has nothing
   to set here;
 * the key is the frame's shape, K, the step noise's shape, the compute
-  dtype and the weights' generation: the weights are followed by
+  dtype, the further inputs' shapes and the weights' generation: the weights are followed by
   :func:`weights_key`, ``data_ptr`` and ``_version`` of every parameter and
   buffer of the planner's modules. A capture bakes in the pointers of the
   cached kernel packs, so weights that change after a capture
@@ -70,8 +71,9 @@ def weights_key(modules) -> Tuple:
 
 
 class PlanProgram(program.Programs):
-    """``program(body, init, frame, target, noise) -> (trajs, best)``: the
-    plan ``body(init, frame, target, noise)`` on fixed buffers, on
+    """``program(body, init, frame, target, noise, extra=()) -> (trajs,
+    best)``: the plan ``body(init, frame, target, noise, *extra)`` on fixed
+    buffers (``extra``: device tensors of the body's further inputs), on
     ``device``; a CUDA graph per key there. ``modules`` hold the weights
     the key follows; ``dtype`` is the compute dtype."""
 
@@ -82,22 +84,24 @@ class PlanProgram(program.Programs):
         self._lock = threading.Lock()  # one plan at a time on the shared buffers
 
     def __call__(self, body: Callable, init: torch.Tensor, frame: torch.Tensor, target: torch.Tensor,
-                 noise: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+                 noise: Optional[torch.Tensor], extra: Tuple[torch.Tensor, ...] = ()
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         with self._lock:
             with profiling.span("plan.weights_key"):
                 if self.follow(weights_key(self.modules)):
                     profiling.count("weights_generations.plan")
             with profiling.span("plan.inputs"):
                 self.key = key = (tuple(frame.shape), int(init.shape[0]),
-                                  None if noise is None else tuple(noise.shape), self.dtype, self.generation)
+                                  None if noise is None else tuple(noise.shape), self.dtype,
+                                  tuple(tuple(a.shape) for a in extra) or None, self.generation)
                 prog = self.programs.get(key)
                 new = prog is None
                 if new:
                     prog = program.Program([
                         torch.empty(a.shape, dtype=dt, device=self.device) if a is not None else None
                         for a, dt in ((init, torch.float32), (frame, torch.uint8), (target, torch.float32),
-                                      (noise, torch.float32))])
-                for buf, src in zip(prog.inputs, (init, frame, target, noise)):
+                                      (noise, torch.float32), *((a, a.dtype) for a in extra))])
+                for buf, src in zip(prog.inputs, (init, frame, target, noise, *extra)):
                     if buf is not None:
                         buf.copy_(src)
             if new and self.device.type == "cuda":
@@ -114,6 +118,7 @@ class PlanProgram(program.Programs):
 
 def describe(key: Tuple) -> str:
     """A program's key in words."""
-    frame, k, noise, dtype, generation = key
-    return (f"the key (frame {frame}, K {k}, step noise {noise}, {str(dtype).replace('torch.', '')}, "
+    frame, k, noise, dtype, extra, generation = key
+    more = f", further inputs {', '.join(map(str, extra))}" if extra else ""
+    return (f"the key (frame {frame}, K {k}, step noise {noise}, {str(dtype).replace('torch.', '')}{more}, "
             f"weights generation {generation})")

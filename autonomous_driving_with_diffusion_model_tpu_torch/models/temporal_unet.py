@@ -233,11 +233,12 @@ class TemporalMapUnet(nn.Module):
 def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw every parameter from ``generator`` with PyTorch's default
     initialisers (torchvision's kaiming-normal for the ResNet convs), and
-    reset BatchNorm running statistics. Parameters are drawn on the CPU in
-    ``named_parameters`` order, so a seed gives the same weights everywhere."""
+    reset BatchNorm running statistics. Parameters are drawn on the
+    generator's device in ``named_parameters`` order, so a CPU generator's
+    seed gives the same weights everywhere."""
 
     def fill(p: torch.Tensor, draw) -> None:
-        p.copy_(draw(torch.empty(p.shape, dtype=torch.float32)).to(p.dtype))
+        p.copy_(draw(torch.empty(p.shape, dtype=torch.float32, device=generator.device)).to(p.dtype))
 
     uniform = lambda b: (lambda t: t.uniform_(-b, b, generator=generator))
     for mod in model.modules():
@@ -264,15 +265,17 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
-ARCHS = ("temporal_map_unet", "conditional_unet1d")
+ARCHS = ("temporal_map_unet", "conditional_unet1d", "rdt")
 
 
 def build_model(cfg, device=None, seed: int = 0) -> nn.Module:
     """Construct the denoiser from a config (reference: modeling/temporal.py:248-258),
     weights drawn from ``seed``, in eval mode on ``device`` (None: the card).
-    ``MODEL.ARCH`` picks the family: the reference's :class:`TemporalMapUnet`
-    or Diffusion Policy's ``ConditionalUnet1D`` (``models/conditional_unet1d.py``,
-    float32, no guidance). On the card it turns TF32 off
+    ``MODEL.ARCH`` picks the family: the reference's :class:`TemporalMapUnet`,
+    Diffusion Policy's ``ConditionalUnet1D`` (``models/conditional_unet1d.py``,
+    float32, no guidance) or RDT-1B (``models/rdt.py``, its weights held in
+    ``TPU.COMPUTE_DTYPE``, drawn on ``device``, no guidance, one hypothesis,
+    DPM-Solver++ with x0 prediction). On the card it turns TF32 off
     (``utils.device.use_float32_math``), so a float32 model serves and trains
     in float32."""
     dev = resolve_device(device)
@@ -285,6 +288,24 @@ def build_model(cfg, device=None, seed: int = 0) -> nn.Module:
     arch = cfg.MODEL.ARCH
     if arch not in ARCHS:
         raise ValueError(f"MODEL.ARCH={arch!r}: expected one of {', '.join(ARCHS)}")
+    if arch == "rdt":
+        from .rdt import RDTRunner
+
+        if (cfg.TRAIN.USE_COND != "NO_GUIDANCE" or cfg.GUIDANCE.USE_COND != "NO_GUIDANCE" or cfg.MODEL.USE_ATTN
+                or int(cfg.TPU.NUM_HYPOTHESES) != 1 or cfg.EVAL.SCHEDULER != "dpm"
+                or cfg.TRAIN.NOISE_SCHEDULER.PRED_TYPE != "sample"):
+            raise ValueError("MODEL.ARCH rdt plans one hypothesis with no guidance and no U-Net attention, "
+                             "by EVAL.SCHEDULER dpm with x0 (sample) prediction")
+        # 1.6 billion parameters, drawn where they live from the seed's generator alone (a
+        # default initialisation on the card would draw from its default generator, which a
+        # failed graph capture leaves unusable)
+        with torch.device("meta"):
+            model = RDTRunner(cfg)
+        model = model.to_empty(device=dev)
+        gen = torch.Generator(dev).manual_seed(seed)
+        init_parameters(model, gen)
+        model.init_rest(gen)
+        return model.to(dtypes[cfg.TPU.COMPUTE_DTYPE]).eval()
     if arch == "conditional_unet1d":
         from .conditional_unet1d import ConditionalUnet1D
 

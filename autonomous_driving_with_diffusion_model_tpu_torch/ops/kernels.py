@@ -44,7 +44,8 @@ one-wave path (``one_wave``), on the streamed path (``streamed``; each a
 streaming kernel and its finishing kernel), on the folded path (``folded``)
 and those of any path launched with programmatic dependent launch (``pdl``),
 and its launches with the FiLM epilogue (``film``, one a FiLM call)
-(:func:`launch_counts`). A CUDA graph's
+(:func:`launch_counts`). The counts also hold ``ops/nn.py:attention``'s
+calls and cross-attention key tokens (:data:`ATTENTION`). A CUDA graph's
 capture records its launches in :func:`recorded_launches`, which leaves the
 counts as they were, and each replay adds them (:func:`add_launch_counts`).
 
@@ -64,7 +65,7 @@ from typing import Dict, Iterator, NamedTuple, Optional
 
 import torch
 
-from .nn import conv1d, group_norm, mish
+from .nn import attention, conv1d, group_norm, mish
 
 __all__ = [
     "fused_conv1d_gn_mish",
@@ -795,11 +796,15 @@ PATHS = ("fused_residual_block.one_wave", "fused_residual_block.pdl", "fused_res
 # launch_counts' key of the residual block's launches with the FiLM epilogue
 # (one a FiLM call)
 FILM = "fused_residual_block.film"
+# launch_counts' keys of the softmax attention (``ops/nn.py:attention``): its
+# calls, and the key tokens its cross-attention calls read
+ATTENTION = ("attention", "attention.cross_keys")
 
 
 # (key, wrapper, attribute) of every count
 _COUNTERS = tuple((f.__name__, f, "launches") for f in (fused_conv1d_gn_mish, fused_residual_block)) + tuple(
-    (key, fused_residual_block, key.split(".")[1]) for key in (*PATHS, FILM))
+    (key, fused_residual_block, key.split(".")[1]) for key in (*PATHS, FILM)) + (
+    (ATTENTION[0], attention, "calls"), (ATTENTION[1], attention, "cross_keys"))
 
 
 def reset_launch_counts() -> None:
@@ -810,8 +815,9 @@ def reset_launch_counts() -> None:
 def launch_counts() -> Dict[str, int]:
     """Each wrapper's launch count (calls), by the wrapper's name, the
     residual block's launches on the one-wave, streamed and folded paths and
-    with programmatic dependent launch (:data:`PATHS`) and its FiLM launches
-    (:data:`FILM`)."""
+    with programmatic dependent launch (:data:`PATHS`), its FiLM launches
+    (:data:`FILM`), and the softmax attention's calls and cross-attention
+    key tokens (:data:`ATTENTION`)."""
     return {key: getattr(f, attr) for key, f, attr in _COUNTERS}
 
 

@@ -27,6 +27,9 @@ __all__ = [
     "conv2d",
     "dense",
     "layer_norm",
+    "rms_norm",
+    "gelu_tanh",
+    "attention",
 ]
 
 
@@ -91,6 +94,39 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: fl
     ``x.dtype`` (JAX ``TorchLayerNorm``)."""
     out = F.layer_norm(x.to(torch.float32), (x.shape[-1],), gamma.to(torch.float32), beta.to(torch.float32), eps)
     return out.to(x.dtype)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Last-dim RMSNorm (timm's ``RmsNorm``: ``x / sqrt(mean(x^2) + eps) *
+    weight``), ``F.rms_norm``: computed in float32 (PyTorch upcasts a
+    bfloat16 input), returned in ``x.dtype``."""
+    return F.rms_norm(x, (x.shape[-1],), weight.to(x.dtype), eps)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """GELU with the tanh approximation (``nn.GELU(approximate="tanh")``)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor] = None,
+              cross: bool = False) -> torch.Tensor:
+    """Softmax attention, ``softmax(q k^T / sqrt(d) + mask) v``, through
+    ``F.scaled_dot_product_attention`` (on the card FlashAttention, or the
+    memory-efficient kernel under a mask; the softmax in float32 either
+    way). q: (B, heads, N, d); k, v: (B, heads, L, d); ``mask``: a boolean
+    (B, 1, 1, L), True where a key may be attended.
+
+    Counts its calls (``attention.calls``) and, where ``cross``, the key
+    tokens a cross-attention reads (``attention.cross_keys``), into the
+    launch counts of ``ops/kernels.py`` (a CUDA graph's capture records
+    them, each replay adds them)."""
+    attention.calls += 1
+    if cross:
+        attention.cross_keys += k.shape[0] * k.shape[-2]
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+attention.calls = attention.cross_keys = 0
 
 
 def conv1d(

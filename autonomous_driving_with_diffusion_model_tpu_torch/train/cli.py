@@ -153,9 +153,9 @@ def main(args):
         cfg.merge_from_list(args.opts)
     if args.max_iter is not None:
         cfg.TRAIN.MAX_ITER = args.max_iter
-    if cfg.MODEL.ARCH == "conditional_unet1d":
-        raise NotImplementedError("the train CLI trains MODEL.ARCH temporal_map_unet only: conditional_unet1d "
-                                  "(Diffusion Policy's CNN, epsilon prediction on an observation history) "
+    if cfg.MODEL.ARCH != "temporal_map_unet":
+        raise NotImplementedError(f"the train CLI trains MODEL.ARCH temporal_map_unet only: {cfg.MODEL.ARCH} "
+                                  "(Diffusion Policy's CNN or RDT-1B, on an observation history) "
                                   "serves, and its training loss is not written")
     dev = resolve_device(args.device)
     owns_group = not dist.is_initialized()

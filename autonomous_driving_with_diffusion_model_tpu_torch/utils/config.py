@@ -174,6 +174,36 @@ def create_cfg() -> CfgNode:
     cfg.MODEL.N_OBS_STEPS = 2  # the requests a plan conditions on
     cfg.MODEL.OBS_FEATURE_DIM = 64  # one frame's image feature
     cfg.MODEL.NUM_KEYPOINTS = 32  # the spatial softmax's keypoints
+    # Port extension: "rdt", RDT-1B (Liu et al., ICLR 2025; models/rdt.py):
+    # a DiT over [t, ctrl_freq, state, HORIZON actions] cross-attending to
+    # an instruction's tokens and to SigLIP's image tokens of N_OBS_STEPS
+    # frames x CAMERAS cameras; DPM-Solver++ with x0 ("sample") prediction;
+    # serving only, one hypothesis, no guidance. Its own keys (widths as
+    # RDT's configs/base.yaml and SigLIP so400m-patch14-384 publish them):
+    cfg.MODEL.RDT = CfgNode()
+    cfg.MODEL.RDT.HIDDEN = 2048
+    cfg.MODEL.RDT.DEPTH = 28
+    cfg.MODEL.RDT.HEADS = 32
+    cfg.MODEL.RDT.STATE_DIM = 128  # the unified action / state vector
+    cfg.MODEL.RDT.LANG_DIM = 4096  # T5-v1.1-XXL's embedding
+    cfg.MODEL.RDT.LANG_SLOTS = 32  # instruction tokens a plan holds
+    cfg.MODEL.RDT.MAX_LANG_LEN = 1024  # the instruction's position table
+    cfg.MODEL.RDT.CAMERAS = 3  # image slots a frame
+    cfg.MODEL.RDT.REAL_CAMERAS = 1  # the first of them; the others the background image
+    cfg.MODEL.RDT.LANG_ADAPTOR = "mlp2x_gelu"
+    cfg.MODEL.RDT.IMG_ADAPTOR = "mlp2x_gelu"
+    cfg.MODEL.RDT.STATE_ADAPTOR = "mlp3x_gelu"
+    cfg.MODEL.RDT.CTRL_FREQ = 10  # Hz
+    # where the transition's channels (x, y, yaw, speed, throttle, steer,
+    # brake) and the target point sit in the unified vector
+    cfg.MODEL.RDT.ACTION_SLOTS = (30, 31, 33, 100, 10, 102, 11)
+    cfg.MODEL.RDT.TARGET_SLOTS = (80, 81)
+    cfg.MODEL.RDT.VISION_WIDTH = 1152
+    cfg.MODEL.RDT.VISION_DEPTH = 27
+    cfg.MODEL.RDT.VISION_HEADS = 16
+    cfg.MODEL.RDT.VISION_MLP = 4304
+    cfg.MODEL.RDT.IMAGE_SIZE = 384
+    cfg.MODEL.RDT.PATCH = 14
 
     # ======= Train =======
     cfg.TRAIN = CfgNode()

@@ -7,7 +7,7 @@ from autonomous_driving_with_diffusion_model_tpu_torch.utils.config import creat
 
 # the port's keys that the JAX package's tree lacks
 PORT_ONLY = ("MODEL.ARCH", "MODEL.STEP_EMBED_DIM", "MODEL.N_OBS_STEPS", "MODEL.OBS_FEATURE_DIM",
-             "MODEL.NUM_KEYPOINTS", "EVAL.THRESHOLDING")
+             "MODEL.NUM_KEYPOINTS", "MODEL.RDT", "EVAL.THRESHOLDING")
 
 
 def jax_cfg_of(cfg):
