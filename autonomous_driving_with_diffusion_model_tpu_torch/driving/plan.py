@@ -42,8 +42,10 @@ device, a third input buffer of the program. ``plan.encode`` preprocesses the
 frames (RDT's square pad and resize), runs SigLIP over every image slot (the
 real camera's frames and the background image in the other cameras' slots)
 and the condition adaptors, with the current target in the state token;
-``plan.denoise`` is DPM-Solver++ over the 64-step chunk in RDT's action space,
-whose transition channels the planner reads. One hypothesis, no guidance.
+``plan.denoise`` turns the conditions into every DiT block's cross-attention
+keys and values once (``RDTRunner.condition_kv``), then runs DPM-Solver++
+over the 64-step chunk in RDT's action space on them, whose transition
+channels the planner reads. One hypothesis, no guidance.
 
 Random numbers come from the planner's CPU generator, so the GPU and the CPU
 planner of one seed draw the same: the init trajectories, and the step noise
@@ -211,12 +213,15 @@ class DiffusionPlanner:
     def _plan(self, init_trajs: torch.Tensor, rgb_u8: torch.Tensor, target: torch.Tensor,
               step_noise: Optional[torch.Tensor], *instruction: torch.Tensor):
         """The plan's body, eagerly: the program ``plan_begin`` runs, and the
-        plain version it is held against."""
+        plain version it is held against. Under an instruction (RDT-1B) the
+        conditions' cross-attention keys and values are made once, at the
+        start of ``plan.denoise``, where the DiT's work counts them."""
         profiling.mark("plan.encode" if self._hoisted else "plan.denoise", steps=self._sample.num_steps)
         K = init_trajs.shape[0]
         if instruction:  # the frames, the target and the instruction (RDT-1B's conditions)
             cond = self.model.encode_obs(rgb_u8, target[-1:], *instruction)
             profiling.mark("plan.denoise")
+            cond = self.model.condition_kv(cond)  # every block's keys and values, once a plan
             actions = self._sample(init_trajs, img_feature=cond)
             return self._choose(self.model.transitions(actions), target[-1:])
         if self._obs_steps:  # the history's frames and targets: the plan's conditioning
@@ -292,9 +297,10 @@ class DiffusionPlanner:
                 prog = self._program
                 launches = prog.programs[prog.key].launches
                 sp.set(key=describe(prog.key), launches=dict(launches))
-                if extra:  # the softmax attention's calls and cross-attention keys of the replay
+                if extra:  # the replay's softmax attention calls, cross-attention keys and tokens projected to them
                     sp.set(**{"rdt.attention": launches.get("attention", 0),
-                              "rdt.cross_keys": launches.get("attention.cross_keys", 0)})
+                              "rdt.cross_keys": launches.get("attention.cross_keys", 0),
+                              "rdt.cross_kv": launches.get("attention.cross_kv", 0)})
             return out
 
     def plan_fetch(self, handle) -> np.ndarray:

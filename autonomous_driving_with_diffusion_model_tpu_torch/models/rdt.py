@@ -43,20 +43,23 @@ inside ``F.scaled_dot_product_attention``.
 
 The model serves only: the train and distill CLIs refuse it; one
 hypothesis, no guidance. The planner encodes a plan's conditions once
-(:meth:`RDTRunner.encode_obs`) and the sampler calls the model each step;
-each step computes the conditions' keys and values again, as RDT does.
+(:meth:`RDTRunner.encode_obs`), turns them into every block's
+cross-attention keys and values once (:meth:`RDTRunner.condition_kv`: the
+position table added, ``kv``, ``k_norm``), and the sampler calls the model
+each step on them; RDT computes them again in every step, and
+:meth:`RDT.forward` still does so when it is given the conditions alone.
 """
 
 from __future__ import annotations
 
 import math
 import re
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
-from ..ops.nn import attention, dense, gelu_tanh, rms_norm
+from ..ops.nn import attention, count_cross_kv, dense, gelu_tanh, rms_norm
 from ..utils.constants import MAGIC_NUM
 from .siglip import SiglipVisionTower, background, square_resize
 
@@ -77,12 +80,15 @@ def adaptor_depth(name: str) -> int:
 class RDTCondition(NamedTuple):
     """A plan's adapted conditions, each (B, tokens, hidden) in the compute
     dtype: the state token, the instruction with its (B, 1, 1, L) boolean
-    padding mask, and the image tokens."""
+    padding mask, and the image tokens; ``kv``, once
+    :meth:`RDTRunner.condition_kv` has made it, each block's
+    cross-attention (k, v) of its condition."""
 
     state: torch.Tensor
     lang: torch.Tensor
     lang_mask: torch.Tensor
     img: torch.Tensor
+    kv: Optional[Tuple[Tuple[torch.Tensor, torch.Tensor], ...]] = None
 
 
 def _adaptor(in_features: int, hidden: int, name: str) -> nn.Sequential:
@@ -172,10 +178,20 @@ class CrossAttention(nn.Module):
         self.q_norm, self.k_norm = RmsNorm(dim // heads), RmsNorm(dim // heads)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor, c: torch.Tensor, mask=None) -> torch.Tensor:
+    def keys_values(self, c: torch.Tensor, pos: torch.Tensor):
+        """The condition c (B, L, dim) as the attention reads it: c plus its
+        position table ``pos`` through ``kv``, k RMS-normalised over the
+        head dim; (k, v), each contiguous (B, heads, L, dim / heads).
+        Counts the B x L tokens (``attention.cross_kv``)."""
+        count_cross_kv(c.shape[0] * c.shape[1])
+        k, v = (_heads(p, self.heads) for p in dense(c + pos, self.kv.weight, self.kv.bias).chunk(2, dim=-1))
+        return self.k_norm(k.contiguous()), v.contiguous()
+
+    def forward(self, x: torch.Tensor, kv, mask=None) -> torch.Tensor:
+        """x (B, N, dim); ``kv`` the condition's (k, v) from
+        :meth:`keys_values`."""
         q = _heads(dense(x, self.q.weight, self.q.bias), self.heads)
-        k, v = (_heads(p, self.heads) for p in dense(c, self.kv.weight, self.kv.bias).chunk(2, dim=-1))
-        o = attention(self.q_norm(q), self.k_norm(k), v, mask, cross=True)
+        o = attention(self.q_norm(q), *kv, mask, cross=True)
         return dense(_merge(o), self.proj.weight, self.proj.bias)
 
 
@@ -189,9 +205,9 @@ class RDTBlock(nn.Module):
         self.ffn = Mlp(dim, dim, dim)
         self.norm3 = RmsNorm(dim)
 
-    def forward(self, x: torch.Tensor, c: torch.Tensor, mask=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, kv, mask=None) -> torch.Tensor:
         x = x + self.attn(self.norm1(x))
-        x = x + self.cross_attn(self.norm2(x), c, mask)
+        x = x + self.cross_attn(self.norm2(x), kv, mask)
         return x + self.ffn(self.norm3(x))
 
 
@@ -207,7 +223,9 @@ class FinalLayer(nn.Module):
 
 class RDT(nn.Module):
     """RDT's DiT: ``forward(x, freq, t, lang_c, img_c, lang_mask)`` with x the
-    (B, 1 + horizon, hidden) state and action tokens."""
+    (B, 1 + horizon, hidden) state and action tokens; the blocks read their
+    conditions' keys and values from ``kv`` (:meth:`condition_kv`), made
+    from ``lang_c`` and ``img_c`` where it is not given."""
 
     def __init__(self, out: int, horizon: int, hidden: int, depth: int, heads: int, max_lang_len: int,
                  img_len: int):
@@ -221,17 +239,23 @@ class RDT(nn.Module):
         self.blocks = nn.ModuleList([RDTBlock(hidden, heads) for _ in range(depth)])
         self.final_layer = FinalLayer(hidden, out)
 
-    def forward(self, x, freq, t, lang_c, img_c, lang_mask):
+    def condition_kv(self, lang_c: torch.Tensor, img_c: torch.Tensor):
+        """Every block's cross-attention (k, v) of its condition
+        (:meth:`CrossAttention.keys_values`), with the condition's position
+        table: block i's of ``lang_c`` if i is even, of ``img_c`` if odd."""
+        conds = ((lang_c, self.lang_cond_pos_embed[:, :lang_c.shape[1]]), (img_c, self.img_cond_pos_embed))
+        return tuple(block.cross_attn.keys_values(*conds[i % 2]) for i, block in enumerate(self.blocks))
+
+    def forward(self, x, freq, t, lang_c, img_c, lang_mask, kv=None):
         dt = x.dtype
         B = x.shape[0]
         t = self.t_embedder(t, dt)[:, None].expand(B, -1, -1)
         freq = self.freq_embedder(freq, dt)[:, None].expand(B, -1, -1)
         x = torch.cat([t, freq, x], dim=1) + self.x_pos_embed
-        lang_c = lang_c + self.lang_cond_pos_embed[:, :lang_c.shape[1]]
-        img_c = img_c + self.img_cond_pos_embed
-        conds, masks = (lang_c, img_c), (lang_mask, None)
+        kv = self.condition_kv(lang_c, img_c) if kv is None else kv
+        masks = (lang_mask, None)
         for i, block in enumerate(self.blocks):
-            x = block(x, conds[i % 2], masks[i % 2])
+            x = block(x, kv[i], masks[i % 2])
         return self.final_layer(x)[:, -self.horizon:]
 
 
@@ -326,16 +350,23 @@ class RDTRunner(nn.Module):
         lang = _adapt(self.lang_adaptor, lang.to(dt)[None])
         return RDTCondition(state, lang, lang_mask.to(torch.bool).reshape(1, 1, 1, -1), img)
 
+    def condition_kv(self, cond: RDTCondition) -> RDTCondition:
+        """``cond`` with every block's cross-attention keys and values of
+        its conditions (``kv``), which the steps of a plan then read."""
+        return cond._replace(kv=self.model.condition_kv(cond.lang, cond.img))
+
     def forward(self, x: torch.Tensor, time: torch.Tensor, img_feature: RDTCondition) -> torch.Tensor:
         """The x0 prediction of one step: x (B, horizon, STATE_DIM) the noisy
         action chunk; time (B,); ``img_feature`` the plan's conditions (the
-        sampler's name for them) -> (B, horizon, STATE_DIM)."""
+        sampler's name for them), with their keys and values where
+        :meth:`condition_kv` made them -> (B, horizon, STATE_DIM)."""
         c, dt, B = img_feature, self.dtype, x.shape[0]
         mask = self.action_mask.to(dt).expand(B, x.shape[1], -1)
         actions = _adapt(self.state_adaptor, torch.cat([x.to(dt), mask], -1))
         tokens = torch.cat([c.state.expand(B, -1, -1), actions], dim=1)
         freq = torch.full((B,), self.ctrl_freq, dtype=torch.float32, device=x.device)
-        return self.model(tokens, freq, time, c.lang.expand(B, -1, -1), c.img.expand(B, -1, -1), c.lang_mask)
+        kv = None if c.kv is None else tuple((k.expand(B, -1, -1, -1), v.expand(B, -1, -1, -1)) for k, v in c.kv)
+        return self.model(tokens, freq, time, c.lang.expand(B, -1, -1), c.img.expand(B, -1, -1), c.lang_mask, kv)
 
     def transitions(self, actions: torch.Tensor) -> torch.Tensor:
         """The driving transitions of an action chunk: (B, horizon,

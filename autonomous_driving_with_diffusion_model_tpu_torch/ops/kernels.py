@@ -45,9 +45,11 @@ streaming kernel and its finishing kernel), on the folded path (``folded``)
 and those of any path launched with programmatic dependent launch (``pdl``),
 and its launches with the FiLM epilogue (``film``, one a FiLM call)
 (:func:`launch_counts`). The counts also hold ``ops/nn.py:attention``'s
-calls and cross-attention key tokens (:data:`ATTENTION`). A CUDA graph's
-capture records its launches in :func:`recorded_launches`, which leaves the
-counts as they were, and each replay adds them (:func:`add_launch_counts`).
+calls and cross-attention key tokens, and the condition tokens projected to
+cross-attention keys and values (``ops/nn.py:count_cross_kv``; :data:`ATTENTION`).
+A CUDA graph's capture records its launches in :func:`recorded_launches`,
+which leaves the counts as they were, and each replay adds them
+(:func:`add_launch_counts`).
 
 Neither TPU kernel has a backward (the JAX package trains through the XLA
 composite, ``TPU.USE_PALLAS_CONV`` off). So when a CUDA call needs a gradient,
@@ -797,14 +799,16 @@ PATHS = ("fused_residual_block.one_wave", "fused_residual_block.pdl", "fused_res
 # (one a FiLM call)
 FILM = "fused_residual_block.film"
 # launch_counts' keys of the softmax attention (``ops/nn.py:attention``): its
-# calls, and the key tokens its cross-attention calls read
-ATTENTION = ("attention", "attention.cross_keys")
+# calls, the key tokens its cross-attention calls read, and the condition
+# tokens projected to cross-attention keys and values (``ops/nn.py:count_cross_kv``)
+ATTENTION = ("attention", "attention.cross_keys", "attention.cross_kv")
 
 
 # (key, wrapper, attribute) of every count
 _COUNTERS = tuple((f.__name__, f, "launches") for f in (fused_conv1d_gn_mish, fused_residual_block)) + tuple(
     (key, fused_residual_block, key.split(".")[1]) for key in (*PATHS, FILM)) + (
-    (ATTENTION[0], attention, "calls"), (ATTENTION[1], attention, "cross_keys"))
+    (ATTENTION[0], attention, "calls"), (ATTENTION[1], attention, "cross_keys"),
+    (ATTENTION[2], attention, "cross_kv"))
 
 
 def reset_launch_counts() -> None:
@@ -816,8 +820,9 @@ def launch_counts() -> Dict[str, int]:
     """Each wrapper's launch count (calls), by the wrapper's name, the
     residual block's launches on the one-wave, streamed and folded paths and
     with programmatic dependent launch (:data:`PATHS`), its FiLM launches
-    (:data:`FILM`), and the softmax attention's calls and cross-attention
-    key tokens (:data:`ATTENTION`)."""
+    (:data:`FILM`), the softmax attention's calls and cross-attention key
+    tokens, and the cross-attention's condition tokens projected to keys
+    and values (:data:`ATTENTION`)."""
     return {key: getattr(f, attr) for key, f, attr in _COUNTERS}
 
 

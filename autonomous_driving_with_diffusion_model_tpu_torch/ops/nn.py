@@ -30,6 +30,7 @@ __all__ = [
     "rms_norm",
     "gelu_tanh",
     "attention",
+    "count_cross_kv",
 ]
 
 
@@ -126,7 +127,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[
     return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
 
-attention.calls = attention.cross_keys = 0
+attention.calls = attention.cross_keys = attention.cross_kv = 0
+
+
+def count_cross_kv(tokens: int) -> None:
+    """Count ``tokens`` condition tokens projected to a cross-attention's
+    keys and values (``attention.cross_kv``), beside the attention's own
+    counts in the launch counts of ``ops/kernels.py``."""
+    attention.cross_kv += tokens
 
 
 def conv1d(

@@ -6,7 +6,9 @@ DPM-Solver++ grid without a lambda clip, each held on the CPU to
 port) or to diffusers' formulas, at a small size on seeded random weights;
 the parameter count of the published sizes; the reference's planted faults
 (the language mask dropped, the alternation swapped) beyond the tolerance;
-the family's refusals. On a card (``gpu``): a bfloat16 plan's graph against
+the plan's cached cross-attention keys and values against the uncached
+forward, made once a plan, and against a cache with its parities swapped; the
+family's refusals. On a card (``gpu``): a bfloat16 plan's graph against
 its eager body, and the ``plan`` span's attention counts.
 ``python -m pytest tests/test_torch_rdt.py -m gpu --noconftest`` runs the
 card's part without JAX.
@@ -170,6 +172,55 @@ def test_attention_is_counted(planned):
     assert counts["attention.cross_keys"] == 3 * 5 * (2 * 8 + 2 * 96)
 
 
+def test_cross_keys_and_values_are_made_once_a_plan(planned):
+    """Each plan projects the 8 instruction tokens in the 2 even blocks and
+    the 96 image tokens in the 2 odd ones to keys and values once, not in
+    each of its 5 steps."""
+    assert planned["counts"]["attention.cross_kv"] == 3 * (2 * 8 + 2 * 96)
+
+
+def _conditions(seed=3):
+    """The port's model and a plan's conditions under an instruction of 5
+    valid tokens in 8."""
+    port, _, d, _ = _pair(seed)
+    rng = np.random.default_rng(seed)
+    tokens, mask = (torch.from_numpy(a) for a in _instruction(rng, d, 5))
+    frames = torch.from_numpy(rng.integers(0, 256, (2, *HW, 3), dtype=np.uint8))
+    with torch.no_grad():
+        cond = port.encode_obs(frames, torch.tensor([[0.3, -0.4]]), tokens, mask)
+    return port, cond
+
+
+def test_cached_keys_and_values_give_the_uncached_forward_exactly():
+    """The runner's x0 from the plan's cached keys and values equals, bit
+    for bit, its x0 from the conditions alone at every t, under a masked
+    instruction; the cache is made once (one pass of the conditions'
+    tokens) and the cached steps project nothing. A cache of the image
+    tokens in the even blocks and of the instruction in the odd ones (no
+    mask, so that both fit either block) gives another x0: the cache
+    carries the alternation."""
+    port, cond = _conditions()
+    m, g = port.model, torch.Generator().manual_seed(1)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        cached = port.condition_kv(cond)
+        assert kernels.launch_counts()["attention.cross_kv"] == 2 * 8 + 2 * 96
+        assert len(cached.kv) == 4 and all(k.is_contiguous() and v.is_contiguous() for k, v in cached.kv)
+        assert [k.shape for k, _ in cached.kv] == [(1, 4, 8, 16), (1, 4, 96, 16)] * 2
+        for t in (999.0, 599.0, 200.0, 0.0):
+            x, time = torch.randn(1, 8, 16, generator=g), torch.tensor([t])
+            before = kernels.launch_counts()["attention.cross_kv"]
+            got = port(x, time, cached)
+            assert kernels.launch_counts()["attention.cross_kv"] == before
+            want = port(x, time, cond)
+            assert kernels.launch_counts()["attention.cross_kv"] == before + 2 * 8 + 2 * 96
+            assert torch.equal(got, want), t
+        conds = ((cond.lang, m.lang_cond_pos_embed[:, :8]), (cond.img, m.img_cond_pos_embed))
+        swapped = tuple(b.cross_attn.keys_values(*conds[1 - i % 2]) for i, b in enumerate(m.blocks))
+        sound = port(x, time, cached._replace(lang_mask=None))
+        assert (port(x, time, cached._replace(lang_mask=None, kv=swapped)) - sound).abs().max() > 1e3 * TOL
+
+
 @pytest.mark.parametrize("variant", ["mask_ignored", "alternation_swapped", "t_off_by_one"])
 def test_planted_faults_are_beyond_the_tolerance(planned, variant):
     """The reference with a fault planted: far from the port's plans."""
@@ -325,7 +376,8 @@ def _need_card():
 def test_cuda_bfloat16_plan_graph_matches_its_eager_body_and_counts_attention():
     """A small bfloat16 plan on the card: each plan one replay of a captured
     graph, equal to the eager body on the same inputs; the ``plan`` span
-    carries the replay's attention calls and cross-attention keys."""
+    carries the replay's attention calls, cross-attention keys and the
+    condition tokens projected to them, once a plan."""
     _need_card()
     from autonomous_driving_with_diffusion_model_tpu_torch.driving.plan import DiffusionPlanner
     from autonomous_driving_with_diffusion_model_tpu_torch.utils import profiling
@@ -351,5 +403,6 @@ def test_cuda_bfloat16_plan_graph_matches_its_eager_body_and_counts_attention():
     spans = [s for s in profiling.report()["spans"] if s["name"] == "plan"]
     assert spans[-1]["attrs"]["rdt.attention"] == 2 + 5 * 8
     assert spans[-1]["attrs"]["rdt.cross_keys"] == 5 * (2 * 8 + 2 * 96)
+    assert spans[-1]["attrs"]["rdt.cross_kv"] == 2 * 8 + 2 * 96
     rep = profiling.report()
     assert any("plan.encode" in r["spans"] and "plan.denoise" in r["spans"] for r in rep["device_spans"])
