@@ -19,8 +19,10 @@ plan is one replay, with no Python between its ~10,000 launches:
   to set here;
 * the key is the frame's shape, K, the step noise's shape, the compute
   dtype, the further inputs' shapes and the weights' generation: the weights are followed by
-  :func:`weights_key`, ``data_ptr`` and ``_version`` of every parameter and
-  buffer of the planner's modules. A capture bakes in the pointers of the
+  ``data_ptr`` and ``_version`` of every parameter and buffer of the
+  planner's modules, read through a
+  :class:`~..ops.program.ModuleTensors`, which walks the modules again only
+  where their structure may have changed. A capture bakes in the pointers of the
   cached kernel packs, so weights that change after a capture
   (``load_state_dict``, an EMA copy, a training program's replay) drop
   every program of the old weights and the next plan captures anew;
@@ -29,7 +31,8 @@ plan is one replay, with no Python between its ~10,000 launches:
   graph is held against.
 
 Tracing (``utils/profiling.py``). A call records the host spans
-``plan.weights_key`` (the walk of :func:`weights_key`), ``plan.inputs`` (the
+``plan.weights_key`` (the weights' key, and a walk of the modules where
+their structure changed), ``plan.inputs`` (the
 key, the buffers, the copies into them, the frame's pageable copy among
 them), ``plan.build`` on a miss, ``plan.replay`` (the replay's launch; on
 the CPU the body) and ``plan.outputs`` (the clones), children of the
@@ -38,7 +41,8 @@ marks (``DiffusionPlanner._plan``: ``plan.encode``, ``plan.denoise``,
 ``plan.score``; at most :data:`MARKERS` markers), each replay's written on
 the device and read only by ``profiling.report()``. A build counts
 ``captures.plan`` and its seconds (the warm run and the capture), a new
-weights generation ``weights_generations.plan``.
+weights generation ``weights_generations.plan``, a walk of the modules
+``weights_walks.plan``.
 
 The kernels' launch counts: neither the warm run nor the capture counts,
 and the key's first plan replays after its build, so a plan counts the
@@ -59,15 +63,9 @@ import torch
 from ..ops import program
 from ..utils import profiling
 
-__all__ = ["PlanProgram", "weights_key", "describe", "MARKERS"]
+__all__ = ["PlanProgram", "describe", "MARKERS"]
 
 MARKERS = 6  # device-span markers a plan graph may hold
-
-
-def weights_key(modules) -> Tuple:
-    """:func:`~..ops.program.tensors_key` of every parameter and buffer of
-    ``modules``, in order."""
-    return program.tensors_key([t for m in modules for t in (*m.parameters(), *m.buffers())])
 
 
 class PlanProgram(program.Programs):
@@ -79,7 +77,7 @@ class PlanProgram(program.Programs):
 
     def __init__(self, modules, device, dtype: torch.dtype):
         super().__init__(device)
-        self.modules = list(modules)
+        self.weights = program.ModuleTensors(modules, "weights_walks.plan")
         self.dtype = dtype
         self._lock = threading.Lock()  # one plan at a time on the shared buffers
 
@@ -88,7 +86,7 @@ class PlanProgram(program.Programs):
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         with self._lock:
             with profiling.span("plan.weights_key"):
-                if self.follow(weights_key(self.modules)):
+                if self.follow(self.weights.key()):
                     profiling.count("weights_generations.plan")
             with profiling.span("plan.inputs"):
                 self.key = key = (tuple(frame.shape), int(init.shape[0]),

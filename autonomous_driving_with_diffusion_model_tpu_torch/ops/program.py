@@ -37,7 +37,9 @@ tensors its graphs read by :func:`tensors_key` (``data_ptr`` and
 ``_version`` of each): when that key moves (a ``load_state_dict``, a resume,
 an EMA copy), :meth:`Programs.follow` drops every program and counts a new
 generation, which the owner's keys carry. An old graph is never replayed on
-tensors it was not captured on.
+tensors it was not captured on. An owner that follows every parameter and
+buffer of some modules keys them through a :class:`ModuleTensors`, which
+walks the modules only when their structure may have changed.
 
 On the CPU only the keys and the buffers run: the owners call their bodies
 on the same buffers.
@@ -46,21 +48,106 @@ on the same buffers.
 from __future__ import annotations
 
 import contextlib
+import itertools
+import operator
 import time
-from typing import Callable, Dict, Optional, Tuple
+import weakref
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.nn.modules import module as _module
 
 from ..utils import profiling
 from . import kernels
 
-__all__ = ["Program", "Programs", "tensors_key"]
+__all__ = ["ModuleTensors", "Program", "Programs", "tensors_key"]
 
 
-def tensors_key(tensors) -> Tuple:
-    """``(data_ptr, _version)`` of each tensor, in order: it changes when any
-    of them is written in place (outside a replay) or replaced."""
-    return tuple((t.data_ptr(), t._version) for t in tensors)
+_version_of = operator.attrgetter("_version")
+
+
+def tensors_key(tensors: List[torch.Tensor]) -> Tuple:
+    """The ``data_ptr`` and the ``_version`` of each tensor, in order: the key
+    changes when any of them is written in place (outside a replay) or
+    replaced, or its ``data`` is set (``param.data = x``, ``Module.to``)."""
+    return tuple(map(torch.Tensor.data_ptr, tensors)), tuple(map(_version_of, tensors))
+
+
+# The modules of every follower's trees, and a number for each parameter,
+# buffer or submodule registered (set, replaced or set to None) into one of
+# them: by ``register_*``, ``add_module`` or an attribute assignment,
+# ``load_state_dict(assign=True)`` and a ``ModuleList``'s or
+# ``Sequential``'s item assignment among them. Each such registration sets
+# ``_registration`` to a number never used before; a registration into a
+# module outside them (a module being built, a ``Sequential`` slice) leaves it.
+_watched: "weakref.WeakSet[torch.nn.Module]" = weakref.WeakSet()
+_registration_numbers = itertools.count(1)
+_registration = 0
+
+
+def _registered(module, *_) -> None:
+    global _registration
+    if module in _watched:
+        _registration = next(_registration_numbers)
+
+
+for _register in (_module.register_module_parameter_registration_hook,
+                  _module.register_module_buffer_registration_hook,
+                  _module.register_module_module_registration_hook):
+    _register(_registered)
+
+
+class ModuleTensors:
+    """Every parameter and buffer of the module trees ``modules``, followed
+    without walking the trees on every call.
+
+    A walk (:meth:`walk`) lists each module of the trees once and the slot
+    of each parameter and buffer (its module's ``_parameters`` or
+    ``_buffers`` and its name), the parameters first. :meth:`key` is
+    :func:`tensors_key` of the tensors read from those slots at the call, so
+    a tensor put into its slot by any path is keyed, the buffers that
+    ``Module.to`` replaces without a registration among them. It walks
+    first where the structure may have changed since the last walk: a
+    registration into a module of any follower's trees, another number of
+    submodules in a walked module (a deletion, a ``ModuleList.insert``), or
+    a slot gone (a parameter or buffer deleted). ``walks`` counts the walks,
+    and so does the counter ``counter`` where given."""
+
+    def __init__(self, modules, counter: Optional[str] = None):
+        self.modules = list(modules)
+        self.counter = counter
+        self.walks = 0
+        self._registration = -1
+        self._children: List[dict] = []
+        self._sizes: List[int] = []
+        self._slot_dicts: List[dict] = []
+        self._slot_names: List[str] = []
+
+    def walk(self) -> None:
+        """List the trees' modules' ``_modules`` and the tensors' slots."""
+        self._registration = _registration
+        mods = [m for top in self.modules for m in top.modules()]
+        _watched.update(mods)
+        self._children = [m._modules for m in mods]
+        self._sizes = list(map(len, self._children))
+        slots = [(d, name) for d in (*(m._parameters for m in mods), *(m._buffers for m in mods))
+                 for name, t in d.items() if t is not None]
+        self._slot_dicts, self._slot_names = [d for d, _ in slots], [name for _, name in slots]
+        self.walks += 1
+        if self.counter is not None:
+            profiling.count(self.counter)
+
+    def key(self) -> Tuple:
+        """:func:`tensors_key` of every parameter and buffer, walking first
+        where the structure may have changed."""
+        if self._registration != _registration or list(map(len, self._children)) != self._sizes:
+            self.walk()
+        try:
+            tensors = list(map(operator.getitem, self._slot_dicts, self._slot_names))
+        except KeyError:  # a parameter or buffer deleted
+            self.walk()
+            tensors = list(map(operator.getitem, self._slot_dicts, self._slot_names))
+        return tensors_key(tensors)
 
 
 class Program:

@@ -103,7 +103,8 @@ def test_planner_records_its_host_spans_on_the_cpu():
         assert all(s["request"] == request for s in children)
         assert by_request(rep["spans"], "plan.fetch")[request]["parent"] is None
     assert rep["device_spans"] == [] and rep["graphs"] == []
-    assert rep["counters"] == {"weights_generations.plan": {"count": 1, "seconds": 0.0}}
+    assert rep["counters"] == {"weights_generations.plan": {"count": 1, "seconds": 0.0},
+                               "weights_walks.plan": {"count": 1, "seconds": 0.0}}
 
 
 def test_new_weights_are_a_new_generation_on_the_cpu():
